@@ -1,0 +1,55 @@
+"""Network base and the JAX package's initializers.
+
+Port of ``agents_tpu/networks/network.py``. A network is an `nn.Module`
+that keeps the specs it was built from and follows the JAX package's
+calling convention:
+
+    output, new_state = net(observation, step_type, network_state)
+
+Stateless networks take and return ``network_state=()``. Parameters live in
+the module; they are initialised at construction from an explicit
+`torch.Generator`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+# Standard deviation of a unit normal cut at +-2 sigma (flax's constant).
+_TRUNCATED_NORMAL_STDDEV = 0.87962566103423978
+
+
+def variance_scaling_(weight: torch.Tensor, scale: float = 2.0,
+                      generator: Optional[torch.Generator] = None):
+  """Flax's ``variance_scaling(scale, "fan_in", "truncated_normal")`` on a
+  Linear weight ``[out, in]``: std = sqrt(scale / fan_in) / 0.8796...,
+  cut at +-2 std."""
+  fan_in = weight.shape[1]
+  std = math.sqrt(scale / fan_in) / _TRUNCATED_NORMAL_STDDEV
+  with torch.no_grad():
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def uniform_symmetric_(weight: torch.Tensor, scale: float,
+                       generator: Optional[torch.Generator] = None):
+  """U(-scale, scale)."""
+  with torch.no_grad():
+    return nn.init.uniform_(weight, -scale, scale, generator=generator)
+
+
+class Network(nn.Module):
+  """An nn.Module with the specs it was built from.
+
+  Attributes:
+    input_spec: observation spec nest the module consumes.
+    state_spec: nest of ArraySpec for recurrent state (() if stateless).
+  """
+
+  def __init__(self, input_spec, state_spec=()):
+    super().__init__()
+    self.input_spec = input_spec
+    self.state_spec = state_spec

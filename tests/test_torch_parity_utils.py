@@ -1,0 +1,154 @@
+"""Parity helpers for the PyTorch port's tests, and tests of the port's nest
+and draw-source utilities.
+
+The port (`agents_tpu_torch`) and the JAX package cannot share random
+numbers, so every JAX stochastic site's draws are re-derived here from the
+same key splits the JAX package makes, then replayed into the port through
+`agents_tpu_torch.utils.draws.ReplayDraws`. Data crosses between the two as
+numpy arrays. Float32 comparisons use rtol 1e-5 / atol 1e-6 unless a test
+says otherwise.
+"""
+import dataclasses
+from typing import NamedTuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from agents_tpu.environments.classic.cartpole import CartPole as JaxCartPole
+from agents_tpu.specs import array_spec as jax_array_spec
+from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def to_np(x):
+  if isinstance(x, torch.Tensor):
+    return x.detach().cpu().numpy()
+  return np.asarray(x)
+
+
+def assert_close(actual, expected, rtol=RTOL, atol=ATOL, err_msg=""):
+  np.testing.assert_allclose(to_np(actual), to_np(expected), rtol=rtol,
+                             atol=atol, err_msg=err_msg)
+
+
+def assert_equal(actual, expected, err_msg=""):
+  np.testing.assert_array_equal(to_np(actual), to_np(expected),
+                                err_msg=err_msg)
+
+
+def jax_reset_draws(key, batch_size):
+  """CartPole reset draws of `BatchedJaxEnv.reset(key)`: [B, 4]."""
+  keys = jax.random.split(key, batch_size)
+  return np.asarray(jax.vmap(JaxCartPole().reset)(keys)[1].observation)
+
+
+def _collect_step_draws(step_key, batch_size, action_spec):
+  """One `JaxDriver.run` step's draws: epsilon-greedy's random action and
+  coin (wrappers.py:78-125) and the env's auto-reset draws
+  (jax_environment.py:107-115)."""
+  k_pol, k_env = jax.random.split(step_key)
+  _, k_rand, k_mix = jax.random.split(k_pol, 3)
+  random_action = jax_array_spec.sample_spec_nest(
+      action_spec, k_rand, outer_dims=(batch_size,))
+  coin = jax.random.uniform(k_mix, (batch_size,))
+  return random_action, coin, _env_step_reset_draws(k_env, batch_size)
+
+
+def _env_step_reset_draws(k_env, batch_size):
+  _, reset_keys = jax.vmap(lambda k: tuple(jax.random.split(k)))(
+      jax.random.split(k_env, batch_size))
+  return jax.vmap(JaxCartPole().reset)(reset_keys)[1].observation
+
+
+def jax_collect_draws(key, num_steps, batch_size, action_spec):
+  """Per-site draws of `JaxDriver.run(..., key, num_steps)`."""
+  keys = jax.random.split(key, num_steps)
+  actions, coins, resets = jax.vmap(
+      lambda k: _collect_step_draws(k, batch_size, action_spec))(keys)
+  return {"random_action": list(np.asarray(actions)),
+          "explore": list(np.asarray(coins)),
+          "env_reset": list(np.asarray(resets))}
+
+
+def jax_sample_draws(key, sample_batch_size, num_valid, batch_size):
+  """`UniformReplay.sample(state, key, ...)`'s draws (uniform_replay.py:164-
+  170): the window-start offsets in [0, num_valid) and the rows."""
+  k_t, k_b = jax.random.split(key)
+  t0 = jax.random.randint(k_t, (sample_batch_size,), 0, jnp.int32(num_valid))
+  rows = jax.random.randint(k_b, (sample_batch_size,), 0, batch_size)
+  return {"replay_t0": [np.asarray(t0)], "replay_rows": [np.asarray(rows)]}
+
+
+def jax_eval_reset_draws(key, batch_size, num_steps):
+  """`JaxEpisodeDriver.run`'s per-step reset draws from its loop key
+  (jax_driver.py:163-167), for `num_steps` steps: [num_steps, B, 4]."""
+
+  def body(k, _):
+    k, _, k_env = jax.random.split(k, 3)
+    return k, _env_step_reset_draws(k_env, batch_size)
+
+  _, draws = jax.lax.scan(body, key, None, length=num_steps)
+  return list(np.asarray(draws))
+
+
+def merge_draws(*records):
+  out = {}
+  for rec in records:
+    for site, values in rec.items():
+      out.setdefault(site, []).extend(values)
+  return out
+
+
+# -- tests of the port's nest and draw utilities ----------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Pair:
+  a: object
+  b: object
+
+
+class _Named(NamedTuple):
+  x: object
+  y: object
+
+
+def test_tree_map_over_dataclass_namedtuple_dict_and_empty_nodes():
+  tree = _Pair(a=_Named(x=1, y=[2, 3]), b={"k": 4, "e": ()})
+  out = nest_utils.tree_map(lambda v, w: v * 10 + w, tree, tree)
+  assert out == _Pair(a=_Named(x=11, y=[22, 33]), b={"k": 44, "e": ()})
+  assert nest_utils.flatten(tree) == [1, 2, 3, 4]
+
+
+def test_where_broadcasts_condition_over_inner_dims():
+  cond = torch.tensor([True, False])
+  t = {"v": torch.ones(2, 3), "s": torch.ones(2)}
+  f = {"v": torch.zeros(2, 3), "s": torch.zeros(2)}
+  out = nest_utils.where(cond, t, f)
+  assert_equal(out["v"], [[1, 1, 1], [0, 0, 0]])
+  assert_equal(out["s"], [1, 0])
+
+
+def test_replay_draws_check_shape_and_run_dry():
+  draws = ReplayDraws({"s": [np.arange(3)]})
+  assert_equal(draws.randint("s", (3,), 0, 5), [0, 1, 2])
+  with pytest.raises(LookupError):
+    draws.randint("s", (3,), 0, 5)
+  with pytest.raises(ValueError):
+    ReplayDraws({"s": [np.arange(3)]}).uniform("s", (4,))
+
+
+def test_recorded_draws_replay_identically():
+  rec = RecordingDraws(Draws(3, "cpu"))
+  first = [rec.uniform("u", (4,), -1.0, 1.0), rec.randint("i", (5,), 0, 7)]
+  replay = ReplayDraws(rec.records)
+  assert_equal(replay.uniform("u", (4,)), first[0])
+  assert_equal(replay.randint("i", (5,), 0, 7), first[1])
+  u = first[0]
+  assert bool(((u >= -1.0) & (u < 1.0)).all())
