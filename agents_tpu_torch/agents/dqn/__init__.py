@@ -1,5 +1,6 @@
-from agents_tpu_torch.agents.dqn.dqn_agent import (DdqnAgent, DqnAgent,
-                                                   DqnAgentState,
+from agents_tpu_torch.agents.dqn.dqn_agent import (D3qnAgent, DdqnAgent,
+                                                   DqnAgent, DqnAgentState,
                                                    DqnLossExtra)
 
-__all__ = ["DdqnAgent", "DqnAgent", "DqnAgentState", "DqnLossExtra"]
+__all__ = ["D3qnAgent", "DdqnAgent", "DqnAgent", "DqnAgentState",
+           "DqnLossExtra"]

@@ -1,6 +1,6 @@
-"""DQN / DDQN agents, feed-forward Q networks.
+"""DQN / DDQN / D3QN agents, feed-forward Q networks.
 
-Port of `DqnAgent`, `DdqnAgent` and `_ScheduledQPolicy` of
+Port of `DqnAgent`, `DdqnAgent`, `D3qnAgent` and `_ScheduledQPolicy` of
 ``agents_tpu/agents/dqn/dqn_agent.py``:
   - epsilon-greedy collect and greedy eval policies; the collect params are
     always {"q", "train_step"} (:105-118);
@@ -170,8 +170,7 @@ class DqnAgent(Agent):
         train_step, self.target_update_period, q_network.parameters(),
         agent_state.target_q_network.parameters(), self.target_update_tau)
     new_state = dataclasses.replace(agent_state, train_step=train_step)
-    extra = DqnLossExtra(td_loss=extra.td_loss.detach(),
-                         td_error=extra.td_error.detach())
+    extra = nest_utils.tree_map(torch.Tensor.detach, extra)
     return new_state, LossInfo(loss=loss.detach(), extra=extra)
 
 
@@ -185,3 +184,8 @@ class DdqnAgent(DqnAgent):
     q_target, _ = agent_state.target_q_network(
         next_time_steps.observation, next_time_steps.step_type, ())
     return common.index_with_actions(q_target, best)
+
+
+# D3QN is Double DQN with a dueling Q network: build the agent with
+# ``make_q_network(..., dueling=True)`` (the JAX package's D3qnAgent).
+D3qnAgent = DdqnAgent

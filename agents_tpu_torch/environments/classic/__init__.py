@@ -1,3 +1,6 @@
 from agents_tpu_torch.environments.classic.cartpole import CartPole
+from agents_tpu_torch.environments.classic.catch import Catch
+from agents_tpu_torch.environments.classic.synthetic_pixels import (
+    SyntheticPixels)
 
-__all__ = ["CartPole"]
+__all__ = ["CartPole", "Catch", "SyntheticPixels"]

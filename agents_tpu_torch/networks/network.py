@@ -16,6 +16,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # Standard deviation of a unit normal cut at +-2 sigma (flax's constant).
@@ -25,9 +26,10 @@ _TRUNCATED_NORMAL_STDDEV = 0.87962566103423978
 def variance_scaling_(weight: torch.Tensor, scale: float = 2.0,
                       generator: Optional[torch.Generator] = None):
   """Flax's ``variance_scaling(scale, "fan_in", "truncated_normal")`` on a
-  Linear weight ``[out, in]``: std = sqrt(scale / fan_in) / 0.8796...,
-  cut at +-2 std."""
-  fan_in = weight.shape[1]
+  Linear weight ``[out, in]`` or a conv weight ``[out, in, kh, kw]``:
+  std = sqrt(scale / fan_in) / 0.8796..., cut at +-2 std, where fan_in is
+  ``in * kh * kw`` (flax's fan-in of the HWIO kernel)."""
+  fan_in = math.prod(weight.shape[1:])
   std = math.sqrt(scale / fan_in) / _TRUNCATED_NORMAL_STDDEV
   with torch.no_grad():
     return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -39,6 +41,13 @@ def uniform_symmetric_(weight: torch.Tensor, scale: float,
   """U(-scale, scale)."""
   with torch.no_grad():
     return nn.init.uniform_(weight, -scale, scale, generator=generator)
+
+
+def cast_linear(x: torch.Tensor, layer: nn.Linear,
+                dtype: torch.dtype) -> torch.Tensor:
+  """`layer` applied in `dtype`: its float32 weight and bias are cast at
+  use, as flax's ``Dense(dtype=...)`` does with float32 params."""
+  return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class Network(nn.Module):

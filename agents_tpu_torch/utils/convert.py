@@ -1,14 +1,20 @@
-"""Carry weights from the JAX package's Q network into the port.
+"""Carry weights from the JAX package's Q networks into the port.
 
 Takes numpy only (``jax.device_get`` of the JAX side's params on the
-caller's side), so it imports nothing of JAX. The flax tree that
-``make_q_network(..., fc_layer_params=(100, 50))`` builds is
+caller's side), so it imports nothing of JAX. The flax tree of a Q
+network is
 
-    {"params": {"EncoderModule_0": {"Dense_0": {"kernel": [4, 100], "bias"},
-                                    "Dense_1": {"kernel": [100, 50], "bias"}},
-                "Dense_0": {"kernel": [50, 2], "bias"}}}
+    {"params": {"EncoderModule_0": {"Conv_0": {"kernel": [kh, kw, I, O],
+                                               "bias": [O]}, ...,
+                                    "Dense_0": {"kernel": [in, out],
+                                                "bias": [out]}, ...},
+                "Dense_0": ...}}
 
-A flax Dense kernel is ``[in, out]``; a torch Linear weight is ``[out, in]``.
+with one head `Dense_0` for `QModule` (the Q values) and
+`CategoricalQModule` (the logits), and two for `DuelingQModule`:
+`Dense_0` the value, `Dense_1` the advantages. A flax Dense kernel is
+``[in, out]`` where a torch Linear weight is ``[out, in]``; a flax Conv
+kernel is HWIO where a torch Conv2d weight is OIHW.
 """
 from __future__ import annotations
 
@@ -19,23 +25,40 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+_HEADS = {("Dense_0",): ("q_head",),
+          ("Dense_0", "Dense_1"): ("value_head", "advantage_head")}
+
+
+def _layers(tree: Mapping, prefix: str):
+  """`tree`'s `prefix`_0, _1, ... entries, in order."""
+  out = []
+  while f"{prefix}_{len(out)}" in tree:
+    out.append(tree[f"{prefix}_{len(out)}"])
+  return out
+
 
 def q_params_to_state_dict(params: Mapping) -> "collections.OrderedDict":
-  """flax QModule params -> `QModule.state_dict()` (in parameter order)."""
+  """flax Q-network params -> the port module's `state_dict()` (in
+  parameter order). Raises on an entry it does not know."""
   tree = params["params"]
   encoder = tree["EncoderModule_0"]
   out = collections.OrderedDict()
-  i = 0
-  while f"Dense_{i}" in encoder:
-    dense = encoder[f"Dense_{i}"]
+  convs, denses = _layers(encoder, "Conv"), _layers(encoder, "Dense")
+  if len(encoder) != len(convs) + len(denses):
+    raise ValueError(f"unexpected encoder entries: {sorted(encoder)}")
+  for i, conv in enumerate(convs):
+    out[f"encoder.convs.{i}.weight"] = _t(
+        np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+    out[f"encoder.convs.{i}.bias"] = _t(conv["bias"])
+  for i, dense in enumerate(denses):
     out[f"encoder.layers.{i}.weight"] = _t(np.asarray(dense["kernel"]).T)
     out[f"encoder.layers.{i}.bias"] = _t(dense["bias"])
-    i += 1
-  if len(encoder) != i:
-    raise ValueError(f"unexpected encoder entries: {sorted(encoder)}")
-  head = tree["Dense_0"]
-  out["q_head.weight"] = _t(np.asarray(head["kernel"]).T)
-  out["q_head.bias"] = _t(head["bias"])
+  heads = tuple(sorted(k for k in tree if k != "EncoderModule_0"))
+  if heads not in _HEADS:
+    raise ValueError(f"unexpected head entries: {list(heads)}")
+  for flax_name, name in zip(heads, _HEADS[heads]):
+    out[f"{name}.weight"] = _t(np.asarray(tree[flax_name]["kernel"]).T)
+    out[f"{name}.bias"] = _t(tree[flax_name]["bias"])
   return out
 
 

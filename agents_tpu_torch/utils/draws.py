@@ -8,12 +8,19 @@ generators cannot agree, so the parity tests read the JAX package's draws
 and replay them here, and the card-versus-CPU check replays one stream on
 both devices.
 
-Sites of the main path:
-  "env_reset"      uniform [B, 4] in [-0.05, 0.05)   (CartPole reset)
-  "random_action"  randint [B] in [0, num_actions)   (epsilon-greedy)
-  "explore"        uniform [B] in [0, 1)             (epsilon-greedy coin)
-  "replay_t0"      randint [S] in [0, num_valid)     (window start offset)
-  "replay_rows"    randint [S] in [0, B)             (env row)
+Sites:
+  "env_reset"           uniform [B, 4] in [-0.05, 0.05)  (CartPole reset)
+  "pixels_target"       randint [B] in [0, num_actions)  (SyntheticPixels
+                                                          reset)
+  "pixels_step_target"  randint [B] in [0, num_actions)  (SyntheticPixels
+                                                          step)
+  "catch_ball_col"      randint [B] in [0, columns)      (Catch reset)
+  "random_action"       randint [B] in [0, num_actions)  (epsilon-greedy)
+  "explore"             uniform [B] in [0, 1)            (epsilon-greedy
+                                                          coin)
+  "replay_t0"           randint [S] in [0, num_valid)    (window start
+                                                          offset)
+  "replay_rows"         randint [S] in [0, B)            (env row)
 """
 from __future__ import annotations
 

@@ -1,32 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line;
 any failed phase exits non-zero before the last line.
 
-  1. device   torch/CUDA versions, the card's name and power limit.
-  2. parity   5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
-              "cuda" from one set of numpy-made params and one replayed
-              stream of draws (TF32 off): losses, params, target params,
-              replay storage and metrics agree (floats rtol 1e-5 /
-              atol 1e-6; ints and step types exactly).
-  3. main     the bench operating point (B=4096 env rows, ring 512, sample
-              256, MLP (100, 50), eps 0.1, gamma 0.99, tau 0.05 every 5,
-              Adam 1e-3): init with 100 collect steps, warm-up, then 500
-              timed iterations (5 windows of 100) under
-              ``torch.cuda.set_sync_debug_mode("error")``, which fails on
-              any host sync; tensors on the card, finite losses, exact
-              replay count, legal step-type transitions. Prints
-              ms/iteration and env-steps/s, and the device-busy share from
-              a short profiled window.
-  4. learn    the same run continued to 6000 iterations; the last-20
-              AverageReturn must reach 195.
-  5. eval     greedy `evaluate` over exactly 30 episodes.
-  6. kernels  the port's hand-written kernels on this path (none: the JAX
-              package has no Pallas kernel at HEAD).
-  7. the last line: {"ok": true, "device": {...}}.
+  1. device       torch/CUDA versions, the card's name and power limit.
+  2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
+                  "cuda" from one set of numpy-made params and one replayed
+                  stream of draws (TF32 off): losses, params, target params,
+                  replay storage and metrics agree (floats rtol 1e-5 /
+                  atol 1e-6; ints and step types exactly).
+  3. main         the CartPole bench operating point (B=4096 env rows, ring
+                  512, sample 256, MLP (100, 50), eps 0.1, gamma 0.99, tau
+                  0.05 every 5, Adam 1e-3): init with 100 collect steps,
+                  warm-up, then 500 timed iterations (5 windows of 100)
+                  under ``torch.cuda.set_sync_debug_mode("error")``, which
+                  fails on any host sync; tensors on the card, finite
+                  losses, exact replay count, legal step-type transitions.
+                  Prints ms/iteration and env-steps/s, and the device-busy
+                  share from a short profiled window.
+  4. learn        the same run continued to 6000 iterations; the last-20
+                  AverageReturn must reach 195.
+  5. eval         greedy `evaluate` over exactly 30 episodes.
+  6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
+                  SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
+                  deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
+                  iterations on "cpu" and "cuda" from numpy-made params and
+                  one replayed draw stream agree (floats rtol 1e-4 / atol
+                  1e-5; uint8 frames, actions and step types exactly).
+                  (b) the bfloat16 bench network on 32 frames of 84x84x4:
+                  Q values within atol 1e-2, greedy actions equal wherever
+                  the top-two gap exceeds 1e-2.
+  7. conv_main    the pixel bench point (``bench.py:conv_bench``: B=128,
+                  sample 256, ring 2048 of uint8 84x84x4 frames, mnih15 +
+                  fc 512 in bfloat16): 64 collect steps, 20 warm-up and 200
+                  timed iterations (5 windows) under the sync debug mode;
+                  the same checks as phase 3 plus the observation ring's
+                  dtype and bytes. Prints ms/iteration, env-steps/s,
+                  train-frames/s, a 20-iteration profile, and the analytic
+                  model GFLOP per iteration with the TFLOP/s it gives.
+  8. conv_learn   the example's ``--env=catch`` config: up to 2,400
+                  iterations to a last-100 AverageReturn above 0.3, then
+                  greedy `evaluate` over exactly 30 episodes.
+  9. c51          C51 (51 atoms on [-10, 10]) at the pixel bench point:
+                  100 iterations under the sync debug mode, finite losses.
+ 10. kernels      the port's hand-written kernels on these paths (none: the
+                  JAX package has no Pallas kernel at HEAD).
+ 11. the last line: {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -43,6 +65,14 @@ DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
                         "chip_smoke")
 RTOL, ATOL = 1e-5, 1e-6
+MNIH15 = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+CONV_PARITY = dict(pixels_size=20, env_batch_size=8, replay_capacity=64,
+                   sample_batch_size=16, dtype="float32")
+CONV_RTOL, CONV_ATOL = 1e-4, 1e-5
+BF16_ATOL = 1e-2
+CONV_INITIAL, CONV_WARMUP, CONV_TIMED, CONV_PROFILED = 64, 20, 200, 20
+CATCH_ITERATIONS, CATCH_CHUNK, CATCH_GATE = 2400, 400, 0.3
+C51_WARMUP, C51_TIMED = 10, 100
 
 
 def emit(phase, **fields):
@@ -74,66 +104,75 @@ def build_loop(device, batch_size, capacity, sample_batch_size, fc):
       device=device))
 
 
-def numpy_q_params(rng, fc, obs_dim=4, num_actions=2):
-  """A flax-shaped Q-network param tree drawn with numpy."""
+def numpy_q_params(rng, fc, obs_dim=4, num_actions=2, convs=(), image=None):
+  """A flax-shaped Q-network param tree drawn with numpy; with `convs`, the
+  encoder's leaf is an `image` (H, W, C) and Conv_i kernels are HWIO."""
   import numpy as np
 
-  def dense(n_in, n_out, scale):
-    return {"kernel": rng.uniform(-scale, scale, (n_in, n_out)).astype(
-        np.float32), "bias": rng.uniform(-0.1, 0.1, (n_out,)).astype(
-            np.float32)}
+  def layer(shape, scale):
+    return {"kernel": rng.uniform(-scale, scale, shape).astype(np.float32),
+            "bias": rng.uniform(-0.1, 0.1, shape[-1:]).astype(np.float32)}
 
   encoder, width = {}, obs_dim
+  if convs:
+    h, w, c = image
+    for i, (filters, kernel, stride) in enumerate(convs):
+      fan_in = kernel * kernel * c
+      encoder[f"Conv_{i}"] = layer((kernel, kernel, c, filters),
+                                   math.sqrt(6.0 / fan_in))
+      h, w, c = -(-h // stride), -(-w // stride), filters
+    width = h * w * c
   for i, out in enumerate(fc):
-    encoder[f"Dense_{i}"] = dense(width, out, math.sqrt(6.0 / width))
+    encoder[f"Dense_{i}"] = layer((width, out), math.sqrt(6.0 / width))
     width = out
   return {"params": {"EncoderModule_0": encoder,
-                     "Dense_0": dense(width, num_actions, 0.03)}}
+                     "Dense_0": layer((width, num_actions), 0.03)}}
 
 
 def max_diff(a, b):
   return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def phase_parity():
-  import numpy as np
-  import torch
-
-  from agents_tpu_torch.utils import convert, nest_utils
+def run_on_both(build, state_dict, initial_collect_steps, iterations):
+  """`build(device)`'s loop on "cpu" then "cuda" from `state_dict`, the
+  card replaying the CPU's stream of draws. Returns {device: (loop, state,
+  losses)}."""
   from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
 
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  fc = (100, 50)
-  state_dict = convert.q_params_to_state_dict(
-      numpy_q_params(np.random.RandomState(0), fc))
-  runs = {}
-  records = None
+  runs, records = {}, None
   for device in ("cpu", "cuda"):
-    loop = build_loop(device, B_PARITY, capacity=64, sample_batch_size=64,
-                      fc=fc)
+    loop = build(device)
     loop.agent.q_network.load_state_dict(state_dict)
     if device == "cpu":
       draws = RecordingDraws(Draws(0, "cpu"))
     else:
       draws = ReplayDraws(records, device)
-    state = loop.init(draws=draws, initial_collect_steps=16)
-    state, losses = loop.run(state, 5)
+    state = loop.init(draws=draws, initial_collect_steps=initial_collect_steps)
+    state, losses = loop.run(state, iterations)
     if device == "cpu":
       records = draws.records
     runs[device] = (loop, state, losses)
+  return runs
+
+
+def compare_runs(runs, rtol, atol):
+  """Largest float difference by name, and the names that disagree (floats
+  beyond rtol/atol, anything else at all)."""
+  import torch
+
+  from agents_tpu_torch.utils import nest_utils
 
   (cloop, cstate, closses), (gloop, gstate, glosses) = runs["cpu"], runs["cuda"]
-  diffs, exact_mismatch = {}, []
+  diffs, mismatched = {}, []
 
   def compare(name, a, b):
     b = b.cpu()
     if a.dtype.is_floating_point:
       diffs[name] = max_diff(a, b)
-      if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
-        exact_mismatch.append(name)
+      if not torch.allclose(a, b, rtol=rtol, atol=atol):
+        mismatched.append(name)
     elif not torch.equal(a, b):
-      exact_mismatch.append(name)
+      mismatched.append(name)
 
   compare("losses", closses, glosses)
   for tag, net in (("q", "q_network"), ("target_q", "target_q_network")):
@@ -151,7 +190,26 @@ def phase_parity():
   for k in cres:
     compare(f"metric.{k}", cres[k], gres[k])
   if cstate.replay_state.count != gstate.replay_state.count:
-    exact_mismatch.append("replay.count")
+    mismatched.append("replay.count")
+  return diffs, mismatched
+
+
+def phase_parity():
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  fc = (100, 50)
+  state_dict = convert.q_params_to_state_dict(
+      numpy_q_params(np.random.RandomState(0), fc))
+  runs = run_on_both(
+      lambda device: build_loop(device, B_PARITY, capacity=64,
+                                sample_batch_size=64, fc=fc),
+      state_dict, initial_collect_steps=16, iterations=5)
+  diffs, exact_mismatch = compare_runs(runs, RTOL, ATOL)
   worst = max(diffs, key=diffs.get)
   emit("parity", batch_size=B_PARITY, iterations=5, rtol=RTOL, atol=ATOL,
        largest_float_diff={"name": worst, "abs": diffs[worst]},
@@ -185,12 +243,16 @@ def check_step_types(loop, state):
   frame's next step type is the following frame's step type."""
   import torch
 
+  from agents_tpu_torch.replay_buffers.uniform_replay import ReplayState
   from agents_tpu_torch.trajectories.time_step import StepType
 
-  frames = loop.replay.gather_all(state.replay_state)
+  # Only the two step-type leaves: a gather of every leaf would copy the
+  # whole ring (7.4 GB of frames at the pixel bench point).
+  storage, count = state.replay_state.storage, state.replay_state.count
+  st, nst = loop.replay.gather_all(ReplayState(
+      (storage.step_type, storage.next_step_type), count))
   size = loop.replay.size(state.replay_state)
-  st = frames.step_type[:, :size]                             # [B, size]
-  nst = frames.next_step_type[:, :size]
+  st, nst = st[:, :size], nst[:, :size]                     # [B, size]
   bad = int(((st == StepType.LAST) != (nst == StepType.FIRST)).sum())
   bad += int((nst[:, :-1] != st[:, 1:]).sum())
   newest = (state.replay_state.count - 1) % loop.replay.capacity
@@ -244,6 +306,24 @@ def profile_window(loop, state, iterations):
               for name, (us, c) in top]}
 
 
+def timed_windows(loop, state, iterations, windows=TIMED_WINDOWS):
+  """`iterations` iterations under ``set_sync_debug_mode("error")``, in
+  `windows` windows each ended by a synchronize outside the debug mode, so
+  the spread between windows shows beside the mean. Returns (state, the
+  last window's losses, ms/iteration of each window)."""
+  import torch
+
+  window_ms, window = [], iterations // windows
+  for _ in range(windows):
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    state, losses = loop.run(state, window)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    window_ms.append((time.perf_counter() - t0) * 1e3 / window)
+  return state, losses, window_ms
+
+
 def phase_main_and_learn(card):
   import torch
 
@@ -254,17 +334,8 @@ def phase_main_and_learn(card):
   torch.cuda.synchronize()
   init_s = time.perf_counter() - t_init
 
-  # Timed in windows, each ended by a synchronize outside the debug mode,
-  # so the spread between windows shows beside the mean.
-  window_ms, window = [], TIMED_ITERATIONS // TIMED_WINDOWS
-  for _ in range(TIMED_WINDOWS):
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    state, losses = loop.run(state, window)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    window_ms.append((time.perf_counter() - t0) * 1e3 / window)
-  dt = sum(window_ms) * window / 1e3
+  state, losses, window_ms = timed_windows(loop, state, TIMED_ITERATIONS)
+  dt = sum(window_ms) / len(window_ms) * TIMED_ITERATIONS / 1e3
 
   iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
   off_card = [tuple(t.shape) for t in loop_tensors(state)
@@ -324,6 +395,225 @@ def phase_eval(loop, state, card):
     fail("eval", f"counted {episodes} episodes, asked for 30")
 
 
+def conv_forward_flops(size, frames, num_actions, convs, fc):
+  """Analytic FLOPs of one Q-network forward on one frame, as
+  ``bench.py:conv_bench`` counts them: SAME padding, ceil(dim / stride)
+  outputs, 2 FLOPs per multiply-add."""
+  total, cin = 0, frames
+  for filters, kernel, stride in convs:
+    size = -(-size // stride)
+    total += size * size * filters * kernel * kernel * cin * 2
+    cin = filters
+  width = size * size * cin
+  for out in tuple(fc) + (num_actions,):
+    total += width * out * 2
+    width = out
+  return total
+
+
+def free_card():
+  import gc
+
+  import torch
+
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
+def phase_conv_parity(card):
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.environments.classic import SyntheticPixels
+  from agents_tpu_torch.networks import make_q_network
+  from agents_tpu_torch.utils import convert
+  from examples.dqn_pixels_torch import Config
+  from examples.dqn_pixels_torch import build_loop as pixel_loop
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+
+  # (a) the pixel loop, fp32, card against CPU.
+  size = CONV_PARITY["pixels_size"]
+  state_dict = convert.q_params_to_state_dict(numpy_q_params(
+      np.random.RandomState(1), (512,), num_actions=6, convs=MNIH15,
+      image=(size, size, 4)))
+  runs = run_on_both(lambda device: pixel_loop(Config(device=device,
+                                                       **CONV_PARITY)),
+                     state_dict, initial_collect_steps=16, iterations=3)
+  diffs, mismatched = compare_runs(runs, CONV_RTOL, CONV_ATOL)
+  worst = max(diffs, key=diffs.get)
+  storage = runs["cuda"][1].replay_state.storage
+  torch.backends.cudnn.deterministic = deterministic
+
+  # (b) the bf16 bench network on 32 random 84x84x4 frames.
+  rng = np.random.RandomState(2)
+  state_dict = convert.q_params_to_state_dict(numpy_q_params(
+      rng, (512,), num_actions=6, convs=MNIH15, image=(84, 84, 4)))
+  frames = torch.from_numpy(rng.randint(0, 256, (32, 84, 84, 4), np.uint8))
+  env = SyntheticPixels()
+  q = {}
+  for device in ("cpu", "cuda"):
+    net = make_q_network(
+        env.observation_spec(), env.action_spec(), MNIH15, (512,),
+        dtype=torch.bfloat16,
+        preprocessing=lambda x: x.to(torch.bfloat16) / 255.0, device=device)
+    net.load_state_dict(state_dict)
+    with torch.no_grad():
+      q[device] = net(frames.to(device))[0].cpu()
+  q_diff = max_diff(q["cpu"], q["cuda"])
+  top2 = q["cpu"].topk(2, dim=-1).values
+  clear = (top2[:, 0] - top2[:, 1]) > BF16_ATOL
+  action_mismatch = int((q["cpu"].argmax(-1) != q["cuda"].argmax(-1))[
+      clear].sum())
+  ok = not mismatched and q_diff <= BF16_ATOL and action_mismatch == 0
+  emit("conv_parity", card=card,
+       fp32={"pixels": f"{size}x{size}x4", "conv": MNIH15, "fc": [512],
+             "batch_size": CONV_PARITY["env_batch_size"],
+             "ring": CONV_PARITY["replay_capacity"],
+             "sample": CONV_PARITY["sample_batch_size"], "iterations": 3,
+             "rtol": CONV_RTOL, "atol": CONV_ATOL,
+             "largest_float_diff": {"name": worst, "abs": diffs[worst]},
+             "loss_diff": diffs["losses"],
+             "replay_observation_dtype": str(storage.observation.dtype),
+             "mismatched": mismatched},
+       bf16={"frames": 32, "atol": BF16_ATOL, "q_max_abs_diff": q_diff,
+             "frames_with_top2_gap_over_atol": int(clear.sum()),
+             "greedy_action_mismatches": action_mismatch},
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("conv_parity", "card and CPU disagree on the conv path")
+
+
+def phase_conv_main(card):
+  import torch
+
+  from examples.dqn_pixels_torch import Config
+  from examples.dqn_pixels_torch import build_loop as pixel_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config()
+  torch.cuda.reset_peak_memory_stats()
+  loop = pixel_loop(cfg)
+  t_init = time.perf_counter()
+  state = loop.init(seed=cfg.seed, initial_collect_steps=CONV_INITIAL)
+  state, losses = loop.run(state, CONV_WARMUP)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t_init
+
+  state, losses, window_ms = timed_windows(loop, state, CONV_TIMED)
+  ms = sum(window_ms) / len(window_ms)
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  finite = bool(torch.isfinite(losses).all())
+  expected_count = CONV_INITIAL + CONV_WARMUP + CONV_TIMED
+  bad_transitions, lasts = check_step_types(loop, state)
+  replay_count = state.replay_state.count
+  obs = state.replay_state.storage.observation
+  obs_bytes = obs.numel() * obs.element_size()
+  expected_bytes = (cfg.replay_capacity * cfg.env_batch_size
+                    * cfg.pixels_size ** 2 * cfg.pixels_frames)
+  ok = (not off_card and finite and bad_transitions == 0
+        and replay_count == expected_count and obs.dtype == torch.uint8
+        and obs_bytes == expected_bytes)
+  state, prof = profile_window(loop, state, CONV_PROFILED)
+  fwd = conv_forward_flops(cfg.pixels_size, cfg.pixels_frames,
+                           cfg.pixels_actions, cfg.conv_layer_params,
+                           cfg.fc_layer_params)
+  # Collect forward on B rows; train: online forward, backward (about 2x
+  # forward) and target forward on S windows (``bench.py:252-254``).
+  flops = fwd * (cfg.env_batch_size + 4 * cfg.sample_batch_size)
+  emit("conv_main", card=card, batch_size=cfg.env_batch_size,
+       sample_batch_size=cfg.sample_batch_size, ring=cfg.replay_capacity,
+       conv=cfg.conv_layer_params, fc=cfg.fc_layer_params, dtype=cfg.dtype,
+       timed_iterations=CONV_TIMED, sync_debug_mode="error",
+       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
+       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
+       train_frames_per_s=cfg.sample_batch_size * 1e3 / ms,
+       model_gflop_per_forward_frame=fwd / 1e9,
+       model_gflop_per_iteration=flops / 1e9,
+       model_tflop_per_s=flops / ms / 1e9,
+       model_flops_share_of_989_tflops_bf16_peak=flops / ms / 1e9 / 989.0,
+       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       losses_finite=finite, replay_count=replay_count,
+       expected_replay_count=expected_count,
+       replay_observation={"dtype": str(obs.dtype), "shape": list(obs.shape),
+                           "bytes": obs_bytes,
+                           "expected_bytes": expected_bytes},
+       illegal_step_type_transitions=bad_transitions,
+       last_frames_in_ring=lasts,
+       peak_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+       profile=prof, seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("conv_main", "pixel bench point checks failed")
+
+
+def phase_conv_learn(card):
+  import torch
+
+  from examples.dqn_pixels_torch import CATCH, Config
+  from examples.dqn_pixels_torch import build_loop as pixel_loop
+
+  t0 = time.perf_counter()
+  cfg = Config(**CATCH)
+  loop = pixel_loop(cfg)
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  iterations, ret = 0, -1.0
+  while iterations < CATCH_ITERATIONS:
+    state, losses = loop.run(state, CATCH_CHUNK)
+    iterations += CATCH_CHUNK
+    ret = float(loop.results(state)["AverageReturn"])
+    if ret > 0.5:
+      break
+  learn_s = time.perf_counter() - t0
+  out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
+  episodes = int(out["NumberOfEpisodes"])
+  finite = bool(torch.isfinite(losses).all())
+  ok = ret > CATCH_GATE and finite and episodes == 30
+  emit("conv_learn", card=card, env=f"catch {cfg.catch_rows}x"
+       f"{cfg.catch_columns}", batch_size=cfg.env_batch_size,
+       iterations=iterations, last100_average_return=ret, gate=CATCH_GATE,
+       losses_finite=finite, ms_per_iteration=learn_s * 1e3 / iterations,
+       eval_episodes=episodes, eval_average_return=float(out["AverageReturn"]),
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("conv_learn", f"Catch return {ret} (gate {CATCH_GATE}), "
+         f"{episodes} eval episodes of 30")
+
+
+def phase_c51(card):
+  import torch
+
+  from examples.dqn_pixels_torch import Config
+  from examples.dqn_pixels_torch import build_loop as pixel_loop
+
+  t0 = time.perf_counter()
+  cfg = Config(agent="c51")
+  loop = pixel_loop(cfg)
+  state = loop.init(seed=cfg.seed, initial_collect_steps=CONV_INITIAL)
+  state, losses = loop.run(state, C51_WARMUP)
+  torch.cuda.synchronize()
+  state, losses, window_ms = timed_windows(loop, state, C51_TIMED, 1)
+  finite = bool(torch.isfinite(losses).all())
+  expected_count = CONV_INITIAL + C51_WARMUP + C51_TIMED
+  ok = finite and state.replay_state.count == expected_count
+  emit("c51", card=card, num_atoms=cfg.num_atoms,
+       support=[cfg.min_q_value, cfg.max_q_value],
+       batch_size=cfg.env_batch_size, sample_batch_size=cfg.sample_batch_size,
+       ring=cfg.replay_capacity, timed_iterations=C51_TIMED,
+       sync_debug_mode="error", ms_per_iteration=window_ms[0],
+       losses_finite=finite, last_loss=float(losses[-1]),
+       replay_count=state.replay_state.count,
+       expected_replay_count=expected_count,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("c51", "C51 at the pixel bench point failed its checks")
+
+
 def main():
   import torch
 
@@ -343,8 +633,14 @@ def main():
   phase_parity()
   loop, state = phase_main_and_learn(card)
   phase_eval(loop, state, card)
-  emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so this "
-       "path has no hand-written kernel to build or check")
+  del loop, state
+  phase_conv_parity(card)
+  phase_conv_main(card)
+  free_card()
+  phase_conv_learn(card)
+  phase_c51(card)
+  emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
+       "paths have no hand-written kernel to build or check")
   print(json.dumps({"kernels": []}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,12 +83,13 @@ def build_loop(cfg: Config):
                         device=device)
 
 
-def train_eval(cfg: Config):
-  """Train, log to ``root_dir/train.jsonl``, evaluate greedily.
+def train_eval(cfg, build=build_loop):
+  """Train `build(cfg)`'s loop, log to ``root_dir/train.jsonl``, evaluate
+  greedily.
 
   Returns (last AverageReturn of the collect deque, greedy eval return).
   """
-  loop = build_loop(cfg)
+  loop = build(cfg)
   state = loop.init(cfg.seed, initial_collect_steps=cfg.initial_collect_steps)
   os.makedirs(cfg.root_dir, exist_ok=True)
   log_path = os.path.join(cfg.root_dir, "train.jsonl")
@@ -121,13 +122,18 @@ def train_eval(cfg: Config):
   return avg_return, eval_return
 
 
-def parse_args(argv, cfg: Config) -> Config:
-  """--smoke, --device DEV and --cfg.<field>=<value> overrides."""
-  fields = {f.name: f for f in dataclasses.fields(Config)}
+SMOKE = dict(num_iterations=2000, log_interval=500)
+
+
+def parse_args(argv, cfg, smoke=SMOKE):
+  """--smoke (the `smoke` fields), --device DEV and --cfg.<field>=<value>
+  overrides of the dataclass `cfg`. A tuple of tuples is written
+  ``32x8x4,64x4x2``."""
+  fields = {f.name: f for f in dataclasses.fields(cfg)}
   argv = list(argv)
   if "--smoke" in argv:
     argv.remove("--smoke")
-    cfg = dataclasses.replace(cfg, num_iterations=2000, log_interval=500)
+    cfg = dataclasses.replace(cfg, **smoke)
   i = 0
   while i < len(argv):
     arg = argv[i]
@@ -143,8 +149,14 @@ def parse_args(argv, cfg: Config) -> Config:
         raise SystemExit(f"unknown config field {name!r}; valid: "
                          f"{sorted(fields)}")
       current = getattr(cfg, name)
-      if isinstance(current, tuple):
+      if isinstance(current, tuple) and current and isinstance(
+          current[0], tuple):
+        value = tuple(tuple(int(v) for v in part.split("x"))
+                      for part in value.split(",") if part)
+      elif isinstance(current, tuple):
         value = tuple(int(v) for v in value.split(",") if v)
+      elif isinstance(current, bool):
+        value = value.lower() in ("1", "true", "yes")
       else:
         value = type(current)(value)
       cfg = dataclasses.replace(cfg, **{name: value})

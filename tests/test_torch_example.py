@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 from examples.dqn_cartpole_torch import Config, parse_args, train_eval
@@ -84,3 +85,52 @@ def test_learning_artifact_matches_the_jax_run_and_solves_cartpole():
   assert value >= 195.0
   returns = [r["AverageReturn"] for r in records if "AverageReturn" in r]
   assert len(returns) == 50 and all(0.0 < r <= 200.0 for r in returns)
+
+
+# -- the pixel example --------------------------------------------------------
+
+
+def test_pixel_example_flags_and_bench_defaults():
+  """The defaults are `bench.py:conv_bench`'s construction; --env=catch
+  and --agent=c51 select presets, which --smoke and --cfg.* override."""
+  from examples.dqn_pixels_torch import MNIH15, Config, parse_pixel_args
+  bench = Config()
+  assert (bench.env, bench.agent, bench.env_batch_size,
+          bench.sample_batch_size, bench.replay_capacity,
+          bench.initial_collect_steps) == ("pixels", "dqn", 128, 256, 2048, 64)
+  assert bench.conv_layer_params == MNIH15 == (
+      (32, 8, 4), (64, 4, 2), (64, 3, 1))
+  assert (bench.fc_layer_params, bench.dtype, bench.scale_pixels) == (
+      (512,), "bfloat16", True)
+  assert (bench.learning_rate, bench.adam_eps, bench.epsilon_greedy,
+          bench.gamma, bench.target_update_tau, bench.target_update_period,
+          bench.td_loss, bench.return_buffer, bench.seed, bench.device) == (
+              2.5e-4, 1.5e-4, 0.05, 0.99, 1.0, 500, "huber", 20, 0, "cuda")
+  cfg = parse_pixel_args(["--env=catch", "--agent=c51", "--smoke",
+                          "--device=cpu", "--cfg.conv_layer_params=8x3x1,4x3x2",
+                          "--cfg.scale_pixels=false"])
+  assert (cfg.env, cfg.agent, cfg.device) == ("catch", "c51", "cpu")
+  assert (cfg.num_iterations, cfg.env_batch_size) == (200, 16)
+  assert cfg.conv_layer_params == ((8, 3, 1), (4, 3, 2))
+  assert cfg.scale_pixels is False and cfg.target_update_period == 50
+
+
+@pytest.mark.parametrize("agent", ["dqn", "c51"])
+def test_pixel_example_command_line_on_cpu(tmp_path, agent):
+  out = subprocess.run(
+      [sys.executable, os.path.join(ROOT, "examples", "dqn_pixels_torch.py"),
+       f"--agent={agent}", "--device", "cpu", "--smoke",
+       f"--cfg.root_dir={tmp_path}", "--cfg.pixels_size=12",
+       "--cfg.pixels_horizon=8", "--cfg.conv_layer_params=4x3x2",
+       "--cfg.fc_layer_params=16", "--cfg.env_batch_size=4",
+       "--cfg.num_iterations=20", "--cfg.log_interval=10",
+       "--cfg.num_eval_episodes=4"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
+  assert out.returncode == 0, out.stderr
+  final = json.loads(out.stdout.strip().splitlines()[-1])
+  assert math.isfinite(final["final_average_return"])
+  assert 0.0 <= final["eval_average_return"] <= 8.0
+  records = _records(tmp_path / "train.jsonl")
+  assert [r["step"] for r in records if "loss" in r] == [10, 20]
+  with open(tmp_path / "config.json") as f:
+    assert json.load(f)["agent"] == agent

@@ -15,6 +15,7 @@ import agents_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
+EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py")
 
 
 def _port_modules():
@@ -26,9 +27,8 @@ def _port_sources():
   pkg = os.path.join(ROOT, "agents_tpu_torch")
   files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
            if f.endswith(".py")]
-  return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                          os.path.join(ROOT, "examples",
-                                       "dqn_cartpole_torch.py")]
+  return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + [
+      os.path.join(ROOT, "examples", name) for name in EXAMPLES]
 
 
 def _forbidden(name):
@@ -37,7 +37,11 @@ def _forbidden(name):
 
 def test_port_imports_leave_jax_and_agents_tpu_unloaded():
   modules = _port_modules()
-  assert "agents_tpu_torch.train.fused_loop" in modules
+  for name in ("train.fused_loop", "environments.classic.synthetic_pixels",
+               "environments.classic.catch",
+               "agents.categorical_dqn.categorical_dqn_agent"):
+    assert f"agents_tpu_torch.{name}" in modules
+  modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
           f"for m in {modules!r}: importlib.import_module(m)\n"
           "print(json.dumps(sorted(sys.modules)))")
@@ -66,7 +70,7 @@ def _imported_names(path):
 
 def test_port_sources_name_no_forbidden_import():
   sources = _port_sources()
-  assert len(sources) > 40
+  assert len(sources) > 45
   offending = {os.path.relpath(p, ROOT): bad for p in sources
                if (bad := [n for n in _imported_names(p) if _forbidden(n)])}
   assert offending == {}
@@ -75,10 +79,13 @@ def test_port_sources_name_no_forbidden_import():
 def test_entry_points_raise_without_a_card(monkeypatch):
   """The default device is "cuda"; with no card they raise instead of
   running on the CPU."""
+  from agents_tpu_torch.agents.categorical_dqn import CategoricalDqnAgent
   from agents_tpu_torch.agents.dqn import DqnAgent
   from agents_tpu_torch.environments import BatchedTorchEnv
-  from agents_tpu_torch.environments.classic import CartPole
-  from agents_tpu_torch.networks import make_q_network
+  from agents_tpu_torch.environments.classic import (CartPole, Catch,
+                                                     SyntheticPixels)
+  from agents_tpu_torch.networks import (make_categorical_q_network,
+                                         make_q_network)
   from agents_tpu_torch.replay_buffers import UniformReplay
   from agents_tpu_torch.train import FusedTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
@@ -89,10 +96,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                         device="cpu")
   agent = DqnAgent(tss, asp, qnet, torch.optim.Adam, device="cpu")
   replay = UniformReplay(tj.trajectory_spec(tss, asp), 4, 8, device="cpu")
+  pixels = SyntheticPixels(size=12)
+  pobs, pact = pixels.observation_spec(), pixels.action_spec()
+  c51net = make_categorical_q_network(pobs, pact, num_atoms=5,
+                                      conv_layer_params=((4, 3, 2),),
+                                      device="cpu")
 
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   for build in (lambda: BatchedTorchEnv(CartPole(), 4),
+                lambda: BatchedTorchEnv(pixels, 4),
+                lambda: BatchedTorchEnv(Catch(), 4),
                 lambda: make_q_network(tss.observation, asp),
+                lambda: make_q_network(pobs, pact, ((4, 3, 2),),
+                                       dueling=True),
+                lambda: make_categorical_q_network(pobs, pact),
+                lambda: CategoricalDqnAgent(tss, pact, c51net,
+                                            torch.optim.Adam),
                 lambda: DqnAgent(tss, asp, qnet, torch.optim.Adam),
                 lambda: UniformReplay(tj.trajectory_spec(tss, asp), 4, 8),
                 lambda: FusedTrainLoop(env, agent, replay)):
@@ -101,13 +120,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_example_raises_without_a_card():
-  """The example's default device is "cuda" too."""
-  code = ("import sys, torch\n"
-          "torch.cuda.is_available = lambda: False\n"
-          f"sys.path.insert(0, {os.path.join(ROOT, 'examples')!r})\n"
-          "import dqn_cartpole_torch as ex\n"
-          "ex.build_loop(ex.Config())\n")
-  out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
-  assert out.returncode != 0
-  assert "torch.cuda.is_available() is False" in out.stderr
+  """The examples' default device is "cuda" too."""
+  for example in EXAMPLES:
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            f"sys.path.insert(0, {os.path.join(ROOT, 'examples')!r})\n"
+            f"import {example[:-3]} as ex\n"
+            "ex.build_loop(ex.Config())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0, example
+    assert "torch.cuda.is_available() is False" in out.stderr, example

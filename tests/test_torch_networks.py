@@ -100,8 +100,15 @@ def test_init_distribution_matches_flax_variance_scaling():
 
 def test_conv_params_are_refused_not_dropped():
   """`make_q_network`'s third positional parameter is conv_layer_params:
-  passing an fc tuple there must not silently build the default MLP."""
-  with pytest.raises(NotImplementedError):
-    make_q_network(tspec.ArraySpec(_OBS, np.float32),
-                   tspec.BoundedArraySpec((), np.int32, 0, 1), (100, 50),
+  conv triples there build conv layers, and an fc tuple there is refused
+  rather than silently building the default MLP."""
+  act = tspec.BoundedArraySpec((), np.int32, 0, 1)
+  with pytest.raises(ValueError, match="fc_layer_params="):
+    make_q_network(tspec.ArraySpec(_OBS, np.float32), act, (100, 50),
                    device="cpu")
+  net = make_q_network(tspec.ArraySpec((8, 8, 2), np.uint8), act,
+                       ((4, 3, 2),), (16,), device="cpu")
+  assert [tuple(c.weight.shape) for c in net.encoder.convs] == [(4, 2, 3, 3)]
+  assert net.encoder.layers[0].in_features == 4 * 4 * 4
+  q, _ = net(torch.zeros(3, 8, 8, 2, dtype=torch.uint8))
+  assert tuple(q.shape) == (3, 2)

@@ -18,6 +18,9 @@ import pytest
 import torch
 
 from agents_tpu.environments.classic.cartpole import CartPole as JaxCartPole
+from agents_tpu.environments.classic.catch import Catch as JaxCatch
+from agents_tpu.environments.classic.synthetic_pixels import \
+    SyntheticPixels as JaxSyntheticPixels
 from agents_tpu.specs import array_spec as jax_array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
@@ -43,38 +46,83 @@ def assert_equal(actual, expected, err_msg=""):
                                 err_msg=err_msg)
 
 
+# Each JAX environment's draw sites: (site, read) for its reset and, where
+# its step draws, for its step. `read(state, time_step)` recovers the draw
+# from what the JAX function returns.
+_ENV_SITES = {
+    JaxCartPole: (("env_reset", lambda s, t: t.observation), None),
+    JaxSyntheticPixels: (("pixels_target", lambda s, t: s.target),
+                         ("pixels_step_target", lambda s, t: s.target)),
+    JaxCatch: (("catch_ball_col", lambda s, t: s.ball_col), None),
+}
+
+
+def env_reset_site(env):
+  return _ENV_SITES[type(env)][0][0]
+
+
+def _env_reset_draws(env, keys):
+  """{site: [B, ...]}: the draws of `env.reset` vmapped over `keys`."""
+  site, read = _ENV_SITES[type(env)][0]
+  return {site: read(*jax.vmap(env.reset)(keys))}
+
+
+def _env_step_draws(env, keys):
+  """{site: [B, ...]}: the draws of `env.step` vmapped over `keys` (none for
+  a deterministic step). The draw depends on the key alone, so the step is
+  taken from a reset state with action 0."""
+  if _ENV_SITES[type(env)][1] is None:
+    return {}
+  site, read = _ENV_SITES[type(env)][1]
+  state, _ = jax.vmap(env.reset)(keys)
+  action = jnp.zeros(keys.shape[:1], jnp.int32)
+  return {site: read(*jax.vmap(env.step)(state, action, keys))}
+
+
+def jax_env_reset_draws(key, batch_size, env):
+  """`BatchedJaxEnv.reset(key)`'s draws: {site: [array [B, ...]]}."""
+  draws = _env_reset_draws(env, jax.random.split(key, batch_size))
+  return {site: [np.asarray(v)] for site, v in draws.items()}
+
+
+def jax_env_step_draws(k_env, batch_size, env):
+  """`BatchedJaxEnv.step(..., k_env)`'s draws, step and auto-reset
+  (jax_environment.py:107-115): {site: [B, ...]}."""
+  step_keys, reset_keys = jax.vmap(lambda k: tuple(jax.random.split(k)))(
+      jax.random.split(k_env, batch_size))
+  return {**_env_step_draws(env, step_keys),
+          **_env_reset_draws(env, reset_keys)}
+
+
 def jax_reset_draws(key, batch_size):
   """CartPole reset draws of `BatchedJaxEnv.reset(key)`: [B, 4]."""
-  keys = jax.random.split(key, batch_size)
-  return np.asarray(jax.vmap(JaxCartPole().reset)(keys)[1].observation)
+  return jax_env_reset_draws(key, batch_size, JaxCartPole())["env_reset"][0]
 
 
-def _collect_step_draws(step_key, batch_size, action_spec):
+def _collect_step_draws(step_key, batch_size, action_spec, env):
   """One `JaxDriver.run` step's draws: epsilon-greedy's random action and
-  coin (wrappers.py:78-125) and the env's auto-reset draws
-  (jax_environment.py:107-115)."""
+  coin (wrappers.py:78-125) and the env's step and auto-reset draws."""
   k_pol, k_env = jax.random.split(step_key)
   _, k_rand, k_mix = jax.random.split(k_pol, 3)
   random_action = jax_array_spec.sample_spec_nest(
       action_spec, k_rand, outer_dims=(batch_size,))
   coin = jax.random.uniform(k_mix, (batch_size,))
-  return random_action, coin, _env_step_reset_draws(k_env, batch_size)
+  return {"random_action": random_action, "explore": coin,
+          **jax_env_step_draws(k_env, batch_size, env)}
 
 
 def _env_step_reset_draws(k_env, batch_size):
-  _, reset_keys = jax.vmap(lambda k: tuple(jax.random.split(k)))(
-      jax.random.split(k_env, batch_size))
-  return jax.vmap(JaxCartPole().reset)(reset_keys)[1].observation
+  """CartPole's auto-reset draws of one `BatchedJaxEnv.step`: [B, 4]."""
+  return jax_env_step_draws(k_env, batch_size, JaxCartPole())["env_reset"]
 
 
-def jax_collect_draws(key, num_steps, batch_size, action_spec):
-  """Per-site draws of `JaxDriver.run(..., key, num_steps)`."""
+def jax_collect_draws(key, num_steps, batch_size, action_spec,
+                      env=JaxCartPole()):
+  """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env`."""
   keys = jax.random.split(key, num_steps)
-  actions, coins, resets = jax.vmap(
-      lambda k: _collect_step_draws(k, batch_size, action_spec))(keys)
-  return {"random_action": list(np.asarray(actions)),
-          "explore": list(np.asarray(coins)),
-          "env_reset": list(np.asarray(resets))}
+  draws = jax.vmap(
+      lambda k: _collect_step_draws(k, batch_size, action_spec, env))(keys)
+  return {site: list(np.asarray(v)) for site, v in draws.items()}
 
 
 def jax_sample_draws(key, sample_batch_size, num_valid, batch_size):
@@ -86,16 +134,23 @@ def jax_sample_draws(key, sample_batch_size, num_valid, batch_size):
   return {"replay_t0": [np.asarray(t0)], "replay_rows": [np.asarray(rows)]}
 
 
-def jax_eval_reset_draws(key, batch_size, num_steps):
-  """`JaxEpisodeDriver.run`'s per-step reset draws from its loop key
-  (jax_driver.py:163-167), for `num_steps` steps: [num_steps, B, 4]."""
+def jax_eval_draws(key, batch_size, num_steps, env):
+  """`JaxEpisodeDriver.run`'s per-step env draws from its loop key
+  (jax_driver.py:163-167), for `num_steps` steps: {site: [[B, ...]] * n}."""
 
   def body(k, _):
     k, _, k_env = jax.random.split(k, 3)
-    return k, _env_step_reset_draws(k_env, batch_size)
+    return k, jax_env_step_draws(k_env, batch_size, env)
 
   _, draws = jax.lax.scan(body, key, None, length=num_steps)
-  return list(np.asarray(draws))
+  return {site: list(np.asarray(v)) for site, v in draws.items()}
+
+
+def jax_eval_reset_draws(key, batch_size, num_steps):
+  """CartPole's per-step reset draws of `JaxEpisodeDriver.run`:
+  [num_steps, B, 4]."""
+  return jax_eval_draws(key, batch_size, num_steps, JaxCartPole())[
+      "env_reset"]
 
 
 def merge_draws(*records):
