@@ -2,22 +2,28 @@
 
 The port sits beside the JAX package and imports nothing of it (nor JAX,
 flax or optax); each ported module names its JAX counterpart in its
-docstring. This slice carries the fused DQN-on-CartPole main path and its
-greedy-eval path:
+docstring. It carries fused DQN on CartPole, the pixel DQN path (conv Q
+networks, D3QN, C51 on SyntheticPixels and Catch) and fused SAC on the
+device Pendulum, each with its greedy-eval path:
 
   typing, utils     - aliases, nests (`nest_utils`), losses and target
                       updates (`common`), device resolution (`device`),
                       random draw sources (`draws`), flax->torch weight
                       conversion (`convert`)
   specs             - ArraySpec / BoundedArraySpec
-  trajectories      - TimeStep, PolicyStep, Trajectory, n-step transitions
-  environments      - BatchedTorchEnv (lockstep auto-reset), CartPole
-  distributions     - Categorical
-  networks          - EncoderModule (MLP branch), QModule (nn.Modules)
-  policies          - QPolicy, GreedyPolicy, EpsilonGreedyPolicy
+  trajectories      - TimeStep, PolicyStep, Trajectory, transitions
+  environments      - BatchedTorchEnv (lockstep auto-reset), CartPole,
+                      SyntheticPixels, Catch, Pendulum
+  distributions     - Categorical, Normal, Independent, SquashedNormal,
+                      Deterministic
+  networks          - EncoderModule, Q modules, ActorDistributionModule
+                      with TanhNormalProjection, CriticModule
+  policies          - QPolicy, CategoricalQPolicy, ActorPolicy,
+                      GreedyPolicy, EpsilonGreedyPolicy
   ops               - gather_rows (replay row gather)
   replay_buffers    - UniformReplay (time-major ring on the device)
-  agents            - DqnAgent, DdqnAgent
+  agents            - DqnAgent, DdqnAgent, D3qnAgent, CategoricalDqnAgent,
+                      SacAgent
   metrics           - collect metrics as device-tensor reducers
   drivers           - TorchDriver, TorchEpisodeDriver
   train             - FusedTrainLoop

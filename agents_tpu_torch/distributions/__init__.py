@@ -1,3 +1,7 @@
-from agents_tpu_torch.distributions.distributions import Categorical
+from agents_tpu_torch.distributions.distributions import (Categorical,
+                                                          Deterministic,
+                                                          Independent, Normal,
+                                                          SquashedNormal)
 
-__all__ = ["Categorical"]
+__all__ = ["Categorical", "Deterministic", "Independent", "Normal",
+           "SquashedNormal"]

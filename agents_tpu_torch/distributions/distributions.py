@@ -1,15 +1,161 @@
 """Distributions for policy heads.
 
-Port of the `Categorical` of ``agents_tpu/distributions/distributions.py``
-(:200), the one distribution the DQN main path builds: `mode` and
-`sample` only.
+Port of ``agents_tpu/distributions/distributions.py``: `Normal`,
+`Independent` and `SquashedNormal` (:54-196), `Categorical` (:200, `mode`
+and `sample` only) and `Deterministic` (:414-439).
+
+`log_prob` returns one value per batch element: `Independent` and
+`SquashedNormal` sum their event dims. Sampling takes a draw source and
+the name of its site in place of a PRNG key (`agents_tpu_torch.utils.
+draws`); `sample_shape` is prepended to the batch shape.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
+
+_LOG_2 = math.log(2.0)
+_LOG_2PI = math.log(2.0 * math.pi)
+_HALF_LOG_2PIE = 0.5 * math.log(2.0 * math.pi * math.e)
+
+
+def _sum_event_dims(x: torch.Tensor, event_ndims: int) -> torch.Tensor:
+  if not event_ndims:
+    return x
+  return torch.sum(x, dim=tuple(range(-event_ndims, 0)))
+
+
+def _batch_shape(loc, scale):
+  return torch.broadcast_shapes(torch.as_tensor(loc).shape,
+                                torch.as_tensor(scale).shape)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+  """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold branch."""
+  return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class _Distribution:
+
+  def sample_and_log_prob(self, draws, sample_shape=(), site: str = "normal"):
+    x = self.sample(draws, sample_shape, site)
+    return x, self.log_prob(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class Normal(_Distribution):
+  """Normal(loc, scale); its batch shape broadcasts loc with scale."""
+  loc: Any
+  scale: Any
+
+  def sample(self, draws, sample_shape=(), site: str = "normal"):
+    shape = tuple(sample_shape) + tuple(_batch_shape(self.loc, self.scale))
+    return self.loc + self.scale * draws.normal(site, shape)
+
+  def log_prob(self, value):
+    z = (value - self.loc) / self.scale
+    return -0.5 * (z**2 + _LOG_2PI) - torch.log(self.scale)
+
+  def entropy(self):
+    return (_HALF_LOG_2PIE + torch.log(self.scale)).expand(
+        _batch_shape(self.loc, self.scale))
+
+  def mode(self):
+    return self.loc.expand(_batch_shape(self.loc, self.scale))
+
+  def mean(self):
+    return self.mode()
+
+  def stddev(self):
+    return self.scale.expand(_batch_shape(self.loc, self.scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class Independent(_Distribution):
+  """Reinterprets the last `reinterpreted_batch_ndims` dims as event dims."""
+  base: Any
+  reinterpreted_batch_ndims: int = 1
+
+  def sample(self, draws, sample_shape=(), site: str = "normal"):
+    return self.base.sample(draws, sample_shape, site)
+
+  def log_prob(self, value):
+    return _sum_event_dims(self.base.log_prob(value),
+                           self.reinterpreted_batch_ndims)
+
+  def entropy(self):
+    return _sum_event_dims(self.base.entropy(),
+                           self.reinterpreted_batch_ndims)
+
+  def mode(self):
+    return self.base.mode()
+
+  def mean(self):
+    return self.base.mean()
+
+  def stddev(self):
+    return self.base.stddev()
+
+
+@dataclasses.dataclass(frozen=True)
+class SquashedNormal(_Distribution):
+  """Normal squashed by tanh, then mapped affinely into [low, high]:
+
+      action = low + (high - low) / 2 * (tanh(u) + 1),  u ~ Normal(loc, scale)
+
+  `log_prob` uses the stable log-det ``log(1 - tanh(u)^2) = 2 (log 2 - u -
+  softplus(-2u))`` plus ``log(half_range)`` and sums the event dims, as the
+  JAX package does. There is no analytic entropy.
+  """
+  loc: Any
+  scale: Any
+  low: Any = 0.0
+  high: Any = 1.0
+  event_ndims: int = 1
+
+  @property
+  def _half_range(self):
+    return (self.high - self.low) / 2.0
+
+  def _squash(self, u):
+    return self.low + self._half_range * (torch.tanh(u) + 1.0)
+
+  def _unsquash(self, x):
+    y = (x - self.low) / self._half_range - 1.0
+    return torch.atanh(torch.clamp(y, -1.0 + 1e-6, 1.0 - 1e-6))
+
+  def _sample_u(self, draws, sample_shape, site):
+    shape = tuple(sample_shape) + tuple(_batch_shape(self.loc, self.scale))
+    return self.loc + self.scale * draws.normal(site, shape,
+                                                dtype=self.loc.dtype)
+
+  def sample(self, draws, sample_shape=(), site: str = "normal"):
+    return self._squash(self._sample_u(draws, sample_shape, site))
+
+  def sample_and_log_prob(self, draws, sample_shape=(), site: str = "normal"):
+    u = self._sample_u(draws, sample_shape, site)
+    return self._squash(u), self._log_prob_from_u(u)
+
+  def _log_prob_from_u(self, u):
+    base = Normal(self.loc, self.scale).log_prob(u)
+    log_det = (torch.log(self._half_range + torch.zeros_like(u))
+               + 2.0 * (_LOG_2 - u - _softplus(-2.0 * u)))
+    return _sum_event_dims(base - log_det, self.event_ndims)
+
+  def log_prob(self, value):
+    return self._log_prob_from_u(self._unsquash(value))
+
+  def mode(self):
+    return self._squash(self.loc)
+
+  def mean(self):
+    return self._squash(self.loc)
+
+  def stddev(self):
+    return self._half_range * self.scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,3 +175,27 @@ class Categorical:
     u = draws.uniform(site, shape, tiny, 1.0, dtype=self.logits.dtype)
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(self.logits + gumbel, dim=-1).to(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Deterministic(_Distribution):
+  """All mass at `loc`; the last `event_ndims` dims are event dims."""
+  loc: Any
+  event_ndims: int = 0
+
+  def sample(self, draws=None, sample_shape=(), site: str = "normal"):
+    return self.loc.expand(tuple(sample_shape) + tuple(self.loc.shape))
+
+  def log_prob(self, value):
+    lp = torch.where(value == self.loc, 0.0, -math.inf)
+    return _sum_event_dims(lp, self.event_ndims)
+
+  def entropy(self):
+    return torch.zeros(self.loc.shape[:self.loc.dim() - self.event_ndims],
+                       device=self.loc.device)
+
+  def mode(self):
+    return self.loc
+
+  def mean(self):
+    return self.loc

@@ -8,7 +8,8 @@ calling convention:
 
 Stateless networks take and return ``network_state=()``. Parameters live in
 the module; they are initialised at construction from an explicit
-`torch.Generator`.
+`torch.Generator`. The initializers are flax's: `variance_scaling_`,
+`lecun_normal_` (flax's Dense default) and `uniform_symmetric_`.
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ def variance_scaling_(weight: torch.Tensor, scale: float = 2.0,
                                  generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None):
+  """Flax's default Dense kernel init, ``lecun_normal``: that is
+  ``variance_scaling(1.0, "fan_in", "truncated_normal")``."""
+  return variance_scaling_(weight, 1.0, generator)
+
+
 def uniform_symmetric_(weight: torch.Tensor, scale: float,
                        generator: Optional[torch.Generator] = None):
   """U(-scale, scale)."""
@@ -48,6 +56,15 @@ def cast_linear(x: torch.Tensor, layer: nn.Linear,
   """`layer` applied in `dtype`: its float32 weight and bias are cast at
   use, as flax's ``Dense(dtype=...)`` does with float32 params."""
   return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def seeded_generator(device, generator: Optional[torch.Generator] = None,
+                     seed: int = 0) -> torch.Generator:
+  """`generator`, or a fresh generator on `device` seeded with `seed`."""
+  if generator is None:
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+  return generator
 
 
 class Network(nn.Module):

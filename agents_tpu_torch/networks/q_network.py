@@ -19,6 +19,7 @@ from torch import nn
 
 from agents_tpu_torch.networks.encoding_network import EncoderModule
 from agents_tpu_torch.networks.network import (Network, cast_linear,
+                                               seeded_generator,
                                                uniform_symmetric_)
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
@@ -124,13 +125,6 @@ class CategoricalQModule(_EncodedQ):
     return logits.float(), network_state
 
 
-def _generator(device, generator):
-  if generator is None:
-    generator = torch.Generator(device=device)
-    generator.manual_seed(0)
-  return generator
-
-
 def make_q_network(input_spec, action_spec, conv_layer_params=(),
                    fc_layer_params=(64, 64), activation: Callable = F.relu,
                    dueling: bool = False, dtype: torch.dtype = torch.float32,
@@ -142,7 +136,7 @@ def make_q_network(input_spec, action_spec, conv_layer_params=(),
   cls = DuelingQModule if dueling else QModule
   return cls(input_spec, num_actions(action_spec), tuple(conv_layer_params),
              tuple(fc_layer_params), activation, dtype, preprocessing,
-             device, _generator(device, generator))
+             device, seeded_generator(device, generator))
 
 
 def make_categorical_q_network(input_spec, action_spec, num_atoms: int = 51,
@@ -163,4 +157,4 @@ def make_categorical_q_network(input_spec, action_spec, num_atoms: int = 51,
   return CategoricalQModule(
       input_spec, num_actions(action_spec), num_atoms,
       tuple(conv_layer_params), tuple(fc_layer_params), activation, dtype,
-      preprocessing, device, _generator(device, generator))
+      preprocessing, device, seeded_generator(device, generator))

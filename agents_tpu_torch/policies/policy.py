@@ -20,13 +20,21 @@ from agents_tpu_torch.utils import nest_utils
 
 
 def clip_to_spec(action, spec):
-  """Clip continuous actions into bounded specs."""
+  """Clip continuous actions into bounded specs.
+
+  Bounds that are one number over the spec's shape clip as Python floats,
+  so the clip copies nothing to the device; per-element bounds are copied
+  over at each call.
+  """
 
   def _clip(a, s):
     if isinstance(s, array_spec.BoundedArraySpec) and \
         array_spec.is_continuous(s):
-      lo = torch.as_tensor(s.minimum, dtype=a.dtype, device=a.device)
-      hi = torch.as_tensor(s.maximum, dtype=a.dtype, device=a.device)
+      lo, hi = s.minimum, s.maximum
+      if lo.size == 1 and hi.size == 1:
+        return torch.clamp(a, float(lo.flat[0]), float(hi.flat[0]))
+      lo = torch.as_tensor(lo, dtype=a.dtype, device=a.device)
+      hi = torch.as_tensor(hi, dtype=a.dtype, device=a.device)
       return torch.clamp(a, lo, hi)
     return a
 

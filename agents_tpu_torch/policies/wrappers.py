@@ -5,6 +5,7 @@ Port of `GreedyPolicy` and `EpsilonGreedyPolicy` of
 """
 from __future__ import annotations
 
+from agents_tpu_torch import distributions as dist_lib
 from agents_tpu_torch.policies.policy import Policy
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import policy_step as ps
@@ -31,8 +32,16 @@ class GreedyPolicy(Policy):
                          info=dstep.info)
 
   def _distribution(self, params, time_step, state):
-    raise NotImplementedError(
-        "GreedyPolicy's deterministic distribution is not ported yet")
+    """A `Deterministic` at each wrapped distribution's mode, keeping its
+    event dims so `log_prob` stays ``[B]`` (wrappers.py:46-57)."""
+    dstep = self.wrapped._distribution(params, time_step, state)
+    action = nest_utils.tree_map(
+        lambda d: dist_lib.Deterministic(
+            d.mode(), event_ndims=getattr(
+                d, "event_ndims",
+                getattr(d, "reinterpreted_batch_ndims", 0))),
+        dstep.action, is_leaf=lambda d: hasattr(d, "mode"))
+    return ps.PolicyStep(action=action, state=dstep.state, info=dstep.info)
 
 
 class EpsilonGreedyPolicy(Policy):

@@ -1,13 +1,14 @@
 """Trajectory / Transition and the conversions the main path uses.
 
 Port of ``agents_tpu/trajectories/trajectory.py``: `Trajectory`,
-`Transition`, `from_transition` (:152), `to_n_step_transition` (:194) and
-`trajectory_spec` (:248).
+`Transition`, `from_transition` (:152), `to_transition` (:166),
+`to_n_step_transition` (:194), `trajectory_spec` (:248) and
+`check_adjacent_transition_sequence` (:262).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -63,6 +64,33 @@ def from_transition(time_step: ts.TimeStep, action_step: ps.PolicyStep,
       next_step_type=next_time_step.step_type,
       reward=next_time_step.reward,
       discount=next_time_step.discount)
+
+
+def to_transition(trajectory: Trajectory,
+                  next_trajectory: Optional[Trajectory] = None
+                  ) -> Transition:
+  """Transitions from adjacent trajectory frames.
+
+  With no `next_trajectory`, `trajectory` is ``[B, T, ...]`` and is sliced
+  along time into T-1 transitions. `time_step.reward` and `.discount` are
+  zero-filled (undefined), as in the JAX package.
+  """
+  if next_trajectory is None:
+    next_trajectory = nest_utils.tree_map(lambda t: t[:, 1:], trajectory)
+    trajectory = nest_utils.tree_map(lambda t: t[:, :-1], trajectory)
+  policy_steps = ps.PolicyStep(
+      action=trajectory.action, state=(), info=trajectory.policy_info)
+  time_steps = ts.TimeStep(
+      step_type=trajectory.step_type,
+      reward=nest_utils.tree_map(torch.zeros_like, trajectory.reward),
+      discount=torch.zeros_like(trajectory.discount),
+      observation=trajectory.observation)
+  next_time_steps = ts.TimeStep(
+      step_type=trajectory.next_step_type,
+      reward=trajectory.reward,
+      discount=trajectory.discount,
+      observation=next_trajectory.observation)
+  return Transition(time_steps, policy_steps, next_time_steps)
 
 
 def to_n_step_transition(trajectory: Trajectory, gamma) -> Transition:
@@ -125,3 +153,16 @@ def trajectory_spec(time_step_spec: ts.TimeStep, action_spec,
       next_step_type=time_step_spec.step_type,
       reward=time_step_spec.reward,
       discount=time_step_spec.discount)
+
+
+def check_adjacent_transition_sequence(experience: Trajectory,
+                                       agent_name: str) -> None:
+  """Raise unless `experience` is ``[B, 2]``: `to_transition` of a longer
+  window gives T-1 transitions, and an agent that keeps the first would
+  drop the rest silently. Reads the shape only, so it never syncs."""
+  shape = tuple(experience.step_type.shape)
+  if len(shape) != 2 or shape[1] != 2:
+    raise ValueError(
+        f"{agent_name} trains on adjacent-frame transitions "
+        f"(train_sequence_length=2); got experience with step_type shape "
+        f"{shape}. Sample replay with num_steps=2.")

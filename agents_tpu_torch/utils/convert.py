@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's Q networks into the port.
+"""Carry weights from the JAX package's networks into the port.
 
 Takes numpy only (``jax.device_get`` of the JAX side's params on the
 caller's side), so it imports nothing of JAX. The flax tree of a Q
@@ -15,6 +15,15 @@ with one head `Dense_0` for `QModule` (the Q values) and
 `Dense_0` the value, `Dense_1` the advantages. A flax Dense kernel is
 ``[in, out]`` where a torch Linear weight is ``[out, in]``; a flax Conv
 kernel is HWIO where a torch Conv2d weight is OIHW.
+
+The SAC networks' trees are
+
+    actor:  {"params": {"EncoderModule_0": {"Dense_0": ..., ...},
+                        "TanhNormalProjection_0": {"Dense_0": ...}, ...}}
+    critic: {"params": {"Dense_0": ..., ..., "Dense_n": ...}}
+
+with one projection per action leaf, and the critic's observation layers,
+then its joint layers, then its Q layer in `Dense_i` order.
 """
 from __future__ import annotations
 
@@ -37,12 +46,13 @@ def _layers(tree: Mapping, prefix: str):
   return out
 
 
-def q_params_to_state_dict(params: Mapping) -> "collections.OrderedDict":
-  """flax Q-network params -> the port module's `state_dict()` (in
-  parameter order). Raises on an entry it does not know."""
-  tree = params["params"]
-  encoder = tree["EncoderModule_0"]
-  out = collections.OrderedDict()
+def _dense(out, name: str, dense: Mapping) -> None:
+  out[f"{name}.weight"] = _t(np.asarray(dense["kernel"]).T)
+  out[f"{name}.bias"] = _t(dense["bias"])
+
+
+def _encoder(out, encoder: Mapping) -> None:
+  """An `EncoderModule_0` subtree into `out` under ``encoder.``."""
   convs, denses = _layers(encoder, "Conv"), _layers(encoder, "Dense")
   if len(encoder) != len(convs) + len(denses):
     raise ValueError(f"unexpected encoder entries: {sorted(encoder)}")
@@ -51,14 +61,53 @@ def q_params_to_state_dict(params: Mapping) -> "collections.OrderedDict":
         np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
     out[f"encoder.convs.{i}.bias"] = _t(conv["bias"])
   for i, dense in enumerate(denses):
-    out[f"encoder.layers.{i}.weight"] = _t(np.asarray(dense["kernel"]).T)
-    out[f"encoder.layers.{i}.bias"] = _t(dense["bias"])
+    _dense(out, f"encoder.layers.{i}", dense)
+
+
+def q_params_to_state_dict(params: Mapping) -> "collections.OrderedDict":
+  """flax Q-network params -> the port module's `state_dict()` (in
+  parameter order). Raises on an entry it does not know."""
+  tree = params["params"]
+  out = collections.OrderedDict()
+  _encoder(out, tree["EncoderModule_0"])
   heads = tuple(sorted(k for k in tree if k != "EncoderModule_0"))
   if heads not in _HEADS:
     raise ValueError(f"unexpected head entries: {list(heads)}")
   for flax_name, name in zip(heads, _HEADS[heads]):
-    out[f"{name}.weight"] = _t(np.asarray(tree[flax_name]["kernel"]).T)
-    out[f"{name}.bias"] = _t(tree[flax_name]["bias"])
+    _dense(out, name, tree[flax_name])
+  return out
+
+
+def sac_actor_params_to_state_dict(params: Mapping
+                                   ) -> "collections.OrderedDict":
+  """flax SAC actor params (`make_sac_actor_network`) -> the port
+  `ActorDistributionModule`'s `state_dict()`."""
+  tree = params["params"]
+  out = collections.OrderedDict()
+  _encoder(out, tree["EncoderModule_0"])
+  heads = _layers(tree, "TanhNormalProjection")
+  if len(tree) != 1 + len(heads) or not heads:
+    raise ValueError(f"unexpected actor entries: {sorted(tree)}")
+  for j, head in enumerate(heads):
+    if set(head) != {"Dense_0"}:
+      raise ValueError(f"unexpected projection entries: {sorted(head)}")
+    _dense(out, f"projections.{j}.dense", head["Dense_0"])
+  return out
+
+
+def sac_critic_params_to_state_dict(params: Mapping
+                                    ) -> "collections.OrderedDict":
+  """flax critic params (`make_critic_network`) -> the port
+  `CriticModule`'s `state_dict()`: every Dense but the last into
+  `layers`, the last into `q_head`."""
+  tree = params["params"]
+  denses = _layers(tree, "Dense")
+  if len(tree) != len(denses) or not denses:
+    raise ValueError(f"unexpected critic entries: {sorted(tree)}")
+  out = collections.OrderedDict()
+  for i, dense in enumerate(denses[:-1]):
+    _dense(out, f"layers.{i}", dense)
+  _dense(out, "q_head", denses[-1])
   return out
 
 
@@ -80,17 +129,27 @@ def dqn_agent_state_to_torch(q_params: Mapping, target_q_params: Mapping,
   "state" part of a `torch.optim.Adam` state dict, keyed by parameter
   index) and "train_step" (int); `load_dqn_agent_state` applies it.
   """
-  mu = q_params_to_state_dict(adam_mu)
-  nu = q_params_to_state_dict(adam_nu)
-  step = float(np.asarray(adam_count))
-  adam_state = {
-      i: {"step": torch.tensor(step, dtype=torch.float32),
-          "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-      for i, name in enumerate(mu)}
   return {"q": q_params_to_state_dict(q_params),
           "target_q": q_params_to_state_dict(target_q_params),
-          "adam_state": adam_state,
+          "adam_state": _adam_state(
+              adam_count, q_params_to_state_dict(adam_mu).values(),
+              q_params_to_state_dict(adam_nu).values()),
           "train_step": int(np.asarray(train_step))}
+
+
+def _adam_state(count, mus, nus) -> Dict:
+  """The "state" part of a `torch.optim.Adam` state dict, keyed by
+  parameter index, from optax's count and moments in parameter order."""
+  step = float(np.asarray(count))
+  return {i: {"step": torch.tensor(step, dtype=torch.float32),
+              "exp_avg": mu, "exp_avg_sq": nu}
+          for i, (mu, nu) in enumerate(zip(mus, nus, strict=True))}
+
+
+def _load_optimizer(optimizer, state: Dict) -> None:
+  optimizer.load_state_dict({
+      "state": state,
+      "param_groups": optimizer.state_dict()["param_groups"]})
 
 
 def load_dqn_agent_state(agent_state, converted: Dict):
@@ -98,9 +157,66 @@ def load_dqn_agent_state(agent_state, converted: Dict):
   (in place) and return it with the converted train step."""
   agent_state.q_network.load_state_dict(converted["q"])
   agent_state.target_q_network.load_state_dict(converted["target_q"])
-  optimizer = agent_state.optimizer
-  optimizer.load_state_dict({
-      "state": converted["adam_state"],
-      "param_groups": optimizer.state_dict()["param_groups"]})
+  _load_optimizer(agent_state.optimizer, converted["adam_state"])
+  return dataclasses.replace(agent_state,
+                             train_step=converted["train_step"])
+
+
+# (JAX SacAgentState field, port SacAgentState field, converter)
+_SAC_NETWORKS = (
+    ("actor_params", "actor_network", sac_actor_params_to_state_dict),
+    ("critic1_params", "critic1_network", sac_critic_params_to_state_dict),
+    ("critic2_params", "critic2_network", sac_critic_params_to_state_dict),
+    ("target_critic1_params", "target_critic1_network",
+     sac_critic_params_to_state_dict),
+    ("target_critic2_params", "target_critic2_network",
+     sac_critic_params_to_state_dict))
+
+
+def sac_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `SacAgentState` in port terms.
+
+  Args:
+    state: the JAX state with numpy leaves (``jax.device_get`` of it on the
+      caller's side), its three optimizers ``optax.adam``: each optimizer
+      state's first entry holds `count`, `mu` and `nu`. The critic
+      optimizer's moments are ``(critic 1 tree, critic 2 tree)``.
+
+  Returns a dict with the five networks' state dicts under the port
+  state's field names ("actor_network", "critic1_network", ...,
+  "target_critic2_network"), "log_alpha" (a 0-dim
+  tensor), the "state" part of each `torch.optim.Adam` state dict
+  ("actor_adam", "critic_adam" over critic 1's then critic 2's
+  parameters, "alpha_adam") and "train_step" (int);
+  `load_sac_agent_state` applies it.
+  """
+  out = {field: fn(getattr(state, jax_field))
+         for jax_field, field, fn in _SAC_NETWORKS}
+  actor, critic, alpha = (state.actor_opt_state[0], state.critic_opt_state[0],
+                          state.alpha_opt_state[0])
+  actor_sd = lambda t: sac_actor_params_to_state_dict(t).values()  # noqa
+  critic_sd = lambda t: [  # noqa: E731
+      v for tree in t for v in sac_critic_params_to_state_dict(tree).values()]
+  out.update(
+      log_alpha=_t(state.log_alpha),
+      actor_adam=_adam_state(actor.count, actor_sd(actor.mu),
+                             actor_sd(actor.nu)),
+      critic_adam=_adam_state(critic.count, critic_sd(critic.mu),
+                              critic_sd(critic.nu)),
+      alpha_adam=_adam_state(alpha.count, [_t(alpha.mu)], [_t(alpha.nu)]),
+      train_step=int(np.asarray(state.train_step)))
+  return out
+
+
+def load_sac_agent_state(agent_state, converted: Dict):
+  """Load `sac_agent_state_to_torch`'s output into a port `SacAgentState`
+  (in place) and return it with the converted train step."""
+  for _, field, _ in _SAC_NETWORKS:
+    getattr(agent_state, field).load_state_dict(converted[field])
+  with torch.no_grad():
+    agent_state.log_alpha.copy_(converted["log_alpha"])
+  for name in ("actor", "critic", "alpha"):
+    _load_optimizer(getattr(agent_state, f"{name}_optimizer"),
+                    converted[f"{name}_adam"])
   return dataclasses.replace(agent_state,
                              train_step=converted["train_step"])

@@ -15,6 +15,18 @@ Sites:
   "pixels_step_target"  randint [B] in [0, num_actions)  (SyntheticPixels
                                                           step)
   "catch_ball_col"      randint [B] in [0, columns)      (Catch reset)
+  "pendulum_theta"      uniform [B] in [-pi, pi)         (Pendulum reset)
+  "pendulum_theta_dot"  uniform [B] in [-1, 1)           (Pendulum reset)
+  "actor_noise"         normal [B, *leaf shape]          (ActorPolicy
+                                                          sample, one
+                                                          draw per action
+                                                          leaf)
+  "sac_next_action_noise"
+                        normal [S, *leaf shape]          (SAC critic
+                                                          targets' next
+                                                          actions)
+  "sac_action_noise"    normal [S, *leaf shape]          (SAC actor loss's
+                                                          actions)
   "random_action"       randint [B] in [0, num_actions)  (epsilon-greedy)
   "explore"             uniform [B] in [0, 1)            (epsilon-greedy
                                                           coin)

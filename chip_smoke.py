@@ -46,10 +46,35 @@ any failed phase exits non-zero before the last line.
                   greedy `evaluate` over exactly 30 episodes.
   9. c51          C51 (51 atoms on [-10, 10]) at the pixel bench point:
                   100 iterations under the sync debug mode, finite losses.
- 10. kernels      the port's hand-written kernels on these paths (none: the
+ 10. sac_parity   `examples/sac_pendulum_torch.py`'s loop at the SAC width
+                  ((256, 256) actor and critics) on the device Pendulum,
+                  B=8, ring 64, sample 32, 2 train steps per iteration:
+                  16 collect steps then 3 fused iterations on "cpu" and
+                  "cuda" from numpy-made params and one replayed stream of
+                  draws (TF32 off): losses, the five networks, log alpha,
+                  the three Adams' moments, replay storage and metrics
+                  agree (floats rtol 1e-5 / atol 1e-5; step types exactly).
+ 11. sac_main     the SAC bench point (``bench.py:sac_live_probe``'s agent
+                  and replay on the device Pendulum: B=32, ring 4096,
+                  sample 256, (256, 256), Adam 3e-4 x3, tau 0.005, gamma
+                  0.99, reward scale 0.1, UTD 1.0 = 32 train steps per
+                  iteration, 64 collect steps): 5 warm-up and 50 timed
+                  iterations (5 windows) under the sync debug mode; exact
+                  replay count, finite losses and log alpha, legal step
+                  types, tensors on the card. Prints ms/iteration,
+                  env-steps/s, train-steps/s, a 5-iteration profile with
+                  operator records per train step, and the analytic GFLOP
+                  per train step.
+ 12. sac_learn    the example's ``--preset=live`` config (B=8, ring 8192,
+                  sample 256, 4 train steps, (64, 64)): up to 8,000
+                  iterations, checked every 250, to a last-20 AverageReturn
+                  of -250 or more, then greedy `evaluate` over exactly 30
+                  episodes.
+ 13. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 11. the last line: {"ok": true, "device": {...}}.
+ 14. the last line: {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import os
@@ -73,6 +98,11 @@ BF16_ATOL = 1e-2
 CONV_INITIAL, CONV_WARMUP, CONV_TIMED, CONV_PROFILED = 64, 20, 200, 20
 CATCH_ITERATIONS, CATCH_CHUNK, CATCH_GATE = 2400, 400, 0.3
 C51_WARMUP, C51_TIMED = 10, 100
+SAC_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
+                  train_steps_per_iteration=2)
+SAC_RTOL = SAC_ATOL = 1e-5
+SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 5, 50, 5
+SAC_LEARN_ITERATIONS, SAC_LEARN_CHUNK, SAC_LEARN_GATE = 8000, 250, -250.0
 
 
 def emit(phase, **fields):
@@ -133,21 +163,25 @@ def max_diff(a, b):
   return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def run_on_both(build, state_dict, initial_collect_steps, iterations):
-  """`build(device)`'s loop on "cpu" then "cuda" from `state_dict`, the
-  card replaying the CPU's stream of draws. Returns {device: (loop, state,
-  losses)}."""
+def run_on_both(build, load, initial_collect_steps, iterations):
+  """`build(device)`'s loop on "cpu" then "cuda", its networks set by
+  `load(loop)`, the card replaying the CPU's stream of draws (an agent
+  state that draws, as SAC's does, takes the same stream). Returns
+  {device: (loop, state, losses)}."""
   from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
 
   runs, records = {}, None
   for device in ("cpu", "cuda"):
     loop = build(device)
-    loop.agent.q_network.load_state_dict(state_dict)
+    load(loop)
     if device == "cpu":
       draws = RecordingDraws(Draws(0, "cpu"))
     else:
       draws = ReplayDraws(records, device)
     state = loop.init(draws=draws, initial_collect_steps=initial_collect_steps)
+    if hasattr(state.agent_state, "draws"):
+      state = dataclasses.replace(state, agent_state=dataclasses.replace(
+          state.agent_state, draws=draws))
     state, losses = loop.run(state, iterations)
     if device == "cpu":
       records = draws.records
@@ -155,7 +189,34 @@ def run_on_both(build, state_dict, initial_collect_steps, iterations):
   return runs
 
 
-def compare_runs(runs, rtol, atol):
+def dqn_tensors(agent_state):
+  """The online and target Q networks' tensors by name."""
+  return {f"{tag}.{k}": v
+          for tag, net in (("q", "q_network"), ("target_q", "target_q_network"))
+          for k, v in getattr(agent_state, net).state_dict().items()}
+
+
+def sac_tensors(agent_state):
+  """The five SAC networks' tensors, log alpha, the three Adams' moments
+  and step counts, and the train step, by name."""
+  import torch
+
+  out = {f"{net}.{k}": v
+         for net in ("actor_network", "critic1_network", "critic2_network",
+                     "target_critic1_network", "target_critic2_network")
+         for k, v in getattr(agent_state, net).state_dict().items()}
+  out["log_alpha"] = agent_state.log_alpha.detach()
+  for name in ("actor", "critic", "alpha"):
+    optimizer = getattr(agent_state, f"{name}_optimizer")
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for i, p in enumerate(params):
+      for k, v in optimizer.state[p].items():
+        out[f"{name}_adam.{i}.{k}"] = v
+  out["train_step"] = torch.tensor(agent_state.train_step)
+  return out
+
+
+def compare_runs(runs, rtol, atol, agent_tensors=dqn_tensors):
   """Largest float difference by name, and the names that disagree (floats
   beyond rtol/atol, anything else at all)."""
   import torch
@@ -166,7 +227,7 @@ def compare_runs(runs, rtol, atol):
   diffs, mismatched = {}, []
 
   def compare(name, a, b):
-    b = b.cpu()
+    a, b = a.cpu(), b.cpu()
     if a.dtype.is_floating_point:
       diffs[name] = max_diff(a, b)
       if not torch.allclose(a, b, rtol=rtol, atol=atol):
@@ -175,11 +236,12 @@ def compare_runs(runs, rtol, atol):
       mismatched.append(name)
 
   compare("losses", closses, glosses)
-  for tag, net in (("q", "q_network"), ("target_q", "target_q_network")):
-    csd = getattr(cstate.agent_state, net).state_dict()
-    gsd = getattr(gstate.agent_state, net).state_dict()
-    for k in csd:
-      compare(f"{tag}.{k}", csd[k], gsd[k])
+  ctensors = agent_tensors(cstate.agent_state)
+  gtensors = agent_tensors(gstate.agent_state)
+  if set(ctensors) != set(gtensors):
+    mismatched.append("agent_state.names")
+  for k in ctensors:
+    compare(k, ctensors[k], gtensors[k])
   cleaves = nest_utils.flatten(cstate.replay_state.storage)
   gleaves = nest_utils.flatten(gstate.replay_state.storage)
   names = ["step_type", "observation", "action", "next_step_type", "reward",
@@ -208,7 +270,8 @@ def phase_parity():
   runs = run_on_both(
       lambda device: build_loop(device, B_PARITY, capacity=64,
                                 sample_batch_size=64, fc=fc),
-      state_dict, initial_collect_steps=16, iterations=5)
+      lambda loop: loop.agent.q_network.load_state_dict(state_dict),
+      initial_collect_steps=16, iterations=5)
   diffs, exact_mismatch = compare_runs(runs, RTOL, ATOL)
   worst = max(diffs, key=diffs.get)
   emit("parity", batch_size=B_PARITY, iterations=5, rtol=RTOL, atol=ATOL,
@@ -220,8 +283,12 @@ def phase_parity():
 
 
 def loop_tensors(state):
-  """Every tensor a LoopState holds (optimizer step counters excepted:
-  torch's non-capturable Adam keeps them on the host by design)."""
+  """Every tensor a LoopState holds: the driver, replay and metric states,
+  and each network, tensor and optimizer of the agent state (optimizer
+  step counters excepted: torch's non-capturable Adam keeps them on the
+  host by design)."""
+  import dataclasses
+
   import torch
 
   from agents_tpu_torch.utils import nest_utils
@@ -229,12 +296,16 @@ def loop_tensors(state):
   out = [x for x in nest_utils.flatten(
       (state.driver_state, state.replay_state.storage, state.metric_states))
          if isinstance(x, torch.Tensor)]
-  agent = state.agent_state
-  out += list(agent.q_network.parameters())
-  out += list(agent.target_q_network.parameters())
-  for per_param in agent.optimizer.state.values():
-    out += [v for k, v in per_param.items()
-            if isinstance(v, torch.Tensor) and k != "step"]
+  for field in dataclasses.fields(state.agent_state):
+    value = getattr(state.agent_state, field.name)
+    if isinstance(value, torch.nn.Module):
+      out += list(value.parameters()) + list(value.buffers())
+    elif isinstance(value, torch.Tensor):
+      out.append(value)
+    elif isinstance(value, torch.optim.Optimizer):
+      for per_param in value.state.values():
+        out += [v for k, v in per_param.items()
+                if isinstance(v, torch.Tensor) and k != "step"]
   return out
 
 
@@ -443,7 +514,9 @@ def phase_conv_parity(card):
       image=(size, size, 4)))
   runs = run_on_both(lambda device: pixel_loop(Config(device=device,
                                                        **CONV_PARITY)),
-                     state_dict, initial_collect_steps=16, iterations=3)
+                     lambda loop: loop.agent.q_network.load_state_dict(
+                         state_dict),
+                     initial_collect_steps=16, iterations=3)
   diffs, mismatched = compare_runs(runs, CONV_RTOL, CONV_ATOL)
   worst = max(diffs, key=diffs.get)
   storage = runs["cuda"][1].replay_state.storage
@@ -614,6 +687,205 @@ def phase_c51(card):
     fail("c51", "C51 at the pixel bench point failed its checks")
 
 
+def numpy_sac_params(rng, actor_fc, critic_fc, obs_dim=3, act_dim=1):
+  """Flax-shaped SAC actor and two critic param trees drawn with numpy."""
+  import numpy as np
+
+  def layer(shape, scale):
+    return {"kernel": rng.uniform(-scale, scale, shape).astype(np.float32),
+            "bias": rng.uniform(-0.05, 0.05, shape[-1:]).astype(np.float32)}
+
+  def stack(width, widths):
+    layers = []
+    for out in widths:
+      layers.append(layer((width, out), math.sqrt(3.0 / width)))
+      width = out
+    return layers, width
+
+  encoder, width = stack(obs_dim, actor_fc)
+  actor = {"params": {
+      "EncoderModule_0": {f"Dense_{i}": d for i, d in enumerate(encoder)},
+      "TanhNormalProjection_0": {"Dense_0": layer(
+          (width, 2 * act_dim), math.sqrt(3.0 / width))}}}
+
+  def critic():
+    layers, width = stack(obs_dim + act_dim, critic_fc)
+    layers.append(layer((width, 1), 0.003))
+    return {"params": {f"Dense_{i}": d for i, d in enumerate(layers)}}
+
+  return actor, critic(), critic()
+
+
+def sac_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
+                         critic_fc):
+  """Analytic FLOPs of one SAC train step, 2 per multiply-add of the dense
+  layers. Per sampled row, with A and C one actor and one critic forward:
+  the critic targets take the actor and two target critics (A + 2C); the
+  critic loss two critic forwards and their backward, about twice the
+  forward (2C + 4C); the actor loss the actor and two critics forward
+  (A + 2C), the critics' backward to the actions (2C) and the actor's
+  backward (2A). In all 4A + 12C."""
+  def macs(width, widths):
+    total = 0
+    for out in widths:
+      total += width * out
+      width = out
+    return total
+
+  a = macs(obs_dim, tuple(actor_fc) + (2 * act_dim,))
+  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
+  return 2 * sample_batch_size * (4 * a + 12 * c)
+
+
+def phase_sac_parity(card):
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert
+  from examples.sac_pendulum_torch import Config
+  from examples.sac_pendulum_torch import build_loop as sac_loop
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = Config(**SAC_PARITY)
+  actor, critic1, critic2 = numpy_sac_params(
+      np.random.RandomState(3), cfg.actor_fc_layers,
+      cfg.critic_joint_fc_layers)
+
+  def load(loop):
+    agent = loop.agent
+    agent.actor_network.load_state_dict(
+        convert.sac_actor_params_to_state_dict(actor))
+    agent.critic_network.load_state_dict(
+        convert.sac_critic_params_to_state_dict(critic1))
+    agent.critic_network_2.load_state_dict(
+        convert.sac_critic_params_to_state_dict(critic2))
+
+  runs = run_on_both(
+      lambda device: sac_loop(dataclasses.replace(cfg, device=device)),
+      load, initial_collect_steps=16, iterations=3)
+  diffs, mismatched = compare_runs(runs, SAC_RTOL, SAC_ATOL, sac_tensors)
+  worst = max(diffs, key=diffs.get)
+  gstate = runs["cuda"][1]
+  ok = not mismatched and gstate.agent_state.train_step == 3 * 2
+  emit("sac_parity", card=card, actor=list(cfg.actor_fc_layers),
+       critic=list(cfg.critic_joint_fc_layers),
+       batch_size=cfg.env_batch_size, ring=cfg.replay_capacity,
+       sample=cfg.sample_batch_size,
+       train_steps_per_iteration=cfg.train_steps_per_iteration,
+       iterations=3, rtol=SAC_RTOL, atol=SAC_ATOL,
+       largest_float_diff={"name": worst, "abs": diffs[worst]},
+       loss_diff=diffs["losses"], log_alpha_diff=diffs["log_alpha"],
+       compared=len(diffs), mismatched=mismatched,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("sac_parity", f"card and CPU disagree on {mismatched}")
+
+
+def phase_sac_main(card):
+  import torch
+
+  from examples.sac_pendulum_torch import Config
+  from examples.sac_pendulum_torch import build_loop as sac_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config()
+  loop = sac_loop(cfg)
+  t_init = time.perf_counter()
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  state, losses = loop.run(state, SAC_WARMUP)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t_init
+
+  state, losses, window_ms = timed_windows(loop, state, SAC_TIMED)
+  ms = sum(window_ms) / len(window_ms)
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  log_alpha = float(state.agent_state.log_alpha.detach())
+  finite = bool(torch.isfinite(losses).all()) and math.isfinite(log_alpha)
+  expected_count = cfg.initial_collect_steps + SAC_WARMUP + SAC_TIMED
+  bad_transitions, lasts = check_step_types(loop, state)
+  replay_count = state.replay_state.count
+  expected_steps = (SAC_WARMUP + SAC_TIMED) * cfg.train_steps_per_iteration
+  ok = (not off_card and finite and bad_transitions == 0
+        and replay_count == expected_count
+        and state.agent_state.train_step == expected_steps)
+  state, prof = profile_window(loop, state, SAC_PROFILED)
+  steps = cfg.train_steps_per_iteration
+  flops = sac_train_step_flops(cfg.sample_batch_size, 3, 1,
+                               cfg.actor_fc_layers,
+                               cfg.critic_joint_fc_layers)
+  emit("sac_main", card=card, batch_size=cfg.env_batch_size,
+       ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       train_steps_per_iteration=steps, timed_iterations=SAC_TIMED,
+       sync_debug_mode="error", ms_per_iteration=ms,
+       window_ms_per_iteration=window_ms,
+       ms_per_train_step=ms / steps,
+       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
+       train_steps_per_s=steps * 1e3 / ms,
+       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
+           "cpu_op", 0.0) / steps,
+       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
+       model_gflop_per_train_step=flops / 1e9,
+       model_tflop_per_s=flops * steps / ms / 1e9,
+       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       losses_finite=finite, last_loss=float(losses[-1]),
+       log_alpha=log_alpha, replay_count=replay_count,
+       expected_replay_count=expected_count,
+       train_step=state.agent_state.train_step,
+       illegal_step_type_transitions=bad_transitions,
+       last_frames_in_ring=lasts, profile=prof,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("sac_main", "SAC bench point checks failed")
+
+
+def phase_sac_learn(card):
+  import torch
+
+  from examples.sac_pendulum_torch import LIVE, Config
+  from examples.sac_pendulum_torch import build_loop as sac_loop
+
+  t0 = time.perf_counter()
+  cfg = Config(**LIVE)
+  loop = sac_loop(cfg)
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  iterations, ret, points = 0, -math.inf, []
+  while iterations < SAC_LEARN_ITERATIONS:
+    state, losses = loop.run(state, SAC_LEARN_CHUNK)
+    iterations += SAC_LEARN_CHUNK
+    ret = float(loop.results(state)["AverageReturn"])
+    points.append([iterations, ret])
+    if ret >= SAC_LEARN_GATE:
+      break
+  learn_s = time.perf_counter() - t0
+  t_eval = time.perf_counter()
+  out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
+  episodes = int(out["NumberOfEpisodes"])
+  eval_return = float(out["AverageReturn"])
+  torch.cuda.synchronize()
+  finite = bool(torch.isfinite(losses).all())
+  ok = ret >= SAC_LEARN_GATE and finite and episodes == 30
+  emit("sac_learn", card=card, batch_size=cfg.env_batch_size,
+       sample_batch_size=cfg.sample_batch_size,
+       train_steps_per_iteration=cfg.train_steps_per_iteration,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       iterations=iterations, last20_average_return=ret,
+       gate=SAC_LEARN_GATE, points=points, losses_finite=finite,
+       log_alpha=float(state.agent_state.log_alpha.detach()),
+       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
+       eval_episodes=episodes, eval_average_return=eval_return,
+       eval_seconds=time.perf_counter() - t_eval,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("sac_learn", f"last-20 return {ret} (gate {SAC_LEARN_GATE}), "
+         f"{episodes} eval episodes of 30")
+
+
 def main():
   import torch
 
@@ -639,6 +911,10 @@ def main():
   free_card()
   phase_conv_learn(card)
   phase_c51(card)
+  free_card()
+  phase_sac_parity(card)
+  phase_sac_main(card)
+  phase_sac_learn(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")
   print(json.dumps({"kernels": []}), flush=True)

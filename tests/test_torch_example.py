@@ -134,3 +134,75 @@ def test_pixel_example_command_line_on_cpu(tmp_path, agent):
   assert [r["step"] for r in records if "loss" in r] == [10, 20]
   with open(tmp_path / "config.json") as f:
     assert json.load(f)["agent"] == agent
+
+
+# -- the SAC example ----------------------------------------------------------
+
+
+def test_sac_example_bench_defaults_and_live_preset():
+  """The defaults are the SAC bench point (``bench.py:sac_live_probe``'s
+  agent and replay); --preset=live is ``tests/test_live_windows.py:89-123``
+  exactly; --smoke and --cfg.* override either."""
+  from examples.sac_pendulum_torch import Config, parse_sac_args
+  bench = Config()
+  assert (bench.env_batch_size, bench.replay_capacity,
+          bench.sample_batch_size, bench.train_steps_per_iteration,
+          bench.initial_collect_steps) == (32, 4096, 256, 32, 64)
+  assert (bench.actor_fc_layers, bench.critic_joint_fc_layers) == (
+      (256, 256), (256, 256))
+  assert (bench.actor_lr, bench.critic_lr, bench.alpha_lr, bench.gamma,
+          bench.target_update_tau, bench.reward_scale_factor,
+          bench.max_episode_steps, bench.device) == (
+              3e-4, 3e-4, 3e-4, 0.99, 0.005, 0.1, 200, "cuda")
+  live = parse_sac_args(["--preset=live"])
+  assert (live.env_batch_size, live.replay_capacity, live.sample_batch_size,
+          live.train_steps_per_iteration, live.initial_collect_steps,
+          live.num_iterations) == (8, 8192, 256, 4, 128, 8000)
+  assert (live.actor_fc_layers, live.critic_joint_fc_layers) == (
+      (64, 64), (64, 64))
+  assert (live.reward_scale_factor, live.target_update_tau, live.gamma,
+          live.actor_lr, live.critic_lr, live.alpha_lr) == (
+              1.0, 0.005, 0.99, 3e-4, 3e-4, 3e-4)
+  cfg = parse_sac_args(["--preset=live", "--smoke", "--device=cpu",
+                        "--cfg.actor_fc_layers=8,8", "--cfg.seed=3"])
+  assert (cfg.num_iterations, cfg.env_batch_size, cfg.device, cfg.seed) == (
+      200, 8, "cpu", 3)
+  assert cfg.actor_fc_layers == (8, 8)
+  with pytest.raises(SystemExit):
+    parse_sac_args(["--preset=halfcheetah"])
+
+
+def test_sac_example_command_line_on_cpu(tmp_path):
+  out = subprocess.run(
+      [sys.executable, os.path.join(ROOT, "examples", "sac_pendulum_torch.py"),
+       "--device", "cpu", "--smoke", f"--cfg.root_dir={tmp_path}",
+       "--cfg.env_batch_size=4", "--cfg.max_episode_steps=10",
+       "--cfg.actor_fc_layers=8", "--cfg.critic_joint_fc_layers=8",
+       "--cfg.num_iterations=20", "--cfg.log_interval=10"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
+  assert out.returncode == 0, out.stderr
+  final = json.loads(out.stdout.strip().splitlines()[-1])
+  assert math.isfinite(final["final_average_return"])
+  # Ten steps of at most -(pi^2 + 0.1 * 8^2 + 0.001 * 2^2) each.
+  assert -170.0 <= final["eval_average_return"] <= 0.0
+  records = _records(tmp_path / "train.jsonl")
+  assert [r["step"] for r in records if "loss" in r] == [10, 20]
+  with open(tmp_path / "config.json") as f:
+    saved = json.load(f)
+  assert saved["max_episode_steps"] == 10 and saved["actor_fc_layers"] == [8]
+
+
+def test_sac_example_train_eval_smoke_on_cpu(tmp_path):
+  """`train_eval` over the SAC loop: finite losses, a logged return and a
+  greedy eval over exactly the episodes asked for."""
+  from examples.sac_pendulum_torch import SMOKE, Config, build_loop
+  cfg = Config(**{**SMOKE, "num_iterations": 40, "log_interval": 20,
+                  "env_batch_size": 4}, root_dir=str(tmp_path),
+               max_episode_steps=12, device="cpu")
+  final, eval_return = train_eval(cfg, build=build_loop)
+  assert math.isfinite(final) and final < 0.0
+  assert -250.0 <= eval_return < 0.0
+  records = _records(tmp_path / "train.jsonl")
+  losses = [r["loss"] for r in records if "loss" in r]
+  assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+  assert records[-1]["EvalAverageReturn"] == eval_return

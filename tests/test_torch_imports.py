@@ -15,7 +15,8 @@ import agents_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
-EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py")
+EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
+            "sac_pendulum_torch.py")
 
 
 def _port_modules():
@@ -39,7 +40,11 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
   modules = _port_modules()
   for name in ("train.fused_loop", "environments.classic.synthetic_pixels",
                "environments.classic.catch",
-               "agents.categorical_dqn.categorical_dqn_agent"):
+               "agents.categorical_dqn.categorical_dqn_agent",
+               "environments.classic.pendulum", "agents.sac.sac_agent",
+               "networks.actor_distribution_network",
+               "networks.projection_networks", "networks.value_network",
+               "policies.actor_policy"):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -81,11 +86,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   running on the CPU."""
   from agents_tpu_torch.agents.categorical_dqn import CategoricalDqnAgent
   from agents_tpu_torch.agents.dqn import DqnAgent
+  from agents_tpu_torch.agents.sac import SacAgent
   from agents_tpu_torch.environments import BatchedTorchEnv
   from agents_tpu_torch.environments.classic import (CartPole, Catch,
+                                                     Pendulum,
                                                      SyntheticPixels)
   from agents_tpu_torch.networks import (make_categorical_q_network,
-                                         make_q_network)
+                                         make_critic_network, make_q_network,
+                                         make_sac_actor_network)
   from agents_tpu_torch.replay_buffers import UniformReplay
   from agents_tpu_torch.train import FusedTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
@@ -101,6 +109,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   c51net = make_categorical_q_network(pobs, pact, num_atoms=5,
                                       conv_layer_params=((4, 3, 2),),
                                       device="cpu")
+  pendulum = Pendulum()
+  sobs, sact = pendulum.observation_spec(), pendulum.action_spec()
+  actor = make_sac_actor_network(sobs, sact, (8,), device="cpu")
+  critic = make_critic_network(sobs, sact, joint_fc_layer_params=(8,),
+                               device="cpu")
 
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   for build in (lambda: BatchedTorchEnv(CartPole(), 4),
@@ -113,6 +126,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                 lambda: CategoricalDqnAgent(tss, pact, c51net,
                                             torch.optim.Adam),
                 lambda: DqnAgent(tss, asp, qnet, torch.optim.Adam),
+                lambda: BatchedTorchEnv(pendulum, 4),
+                lambda: make_sac_actor_network(sobs, sact),
+                lambda: make_critic_network(sobs, sact),
+                lambda: SacAgent(tss, sact, critic, actor, torch.optim.Adam,
+                                 torch.optim.Adam, torch.optim.Adam),
                 lambda: UniformReplay(tj.trajectory_spec(tss, asp), 4, 8),
                 lambda: FusedTrainLoop(env, agent, replay)):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -19,6 +19,7 @@ import torch
 
 from agents_tpu.environments.classic.cartpole import CartPole as JaxCartPole
 from agents_tpu.environments.classic.catch import Catch as JaxCatch
+from agents_tpu.environments.classic.pendulum import Pendulum as JaxPendulum
 from agents_tpu.environments.classic.synthetic_pixels import \
     SyntheticPixels as JaxSyntheticPixels
 from agents_tpu.specs import array_spec as jax_array_spec
@@ -46,37 +47,44 @@ def assert_equal(actual, expected, err_msg=""):
                                 err_msg=err_msg)
 
 
-# Each JAX environment's draw sites: (site, read) for its reset and, where
-# its step draws, for its step. `read(state, time_step)` recovers the draw
-# from what the JAX function returns.
+# Each JAX environment's draw sites: the (site, read) pairs of its reset
+# and of its step (none for a deterministic step), in the order the port
+# draws them. `read(state, time_step)` recovers the draw from what the JAX
+# function returns.
 _ENV_SITES = {
-    JaxCartPole: (("env_reset", lambda s, t: t.observation), None),
-    JaxSyntheticPixels: (("pixels_target", lambda s, t: s.target),
-                         ("pixels_step_target", lambda s, t: s.target)),
-    JaxCatch: (("catch_ball_col", lambda s, t: s.ball_col), None),
+    JaxCartPole: ((("env_reset", lambda s, t: t.observation),), ()),
+    JaxSyntheticPixels: ((("pixels_target", lambda s, t: s.target),),
+                         (("pixels_step_target", lambda s, t: s.target),)),
+    JaxCatch: ((("catch_ball_col", lambda s, t: s.ball_col),), ()),
+    JaxPendulum: ((("pendulum_theta", lambda s, t: s.theta),
+                   ("pendulum_theta_dot", lambda s, t: s.theta_dot)), ()),
 }
 
 
 def env_reset_site(env):
-  return _ENV_SITES[type(env)][0][0]
+  """The first reset site of `env`."""
+  return _ENV_SITES[type(env)][0][0][0]
+
+
+def _read_sites(sites, outputs):
+  return {site: read(*outputs) for site, read in sites}
 
 
 def _env_reset_draws(env, keys):
   """{site: [B, ...]}: the draws of `env.reset` vmapped over `keys`."""
-  site, read = _ENV_SITES[type(env)][0]
-  return {site: read(*jax.vmap(env.reset)(keys))}
+  return _read_sites(_ENV_SITES[type(env)][0], jax.vmap(env.reset)(keys))
 
 
 def _env_step_draws(env, keys):
   """{site: [B, ...]}: the draws of `env.step` vmapped over `keys` (none for
   a deterministic step). The draw depends on the key alone, so the step is
   taken from a reset state with action 0."""
-  if _ENV_SITES[type(env)][1] is None:
+  sites = _ENV_SITES[type(env)][1]
+  if not sites:
     return {}
-  site, read = _ENV_SITES[type(env)][1]
   state, _ = jax.vmap(env.reset)(keys)
   action = jnp.zeros(keys.shape[:1], jnp.int32)
-  return {site: read(*jax.vmap(env.step)(state, action, keys))}
+  return _read_sites(sites, jax.vmap(env.step)(state, action, keys))
 
 
 def jax_env_reset_draws(key, batch_size, env):
@@ -99,15 +107,38 @@ def jax_reset_draws(key, batch_size):
   return jax_env_reset_draws(key, batch_size, JaxCartPole())["env_reset"][0]
 
 
-def _collect_step_draws(step_key, batch_size, action_spec, env):
-  """One `JaxDriver.run` step's draws: epsilon-greedy's random action and
-  coin (wrappers.py:78-125) and the env's step and auto-reset draws."""
-  k_pol, k_env = jax.random.split(step_key)
+def _spec_leaves(spec_nest):
+  return jax.tree_util.tree_leaves(
+      spec_nest, is_leaf=lambda x: isinstance(x, jax_array_spec.ArraySpec))
+
+
+def _epsilon_greedy_draws(k_pol, batch_size, action_spec):
+  """Epsilon-greedy's random action and coin (wrappers.py:78-125)."""
   _, k_rand, k_mix = jax.random.split(k_pol, 3)
   random_action = jax_array_spec.sample_spec_nest(
       action_spec, k_rand, outer_dims=(batch_size,))
   coin = jax.random.uniform(k_mix, (batch_size,))
-  return {"random_action": random_action, "explore": coin,
+  return {"random_action": random_action, "explore": coin}
+
+
+def _actor_draws(k_pol, batch_size, action_spec):
+  """`ActorPolicy`'s normals: the policy key split once per action leaf
+  (policy.py:94-97), each leaf's distribution sampling ``[B, *shape]``."""
+  leaves = _spec_leaves(action_spec)
+  keys = jax.random.split(k_pol, len(leaves))
+  return {"actor_noise": [jax.random.normal(k, (batch_size,) + s.shape)
+                          for k, s in zip(keys, leaves)]}
+
+
+POLICY_DRAWS = {"epsilon_greedy": _epsilon_greedy_draws,
+                "actor": _actor_draws}
+
+
+def _collect_step_draws(step_key, batch_size, action_spec, env, policy):
+  """One `JaxDriver.run` step's draws: the policy's from `k_pol`
+  (jax_driver.py:65) and the env's step and auto-reset draws."""
+  k_pol, k_env = jax.random.split(step_key)
+  return {**POLICY_DRAWS[policy](k_pol, batch_size, action_spec),
           **jax_env_step_draws(k_env, batch_size, env)}
 
 
@@ -116,13 +147,38 @@ def _env_step_reset_draws(k_env, batch_size):
   return jax_env_step_draws(k_env, batch_size, JaxCartPole())["env_reset"]
 
 
+def _per_step(value):
+  """A vmapped draw [n, ...] as n records; a list of them (one per action
+  leaf) interleaved step by step, leaf by leaf."""
+  if isinstance(value, list):
+    return [np.asarray(leaf[t]) for t in range(len(value[0]))
+            for leaf in value]
+  return list(np.asarray(value))
+
+
 def jax_collect_draws(key, num_steps, batch_size, action_spec,
-                      env=JaxCartPole()):
-  """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env`."""
+                      env=JaxCartPole(), policy="epsilon_greedy"):
+  """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env` with
+  an epsilon-greedy or an actor collect policy."""
   keys = jax.random.split(key, num_steps)
-  draws = jax.vmap(
-      lambda k: _collect_step_draws(k, batch_size, action_spec, env))(keys)
-  return {site: list(np.asarray(v)) for site, v in draws.items()}
+  draws = jax.vmap(lambda k: _collect_step_draws(
+      k, batch_size, action_spec, env, policy))(keys)
+  return {site: _per_step(v) for site, v in draws.items()}
+
+
+def jax_sac_train_draws(train_step, sample_batch_size, action_spec):
+  """The normals of `SacAgent.train` at `train_step`: ``fold_in(key(17),
+  train_step)`` split into the critic's and the actor's keys
+  (sac_agent.py:189-192), each split once per action leaf."""
+  key = jax.random.fold_in(jax.random.key(17), train_step)
+  leaves = _spec_leaves(action_spec)
+  out = {}
+  for site, k in zip(("sac_next_action_noise", "sac_action_noise"),
+                     jax.random.split(key)):
+    out[site] = [np.asarray(jax.random.normal(kk, (sample_batch_size,)
+                                              + s.shape))
+                 for kk, s in zip(jax.random.split(k, len(leaves)), leaves)]
+  return out
 
 
 def jax_sample_draws(key, sample_batch_size, num_valid, batch_size):

@@ -56,6 +56,37 @@ def test_to_n_step_transition_matches_jax(n):
     assert_close(ttr.next_time_step.discount[0], 0.81 * torch.prod(d))
 
 
+@pytest.mark.parametrize("t", [2, 4])
+def test_to_transition_matches_jax(t):
+  """T-1 adjacent transitions; the first time step's reward and discount
+  are zero-filled; the next observation is the following frame's."""
+  jt = _trajectory(np.random.RandomState(t), 5, t, jtj, jnp.asarray)
+  tt = _trajectory(np.random.RandomState(t), 5, t, ttj, torch.from_numpy)
+  jtr, ttr = jtj.to_transition(jt), ttj.to_transition(tt)
+  for part in ("time_step", "next_time_step"):
+    for field in ("step_type", "reward", "discount", "observation"):
+      assert_equal(getattr(getattr(ttr, part), field),
+                   getattr(getattr(jtr, part), field), f"{part}.{field}")
+  assert_equal(ttr.action_step.action, jtr.action_step.action)
+  assert tuple(ttr.time_step.step_type.shape) == (5, t - 1)
+  assert not ttr.time_step.reward.any()
+
+
+def test_check_adjacent_transition_sequence_reads_the_shape_only():
+  tt = _trajectory(np.random.RandomState(0), 3, 2, ttj, torch.from_numpy)
+  ttj.check_adjacent_transition_sequence(tt, "SacAgent")
+  for bad in (_trajectory(np.random.RandomState(0), 3, 3, ttj,
+                          torch.from_numpy),
+              tt.replace(step_type=tt.step_type[:, 0])):
+    with pytest.raises(ValueError, match="SacAgent"):
+      ttj.check_adjacent_transition_sequence(bad, "SacAgent")
+    with pytest.raises(ValueError):
+      jtj.check_adjacent_transition_sequence(
+          jtj.Trajectory(**{k: (jnp.asarray(v.numpy()) if isinstance(
+              v, torch.Tensor) else v) for k, v in vars(bad).items()}),
+          "SacAgent")
+
+
 def test_to_n_step_transition_rejects_short_or_unbatched():
   tt = _trajectory(np.random.RandomState(0), 2, 1, ttj, torch.from_numpy)
   with pytest.raises(ValueError):
