@@ -18,6 +18,16 @@ from typing import Any, Optional, Tuple
 from agents_tpu_torch.utils.common import LossInfo
 
 
+def check_network_devices(device, **networks) -> None:
+  """Raise unless every named network's parameters live on `device`'s
+  type of device."""
+  for name, net in networks.items():
+    param_device = next(net.parameters()).device
+    if param_device.type != device.type:
+      raise ValueError(
+          f"{name} lives on {param_device}, the agent on {device}")
+
+
 class Agent(abc.ABC):
   """Base agent.
 

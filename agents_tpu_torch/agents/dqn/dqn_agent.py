@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent
+from agents_tpu_torch.agents.agent import Agent, check_network_devices
 from agents_tpu_torch.policies.q_policy import QPolicy
 from agents_tpu_torch.policies.wrappers import EpsilonGreedyPolicy, GreedyPolicy
 from agents_tpu_torch.specs import array_spec
@@ -84,10 +84,7 @@ class DqnAgent(Agent):
       if int(np.asarray(s.minimum)) != 0:
         raise ValueError(
             f"DqnAgent action specs should have minimum of 0, got {s}")
-    param_device = next(q_network.parameters()).device
-    if param_device.type != self.device.type:
-      raise ValueError(
-          f"q_network lives on {param_device}, the agent on {self.device}")
+    check_network_devices(self.device, q_network=q_network)
     self.time_step_spec = time_step_spec
     self.action_spec = action_spec
     self.q_network = q_network

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent
+from agents_tpu_torch.agents.agent import Agent, check_network_devices
 from agents_tpu_torch.networks.network import seeded_generator
 from agents_tpu_torch.policies.actor_policy import ActorPolicy
 from agents_tpu_torch.policies.wrappers import GreedyPolicy
@@ -116,12 +116,8 @@ class SacAgent(Agent):
                gradient_clipping: Optional[float] = None,
                generator: Optional[torch.Generator] = None, device="cuda"):
     self.device = resolve_device(device)
-    for name, net in (("critic_network", critic_network),
-                      ("actor_network", actor_network)):
-      param_device = next(net.parameters()).device
-      if param_device.type != self.device.type:
-        raise ValueError(
-            f"{name} lives on {param_device}, the agent on {self.device}")
+    check_network_devices(self.device, critic_network=critic_network,
+                          actor_network=actor_network)
     self.time_step_spec = time_step_spec
     self.action_spec = action_spec
     self.critic_network = critic_network

@@ -1,13 +1,18 @@
 """Distributions for policy heads.
 
 Port of ``agents_tpu/distributions/distributions.py``: `Normal`,
-`Independent` and `SquashedNormal` (:54-196), `Categorical` (:200, `mode`
-and `sample` only) and `Deterministic` (:414-439).
+`Independent` and `SquashedNormal` (:54-196), `Categorical` (:199-235),
+`Deterministic` (:414-439) and `kl_divergence` (:441).
 
 `log_prob` returns one value per batch element: `Independent` and
 `SquashedNormal` sum their event dims. Sampling takes a draw source and
 the name of its site in place of a PRNG key (`agents_tpu_torch.utils.
-draws`); `sample_shape` is prepended to the batch shape.
+draws`); `sample_shape` is prepended to the batch shape. Distributions are
+nests (`agents_tpu_torch.utils.nest_utils`): their parameter tensors are
+the leaves, and `dtype`, `reinterpreted_batch_ndims` and `event_ndims` are
+static fields, as flax's ``pytree_node=False`` makes them in the JAX
+package, so a rollout's distributions stack, slice and shuffle like any
+other part of a trajectory.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import math
 from typing import Any
 
 import torch
+
+from agents_tpu_torch.utils.nest_utils import static_field
 
 _LOG_2 = math.log(2.0)
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -72,12 +79,17 @@ class Normal(_Distribution):
   def stddev(self):
     return self.scale.expand(_batch_shape(self.loc, self.scale))
 
+  def kl_divergence(self, other: "Normal"):
+    var_ratio = (self.scale / other.scale) ** 2
+    t1 = ((self.loc - other.loc) / other.scale) ** 2
+    return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
 
 @dataclasses.dataclass(frozen=True)
 class Independent(_Distribution):
   """Reinterprets the last `reinterpreted_batch_ndims` dims as event dims."""
   base: Any
-  reinterpreted_batch_ndims: int = 1
+  reinterpreted_batch_ndims: int = static_field(default=1)
 
   def sample(self, draws, sample_shape=(), site: str = "normal"):
     return self.base.sample(draws, sample_shape, site)
@@ -99,6 +111,11 @@ class Independent(_Distribution):
   def stddev(self):
     return self.base.stddev()
 
+  def kl_divergence(self, other):
+    base_other = other.base if isinstance(other, Independent) else other
+    return _sum_event_dims(self.base.kl_divergence(base_other),
+                           self.reinterpreted_batch_ndims)
+
 
 @dataclasses.dataclass(frozen=True)
 class SquashedNormal(_Distribution):
@@ -114,7 +131,7 @@ class SquashedNormal(_Distribution):
   scale: Any
   low: Any = 0.0
   high: Any = 1.0
-  event_ndims: int = 1
+  event_ndims: int = static_field(default=1)
 
   @property
   def _half_range(self):
@@ -159,10 +176,31 @@ class SquashedNormal(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class Categorical:
+class Categorical(_Distribution):
   """Categorical over the last dim of `logits`."""
   logits: torch.Tensor
-  dtype: Any = torch.int32
+  dtype: Any = static_field(default=torch.int32)
+
+  @property
+  def probs(self):
+    return torch.softmax(self.logits, dim=-1)
+
+  @property
+  def log_probs(self):
+    return torch.log_softmax(self.logits, dim=-1)
+
+  def log_prob(self, value):
+    """The log-probability of `value` (int32 actions index as int64)."""
+    return torch.gather(self.log_probs, -1,
+                        value.long().unsqueeze(-1)).squeeze(-1)
+
+  def entropy(self):
+    lp = self.log_probs
+    return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+  def kl_divergence(self, other: "Categorical"):
+    lp = self.log_probs
+    return torch.sum(torch.exp(lp) * (lp - other.log_probs), dim=-1)
 
   def mode(self):
     """argmax; the first index wins ties (as `jnp.argmax`)."""
@@ -181,7 +219,7 @@ class Categorical:
 class Deterministic(_Distribution):
   """All mass at `loc`; the last `event_ndims` dims are event dims."""
   loc: Any
-  event_ndims: int = 0
+  event_ndims: int = static_field(default=0)
 
   def sample(self, draws=None, sample_shape=(), site: str = "normal"):
     return self.loc.expand(tuple(sample_shape) + tuple(self.loc.shape))
@@ -199,3 +237,7 @@ class Deterministic(_Distribution):
 
   def mean(self):
     return self.loc
+
+
+def kl_divergence(d1, d2):
+  return d1.kl_divergence(d2)

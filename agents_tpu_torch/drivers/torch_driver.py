@@ -5,7 +5,10 @@ Port of ``agents_tpu/drivers/jax_driver.py`` (`JaxDriver`,
 Observers are pure reducers ``(observer_state, trajectory_frame) ->
 observer_state`` (replay `add_batch`, metric `update`); boundary frames
 (LAST -> FIRST after auto-reset) reach them, as in the JAX package. The
-policy and the env run under `torch.no_grad`.
+policy and the env run under `torch.no_grad`. With `return_trajectories`,
+`TorchDriver.run` also returns the ``[T, B, ...]`` stack of its frames;
+distributions in `policy_info` stack leaf by leaf (their static fields
+pass through).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from agents_tpu_torch.environments.torch_environment import BatchedTorchEnv
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.trajectories import trajectory as tj
+from agents_tpu_torch.utils import nest_utils
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,15 +60,26 @@ class TorchDriver(_DriverBase):
   """Collects `num_steps` lockstep frames per `run` (each step emits one
   frame per env row, boundary frames included)."""
 
+  def __init__(self, env: BatchedTorchEnv, policy,
+               observers: Sequence[Callable] = (),
+               return_trajectories: bool = False):
+    super().__init__(env, policy, observers)
+    self.return_trajectories = return_trajectories
+
   @torch.no_grad()
   def run(self, params, state: DriverState, observer_states, draws,
           num_steps: int):
-    """Returns (state, observer_states)."""
+    """Returns (state, observer_states[, trajectories [T, B, ...]])."""
     observer_states = tuple(observer_states)
+    frames = []
     for _ in range(num_steps):
       state, frame = self._step(params, state, draws)
       observer_states = tuple(
           obs(s, frame) for obs, s in zip(self.observers, observer_states))
+      if self.return_trajectories:
+        frames.append(frame)
+    if self.return_trajectories:
+      return state, observer_states, nest_utils.stack_nested_tensors(frames)
     return state, observer_states
 
 

@@ -1,15 +1,18 @@
-"""The critic network Q(s, a) for continuous actions.
+"""The state-value network V(s) and the critic network Q(s, a).
 
-Port of `CriticModule` and `make_critic_network` of
-``agents_tpu/networks/value_network.py`` (:38-94): the observation leaves
+Port of ``agents_tpu/networks/value_network.py``. `ValueModule` and
+`make_value_network` (:20-35, :75-82): an `EncoderModule`, then a Dense
+with a U(±0.03) kernel and zero bias to one value per row, ``[B]``
+float32; `activation` is the encoder's (the schulman17 nets use tanh).
+
+`CriticModule` and `make_critic_network` (:38-94): the observation leaves
 are flattened past the batch dim and concatenated, pass the optional
 `observation_fc_layer_params` layers, are joined with the flattened
 action leaves, pass the `joint_fc_layer_params` layers, and a last Dense
 gives one Q value per row, ``[B]`` float32. The hidden layers take flax's
 default Dense init (`lecun_normal_`, zero bias), the last layer U(±0.003)
 with zero bias. `layers` holds the observation layers first, then the
-joint layers, in flax's ``Dense_i`` order. `ValueModule` is not ported
-yet.
+joint layers, in flax's ``Dense_i`` order.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from agents_tpu_torch.networks.encoding_network import EncoderModule
 from agents_tpu_torch.networks.network import (Network, cast_linear,
                                                lecun_normal_,
                                                seeded_generator,
@@ -38,6 +42,43 @@ def _flat(nest, dtype):
   """The leaves of `nest`, each flattened past the batch dim."""
   return [x.reshape(x.shape[0], -1).to(dtype)
           for x in nest_utils.flatten(nest)]
+
+
+class ValueModule(Network):
+  """V(observation) -> [B]."""
+
+  def __init__(self, input_spec, fc_layer_params: Sequence[int] = (64, 64),
+               conv_layer_params=(), activation: Callable = F.relu,
+               dtype: torch.dtype = torch.float32, device="cuda",
+               generator: Optional[torch.Generator] = None):
+    super().__init__(input_spec)
+    device = resolve_device(device)
+    self.dtype = dtype
+    self.encoder = EncoderModule(input_spec, conv_layer_params,
+                                 fc_layer_params, activation, dtype=dtype,
+                                 device=device, generator=generator)
+    self.value_head = nn.utils.skip_init(nn.Linear, self.encoder.output_size,
+                                         1, device=device)
+    uniform_symmetric_(self.value_head.weight, 0.03, generator)
+    nn.init.zeros_(self.value_head.bias)
+
+  def forward(self, observation, step_type=None, network_state=()):
+    x, network_state = self.encoder(observation, step_type, network_state)
+    v = cast_linear(x, self.value_head, self.dtype)
+    return v.squeeze(-1).float(), network_state
+
+
+def make_value_network(input_spec, fc_layer_params=(64, 64),
+                       conv_layer_params=(), activation: Callable = F.relu,
+                       dtype: torch.dtype = torch.float32, device="cuda",
+                       generator: Optional[torch.Generator] = None
+                       ) -> ValueModule:
+  """A `ValueModule` on `device`, initialised from `generator` (a fresh
+  generator seeded 0 on the device when None)."""
+  device = resolve_device(device)
+  return ValueModule(input_spec, tuple(fc_layer_params),
+                     tuple(conv_layer_params), activation, dtype, device,
+                     seeded_generator(device, generator))
 
 
 class CriticModule(Network):

@@ -18,11 +18,10 @@ are updated in place.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Tuple
 
-from agents_tpu_torch.drivers.torch_driver import (DriverState, TorchDriver,
-                                                   TorchEpisodeDriver)
+from agents_tpu_torch.drivers.torch_driver import DriverState, TorchDriver
+from agents_tpu_torch.eval import metric_utils
 from agents_tpu_torch.metrics import torch_metrics
 from agents_tpu_torch.replay_buffers.uniform_replay import UniformReplay
 from agents_tpu_torch.utils import nest_utils
@@ -140,18 +139,9 @@ class FusedTrainLoop:
         torch_metrics.AverageReturnMetric(max(num_episodes, 10)),
         torch_metrics.AverageEpisodeLengthMetric(max(num_episodes, 10)),
         torch_metrics.NumberOfEpisodes())
-    driver = TorchEpisodeDriver(self.env, self.agent.policy,
-                                observers=[m.update for m in metrics])
-    draws = as_draws(seed_or_draws, self.device)
-    params = self.agent.policy_params(state.agent_state)
-    dstate = driver.init(draws)
-    obs_states = tuple(m.init(self.env.batch_size, self.device)
-                       for m in metrics)
-    _, obs_states, _, completed = driver.run(
-        params, dstate, obs_states, draws, num_episodes, max_steps)
-    if completed < num_episodes:
-      warnings.warn(
-          f"evaluate hit max_steps={max_steps} after only "
-          f"{completed}/{num_episodes} episodes; metrics cover fewer "
-          "episodes than requested")
-    return {m.name: m.result(s) for m, s in zip(metrics, obs_states)}
+    out = metric_utils.evaluate_torch_env_episodes(
+        self.env, self.agent.policy,
+        self.agent.policy_params(state.agent_state),
+        as_draws(seed_or_draws, self.device), num_episodes, max_steps,
+        metrics)
+    return {m.name: out[m.name] for m in metrics}

@@ -2,8 +2,9 @@
 
 Port of the main path's part of ``agents_tpu/utils/common.py``:
 `LossInfo`, `soft_variables_update`, `periodic_soft_update`,
-`index_with_actions`, the element-wise losses, `aggregate_losses` and
-`clip_gradient_norms`. Target updates and gradient clipping act on the
+`index_with_actions`, the element-wise losses, `aggregate_losses`,
+`clip_gradient_norms`, and `log_probability` and `entropy` over nests of
+distributions (:101-122). Target updates and gradient clipping act on the
 tensors in place.
 """
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Any, Iterable, NamedTuple, Optional
 
 import torch
+
+from agents_tpu_torch.utils import nest_utils
 
 
 class LossInfo(NamedTuple):
@@ -84,6 +87,28 @@ def clip_gradient_norms(grads, max_norm: float) -> None:
                       max=1.0)
   for g in grads:
     g.mul_(scale)
+
+
+def _sum_leaves(nest):
+  leaves = nest_utils.flatten(nest)
+  total = leaves[0]
+  for leaf in leaves[1:]:
+    total = total + leaf
+  return total
+
+
+def log_probability(distributions, actions):
+  """Sum of per-leaf log-probs over a nest of distributions."""
+  return _sum_leaves(nest_utils.tree_map(
+      lambda d, a: d.log_prob(a), distributions, actions,
+      is_leaf=lambda x: hasattr(x, "log_prob")))
+
+
+def entropy(distributions):
+  """Sum of per-leaf entropies over a nest of distributions."""
+  return _sum_leaves(nest_utils.tree_map(
+      lambda d: d.entropy(), distributions,
+      is_leaf=lambda x: hasattr(x, "entropy")))
 
 
 def aggregate_losses(per_example_loss: Optional[torch.Tensor] = None,

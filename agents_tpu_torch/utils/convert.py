@@ -24,6 +24,19 @@ The SAC networks' trees are
 
 with one projection per action leaf, and the critic's observation layers,
 then its joint layers, then its Q layer in `Dense_i` order.
+
+The on-policy networks' trees are
+
+    actor:  {"params": {"EncoderModule_0": ...,
+                        "CategoricalProjection_0": {"Dense_0": ...}}}
+            {"params": {"EncoderModule_0": ...,
+                        "NormalProjection_0": {"Dense_0": ...,  # means
+                                               ["Dense_1": ...,]  # stds
+                                               "std_bias": [size]}}}
+    value:  {"params": {"EncoderModule_0": ..., "Dense_0": ...}}
+
+A `NormalProjection`'s own `std_bias` parameter comes first in the port
+module's `state_dict()`, before its `means` (and `stds`) layers.
 """
 from __future__ import annotations
 
@@ -33,6 +46,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from agents_tpu_torch.utils.tensor_normalizer import StreamingNormalizerState
 
 _HEADS = {("Dense_0",): ("q_head",),
           ("Dense_0", "Dense_1"): ("value_head", "advantage_head")}
@@ -108,6 +123,51 @@ def sac_critic_params_to_state_dict(params: Mapping
   for i, dense in enumerate(denses[:-1]):
     _dense(out, f"layers.{i}", dense)
   _dense(out, "q_head", denses[-1])
+  return out
+
+
+def actor_params_to_state_dict(params: Mapping
+                               ) -> "collections.OrderedDict":
+  """flax actor params with `CategoricalProjection` or `NormalProjection`
+  heads (`make_actor_distribution_network`) -> the port
+  `ActorDistributionModule`'s `state_dict()`. The heads must be of one
+  class (their order across classes is the action spec's, which the tree
+  does not hold)."""
+  tree = params["params"]
+  out = collections.OrderedDict()
+  _encoder(out, tree["EncoderModule_0"])
+  kinds = [k for k in ("CategoricalProjection", "NormalProjection")
+           if f"{k}_0" in tree]
+  heads = _layers(tree, kinds[0]) if len(kinds) == 1 else []
+  if len(tree) != 1 + len(heads) or not heads:
+    raise ValueError(f"unexpected actor entries: {sorted(tree)}")
+  for j, head in enumerate(heads):
+    name = f"projections.{j}"
+    if kinds[0] == "CategoricalProjection":
+      if set(head) != {"Dense_0"}:
+        raise ValueError(f"unexpected projection entries: {sorted(head)}")
+      _dense(out, f"{name}.dense", head["Dense_0"])
+      continue
+    if set(head) not in ({"Dense_0", "std_bias"}, {"Dense_0", "Dense_1"}):
+      raise ValueError(f"unexpected projection entries: {sorted(head)}")
+    if "std_bias" in head:
+      out[f"{name}.std_bias"] = _t(head["std_bias"])
+    _dense(out, f"{name}.means", head["Dense_0"])
+    if "Dense_1" in head:
+      _dense(out, f"{name}.stds", head["Dense_1"])
+  return out
+
+
+def value_params_to_state_dict(params: Mapping
+                               ) -> "collections.OrderedDict":
+  """flax `ValueModule` params (`make_value_network`) -> the port
+  `ValueModule`'s `state_dict()`."""
+  tree = params["params"]
+  if set(tree) != {"EncoderModule_0", "Dense_0"}:
+    raise ValueError(f"unexpected value entries: {sorted(tree)}")
+  out = collections.OrderedDict()
+  _encoder(out, tree["EncoderModule_0"])
+  _dense(out, "value_head", tree["Dense_0"])
   return out
 
 
@@ -218,5 +278,127 @@ def load_sac_agent_state(agent_state, converted: Dict):
   for name in ("actor", "critic", "alpha"):
     _load_optimizer(getattr(agent_state, f"{name}_optimizer"),
                     converted[f"{name}_adam"])
+  return dataclasses.replace(agent_state,
+                             train_step=converted["train_step"])
+
+
+def _on_policy_adam(opt_state, actor_value_sds):
+  """The "state" part of a `torch.optim.Adam` state dict over the actor's,
+  then the value network's parameters, from ``optax.adam`` over the tuple
+  ``(actor, value)`` (its first entry holds count, mu and nu), and the
+  count of a learning-rate schedule when the second entry has one."""
+  adam = opt_state[0]
+  moments = lambda tree: [  # noqa: E731
+      v for sd, t in zip(actor_value_sds, tree) for v in sd(t).values()]
+  rest = opt_state[1] if len(opt_state) > 1 else ()
+  schedule = rest.count if "count" in getattr(rest, "_fields", ()) else None
+  return (_adam_state(adam.count, moments(adam.mu), moments(adam.nu)),
+          None if schedule is None else int(np.asarray(schedule)))
+
+
+def _normalizer_state(state):
+  """A JAX `StreamingNormalizerState` (numpy leaves) as the port's; ()
+  stays ()."""
+  if isinstance(state, tuple) and not state:
+    return ()
+  to_t = lambda nest: _map(nest, _t)  # noqa: E731
+  return StreamingNormalizerState(count=to_t(state.count),
+                                  mean_sum=to_t(state.mean_sum),
+                                  var_sum=to_t(state.var_sum))
+
+
+def _map(nest, fn):
+  if isinstance(nest, Mapping):
+    return {k: _map(v, fn) for k, v in nest.items()}
+  if isinstance(nest, (tuple, list)):
+    return type(nest)(_map(v, fn) for v in nest)
+  return fn(nest)
+
+
+def ppo_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `PPOAgentState` in port terms.
+
+  Args:
+    state: the JAX state with numpy leaves (``jax.device_get`` of it on the
+      caller's side); its optimizer ``optax.adam`` over ``(actor, value)``,
+      with a constant or a scheduled learning rate.
+
+  Returns a dict with "actor_network" and "value_network" state dicts,
+  "adam" (the "state" part of the `torch.optim.Adam` state dict over the
+  actor's, then the value network's parameters), "schedule_count" (the
+  learning-rate schedule's count, None without one), "obs_norm_state" and
+  "reward_norm_state" (port `StreamingNormalizerState`s on the CPU, or
+  ()), "kl_beta" (a 0-dim tensor) and "train_step" (int);
+  `load_ppo_agent_state` applies it.
+  """
+  sds = (actor_params_to_state_dict, value_params_to_state_dict)
+  adam, schedule_count = _on_policy_adam(state.opt_state, sds)
+  return {"actor_network": sds[0](state.actor_params),
+          "value_network": sds[1](state.value_params),
+          "adam": adam, "schedule_count": schedule_count,
+          "obs_norm_state": _normalizer_state(state.obs_norm_state),
+          "reward_norm_state": _normalizer_state(state.reward_norm_state),
+          "kl_beta": _t(state.kl_beta),
+          "train_step": int(np.asarray(state.train_step))}
+
+
+def _load_schedule(agent_state, count) -> None:
+  """Set the `LambdaLR` of `agent_state` to the schedule's `count`."""
+  scheduler = agent_state.lr_scheduler
+  if (scheduler is None) != (count is None):
+    raise ValueError("the learning-rate schedules of the two states differ")
+  if scheduler is None:
+    return
+  scheduler.last_epoch = count
+  for group, base, fn in zip(agent_state.optimizer.param_groups,
+                             scheduler.base_lrs, scheduler.lr_lambdas):
+    group["lr"] = base * fn(count)
+
+
+def load_ppo_agent_state(agent_state, converted: Dict):
+  """Load `ppo_agent_state_to_torch`'s output into a port `PPOAgentState`
+  (in place) and return it with the converted normalizer states (moved to
+  the agent's device), beta and train step."""
+  agent_state.actor_network.load_state_dict(converted["actor_network"])
+  agent_state.value_network.load_state_dict(converted["value_network"])
+  _load_optimizer(agent_state.optimizer, converted["adam"])
+  _load_schedule(agent_state, converted["schedule_count"])
+  device = agent_state.kl_beta.device
+  to_device = lambda st: () if st == () else StreamingNormalizerState(  # noqa
+      *(_map(getattr(st, f.name), lambda x: x.to(device))
+        for f in dataclasses.fields(st)))
+  return dataclasses.replace(
+      agent_state, obs_norm_state=to_device(converted["obs_norm_state"]),
+      reward_norm_state=to_device(converted["reward_norm_state"]),
+      kl_beta=converted["kl_beta"].to(device),
+      train_step=converted["train_step"])
+
+
+def reinforce_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `ReinforceAgentState` (numpy leaves, ``optax.adam`` over
+  ``(actor, value)``) in port terms: "actor_network", "value_network"
+  (None without a value network), "adam" and "train_step";
+  `load_reinforce_agent_state` applies it."""
+  has_value = not (isinstance(state.value_params, tuple)
+                   and not state.value_params)
+  sds = (actor_params_to_state_dict,) + (
+      (value_params_to_state_dict,) if has_value else (lambda t: {},))
+  adam, _ = _on_policy_adam(state.opt_state, sds)
+  return {"actor_network": sds[0](state.actor_params),
+          "value_network": sds[1](state.value_params) if has_value else None,
+          "adam": adam, "train_step": int(np.asarray(state.train_step))}
+
+
+def load_reinforce_agent_state(agent_state, converted: Dict):
+  """Load `reinforce_agent_state_to_torch`'s output into a port
+  `ReinforceAgentState` (in place) and return it with the converted train
+  step."""
+  agent_state.actor_network.load_state_dict(converted["actor_network"])
+  if (agent_state.value_network is None) != (
+      converted["value_network"] is None):
+    raise ValueError("one state has a value network, the other none")
+  if agent_state.value_network is not None:
+    agent_state.value_network.load_state_dict(converted["value_network"])
+  _load_optimizer(agent_state.optimizer, converted["adam"])
   return dataclasses.replace(agent_state,
                              train_step=converted["train_step"])

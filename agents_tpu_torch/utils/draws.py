@@ -18,9 +18,18 @@ Sites:
   "pendulum_theta"      uniform [B] in [-pi, pi)         (Pendulum reset)
   "pendulum_theta_dot"  uniform [B] in [-1, 1)           (Pendulum reset)
   "actor_noise"         normal [B, *leaf shape]          (ActorPolicy
+                                                          and PPOPolicy
                                                           sample, one
                                                           draw per action
-                                                          leaf)
+                                                          leaf); for a
+                        uniform [B, K] in [tiny, 1)      categorical leaf
+                                                          of K actions,
+                                                          which `Categorical.
+                                                          sample` turns
+                                                          into Gumbel noise
+                                                          (jax.random.
+                                                          categorical's
+                                                          "low" mode)
   "sac_next_action_noise"
                         normal [S, *leaf shape]          (SAC critic
                                                           targets' next
@@ -33,6 +42,10 @@ Sites:
   "replay_t0"           randint [S] in [0, num_valid)    (window start
                                                           offset)
   "replay_rows"         randint [S] in [0, B)            (env row)
+  "ppo_permutation"     permutation [n_items]            (PPO: one per
+                                                          epoch, the
+                                                          shuffle of the
+                                                          flattened frames)
 """
 from __future__ import annotations
 
@@ -69,6 +82,12 @@ class Draws:
     del site
     return torch.randn(tuple(shape), generator=self.generator,
                        device=self.device, dtype=dtype)
+
+  def permutation(self, site: str, n: int) -> torch.Tensor:
+    """A random permutation of range(n), int64, on the device."""
+    del site
+    return torch.randperm(int(n), generator=self.generator,
+                          device=self.device)
 
 
 class ReplayDraws:
@@ -109,6 +128,9 @@ class ReplayDraws:
   def normal(self, site, shape, dtype=torch.float32):
     return self._next(site, shape, dtype)
 
+  def permutation(self, site, n):
+    return self._next(site, (n,), torch.int64)
+
 
 class RecordingDraws:
   """Passes draws through from `source` and keeps a CPU copy of each."""
@@ -130,6 +152,9 @@ class RecordingDraws:
 
   def normal(self, site, shape, dtype=torch.float32):
     return self._keep(site, self.source.normal(site, shape, dtype))
+
+  def permutation(self, site, n):
+    return self._keep(site, self.source.permutation(site, n))
 
 
 def as_draws(seed_or_draws, device):

@@ -5,7 +5,11 @@ Torch has no public registered-dataclass pytrees, so this module is the
 port's one tree utility. A nest is built from:
 
   - dataclass instances (the port's TimeStep, Trajectory, ... are frozen
-    dataclasses; children are their fields, rebuilt with the constructor),
+    dataclasses; children are their fields, rebuilt with the constructor).
+    A field declared with `static_field` (metadata ``{"static": True}``)
+    is no child: `tree_map` passes it through from the first nest and
+    `flatten` skips it, as flax's ``pytree_node=False`` fields are (a
+    distribution's `dtype` or event dims),
   - NamedTuples, tuples and lists,
   - dicts (children in insertion order),
   - None and () (empty nodes);
@@ -24,6 +28,16 @@ def _is_dataclass_instance(x) -> bool:
   return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
+def static_field(**kwargs):
+  """A dataclass field that is no child of the nest (``dataclasses.field``
+  with metadata ``{"static": True}``)."""
+  return dataclasses.field(metadata={"static": True}, **kwargs)
+
+
+def _is_static(f: dataclasses.Field) -> bool:
+  return bool(f.metadata.get("static"))
+
+
 def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
   """`fn` over the leaves of `tree` (and the matching leaves of `rest`)."""
   if is_leaf is not None and is_leaf(tree):
@@ -32,8 +46,9 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     return None
   if _is_dataclass_instance(tree):
     return type(tree)(**{
-        f.name: tree_map(fn, getattr(tree, f.name),
-                         *(getattr(r, f.name) for r in rest), is_leaf=is_leaf)
+        f.name: getattr(tree, f.name) if _is_static(f) else tree_map(
+            fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest),
+            is_leaf=is_leaf)
         for f in dataclasses.fields(tree)})
   if isinstance(tree, (tuple, list)):
     for r in rest:

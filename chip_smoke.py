@@ -70,9 +70,42 @@ any failed phase exits non-zero before the last line.
                   iterations, checked every 250, to a last-20 AverageReturn
                   of -250 or more, then greedy `evaluate` over exactly 30
                   episodes.
- 13. kernels      the port's hand-written kernels on these paths (none: the
+ 13. ppo_parity   the PPO learner, card against CPU on the CPU's rollouts
+                  (TF32 off): `examples/ppo_cartpole_torch.py`'s CartPole
+                  loop (B=32, T=128, 10 epochs x 8 minibatches, (64, 64))
+                  for 2 iterations, and its schulman17 preset cut to
+                  T=257 and 4 minibatches for 1, from numpy-made trees.
+                  On each CPU rollout the card's policy outputs, then its
+                  train step on a copy with the CPU's permutations: losses,
+                  networks, Adam moments, normalizers, beta and learning
+                  rate agree, each tensor to max|card - cpu| <= 1e-5 +
+                  1e-4 * max|cpu| (the Adam moments 1e-5 + 1e-3 *
+                  max|cpu|).
+ 14. ppo_main     the PPO CartPole point (`examples/ppo_cartpole.py`'s
+                  config): 2 warm-up and 5 timed windows of 2 iterations
+                  under the sync debug mode (median ms/iteration,
+                  env-steps/s = B*T / that, minibatch steps/s); one
+                  iteration split into collect, GAE and train; profiles of
+                  2 iterations, of one `train` (operator records and
+                  device ops per minibatch step) and of GAE alone; legal
+                  step types, tensors on the card, finite losses.
+ 15. ppo_learn    the same loop continued, checked every 10 iterations, to
+                  a last-20 AverageReturn of 195 within 150 iterations
+                  (`PPO_CARTPOLE_LIVE`, ``return_windows.py:98``), then
+                  greedy eval over exactly 30 episodes on 10 fresh rows.
+ 16. ppo_schulman17  the example's --preset=schulman17_pendulum (B=1,
+                  T=2049, 10 x 32 minibatches of 64, tanh, std 0.35, Adam
+                  eps 1e-5 decayed linearly, clipping 0.5): 1 warm-up and 3
+                  timed iterations under the sync debug mode, the split of
+                  one more into the 2,049-step collect, GAE and the 320
+                  minibatch steps; finite losses, the decayed learning
+                  rate.
+ 17. reinforce    REINFORCE with a (64, 64) value baseline on CartPole,
+                  B=32, T=128: 1 warm-up and 5 timed iterations under the
+                  sync debug mode, finite losses.
+ 18. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 14. the last line: {"ok": true, "device": {...}}.
+ 19. the last line: {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -103,6 +136,13 @@ SAC_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
 SAC_RTOL = SAC_ATOL = 1e-5
 SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 5, 50, 5
 SAC_LEARN_ITERATIONS, SAC_LEARN_CHUNK, SAC_LEARN_GATE = 8000, 250, -250.0
+PPO_PARITY_ITERATIONS = 2
+PPO_PARITY_SCHULMAN17 = dict(rollout_length=257, num_minibatches=4)
+PPO_RTOL, PPO_ATOL, PPO_MOMENT_RTOL = 1e-4, 1e-5, 1e-3
+PPO_WARMUP, PPO_TIMED_WINDOWS, PPO_WINDOW, PPO_PROFILED = 2, 5, 2, 2
+PPO_LEARN_ITERATIONS, PPO_LEARN_CHUNK, PPO_LEARN_GATE = 150, 10, 195.0
+SCHULMAN17_TIMED = 3
+REINFORCE_TIMED = 5
 
 
 def emit(phase, **fields):
@@ -283,29 +323,31 @@ def phase_parity():
 
 
 def loop_tensors(state):
-  """Every tensor a LoopState holds: the driver, replay and metric states,
-  and each network, tensor and optimizer of the agent state (optimizer
-  step counters excepted: torch's non-capturable Adam keeps them on the
-  host by design)."""
+  """Every tensor a loop state holds: the driver, replay (if any) and
+  metric states, and each network, tensor, tensor nest and optimizer of
+  the agent state (optimizer step counters excepted: torch's
+  non-capturable Adam keeps them on the host by design)."""
   import dataclasses
 
   import torch
 
   from agents_tpu_torch.utils import nest_utils
 
+  replay = getattr(state, "replay_state", None)
   out = [x for x in nest_utils.flatten(
-      (state.driver_state, state.replay_state.storage, state.metric_states))
-         if isinstance(x, torch.Tensor)]
+      (state.driver_state, replay.storage if replay else (),
+       state.metric_states)) if isinstance(x, torch.Tensor)]
   for field in dataclasses.fields(state.agent_state):
     value = getattr(state.agent_state, field.name)
     if isinstance(value, torch.nn.Module):
       out += list(value.parameters()) + list(value.buffers())
-    elif isinstance(value, torch.Tensor):
-      out.append(value)
     elif isinstance(value, torch.optim.Optimizer):
       for per_param in value.state.values():
         out += [v for k, v in per_param.items()
                 if isinstance(v, torch.Tensor) and k != "step"]
+    elif isinstance(value, torch.Tensor) or dataclasses.is_dataclass(value):
+      out += [x for x in nest_utils.flatten(value)
+              if isinstance(x, torch.Tensor)]
   return out
 
 
@@ -332,20 +374,22 @@ def check_step_types(loop, state):
   return bad, int((st == StepType.LAST).sum())
 
 
-def profile_window(loop, state, iterations):
-  """Device-busy share and the top device ops over a short profiled window,
-  read from the profiler's chrome trace (written under ``runs/``)."""
+def profile_call(fn, count, unit, name="profile_trace.json"):
+  """Run `fn()`, which does `count` `unit`s of work, under
+  `torch.profiler`: (its result, per-unit stats: wall and device-busy ms,
+  the busy share, device ops, trace events by category and the top device
+  ops), read from the chrome trace written under ``runs/``."""
   import torch
   from torch.profiler import ProfilerActivity, profile
 
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    state, _ = loop.run(state, iterations)
+    result = fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
   os.makedirs(RUNS_DIR, exist_ok=True)
-  trace = os.path.join(RUNS_DIR, "profile_trace.json")
+  trace = os.path.join(RUNS_DIR, name)
   prof.export_chrome_trace(trace)
   with open(trace) as f:
     events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -355,26 +399,34 @@ def profile_window(loop, state, iterations):
   spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
                  for e in events if e.get("cat") in DEVICE_ACTIVITIES)
   busy_us, busy_end, by_name = 0.0, float("-inf"), {}
-  for start, end, name in spans:
+  for start, end, op in spans:
     busy_us += max(0.0, end - max(start, busy_end))
     busy_end = max(busy_end, end)
-    total, count = by_name.get(name, (0.0, 0))
-    by_name[name] = (total + end - start, count + 1)
+    total, calls = by_name.get(op, (0.0, 0))
+    by_name[op] = (total + end - start, calls + 1)
   top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
   categories = {}
   for e in events:
     categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
-  return state, {
-      "iterations": iterations,
-      "wall_ms_per_iteration": wall_us / 1e3 / iterations,
-      "device_ms_per_iteration": busy_us / 1e3 / iterations,
+  return result, {
+      f"{unit}s": count,
+      f"wall_ms_per_{unit}": wall_us / 1e3 / count,
+      f"device_ms_per_{unit}": busy_us / 1e3 / count,
       "device_busy_share": busy_us / wall_us,
-      "device_ops_per_iteration": len(spans) / iterations,
-      "trace_events_per_iteration": {str(k): v / iterations
-                                     for k, v in categories.items()},
-      "top": [{"name": name[:80], "device_ms_per_iteration": us / 1e3 /
-               iterations, "calls_per_iteration": c / iterations}
-              for name, (us, c) in top]}
+      f"device_ops_per_{unit}": len(spans) / count,
+      f"trace_events_per_{unit}": {str(k): v / count
+                                   for k, v in categories.items()},
+      "top": [{"name": op[:80], f"device_ms_per_{unit}": us / 1e3 / count,
+               f"calls_per_{unit}": c / count}
+              for op, (us, c) in top]}
+
+
+def profile_window(loop, state, iterations):
+  """Device-busy share and the top device ops over `iterations` loop
+  iterations (`profile_call`)."""
+  (state, _), stats = profile_call(lambda: loop.run(state, iterations),
+                                   iterations, "iteration")
+  return state, stats
 
 
 def timed_windows(loop, state, iterations, windows=TIMED_WINDOWS):
@@ -886,6 +938,432 @@ def phase_sac_learn(card):
          f"{episodes} eval episodes of 30")
 
 
+def numpy_ppo_params(rng, fc, obs_dim, num_actions=None, act_dim=None,
+                     std_bias=0.0):
+  """Flax-shaped PPO actor and value trees drawn with numpy: a categorical
+  head over `num_actions`, or a Normal head of `act_dim` with a
+  state-independent `std_bias`."""
+  import numpy as np
+
+  def layer(shape, scale):
+    return {"kernel": rng.uniform(-scale, scale, shape).astype(np.float32),
+            "bias": rng.uniform(-0.05, 0.05, shape[-1:]).astype(np.float32)}
+
+  def encoder():
+    layers, width = {}, obs_dim
+    for i, out in enumerate(fc):
+      layers[f"Dense_{i}"] = layer((width, out), math.sqrt(3.0 / width))
+      width = out
+    return layers, width
+
+  enc, width = encoder()
+  if num_actions is not None:
+    head = {"CategoricalProjection_0": {"Dense_0": layer((width, num_actions),
+                                                         0.1)}}
+  else:
+    head = {"NormalProjection_0": {
+        "Dense_0": layer((width, act_dim), 0.1),
+        "std_bias": np.full(act_dim, std_bias, np.float32)}}
+  value_enc, width = encoder()
+  return ({"params": {"EncoderModule_0": enc, **head}},
+          {"params": {"EncoderModule_0": value_enc,
+                      "Dense_0": layer((width, 1), 0.03)}})
+
+
+def ppo_tensors(agent_state):
+  """The actor and value networks' tensors, the Adam moments and step
+  counts, the normalizer states, beta, the learning rate and the train
+  step, by name."""
+  import dataclasses
+
+  import torch
+
+  out = {f"{net}.{k}": v for net in ("actor_network", "value_network")
+         for k, v in getattr(agent_state, net).state_dict().items()}
+  optimizer = agent_state.optimizer
+  params = [p for g in optimizer.param_groups for p in g["params"]]
+  for i, p in enumerate(params):
+    for k, v in optimizer.state[p].items():
+      out[f"adam.{i}.{k}"] = v
+  for field in ("obs_norm_state", "reward_norm_state"):
+    state = getattr(agent_state, field)
+    for f in dataclasses.fields(state):
+      out[f"{field}.{f.name}"] = getattr(state, f.name)
+  out["kl_beta"] = agent_state.kl_beta
+  out["lr"] = torch.tensor(optimizer.param_groups[0]["lr"], dtype=torch.float64)
+  out["train_step"] = torch.tensor(agent_state.train_step)
+  return out
+
+
+def policy_outputs(agent, agent_state, experience):
+  """The collect policy's distribution parameters and value predictions
+  on every frame of `experience` [B, T] (flattened to B*T rows)."""
+  import torch
+
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils import nest_utils
+
+  flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
+  time_step = ts.TimeStep(
+      step_type=flat(experience.step_type),
+      reward=flat(experience.reward), discount=flat(experience.discount),
+      observation=nest_utils.tree_map(flat, experience.observation))
+  with torch.no_grad():
+    step = agent.collect_policy.distribution(agent.policy_params(agent_state),
+                                             time_step)
+  return nest_utils.flatten(step.info)
+
+
+def phase_ppo_parity(card):
+  """The PPO learner on the card against the CPU on the same rollouts.
+
+  The CPU runs the loop and records its draws; for each of its rollouts
+  the card computes its collect policy's outputs on the rollout's frames
+  (before the train step, from its own networks) and trains on a copy of
+  the rollout with the CPU's permutations. Feeding both the same rollouts
+  keeps CartPole's and Pendulum's dynamics out of the comparison: over a
+  rollout of 128 or 257 steps they amplify the last-bit differences of
+  the card's `sin`/`cos` past any float tolerance, so a card that collects
+  its own rollouts parts from the CPU.
+  """
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert, nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+  from examples.ppo_cartpole_torch import SCHULMAN17_PENDULUM, Config
+  from examples.ppo_cartpole_torch import build_loop as ppo_loop
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  out, ok = {}, True
+  cases = (
+      ("cartpole", Config(), PPO_PARITY_ITERATIONS,
+       dict(obs_dim=4, num_actions=2)),
+      ("schulman17_pendulum",
+       Config(**{**SCHULMAN17_PENDULUM, **PPO_PARITY_SCHULMAN17}), 1,
+       dict(obs_dim=3, act_dim=1,
+            std_bias=math.log(math.exp(0.35) - 1.0))))
+  for i, (name, cfg, iterations, shape) in enumerate(cases):
+    actor, value = numpy_ppo_params(np.random.RandomState(5 + i),
+                                    cfg.actor_fc_layers, **shape)
+    loops = {}
+    for role, device in (("host", "cpu"), ("card", "cuda")):
+      loop = ppo_loop(dataclasses.replace(cfg, device=device))
+      loop.agent.actor_network.load_state_dict(
+          convert.actor_params_to_state_dict(actor))
+      loop.agent.value_network.load_state_dict(
+          convert.value_params_to_state_dict(value))
+      loops[role] = loop
+    cloop, gagent = loops["host"], loops["card"].agent
+    draws = RecordingDraws(Draws(0, "cpu"))
+    cstate, gstate = cloop.init(draws=draws), gagent.init()
+    diffs, relative, mismatched = {}, {}, []
+
+    def compare(tag, a, b):
+      # Tensor-wise: max|a - b| <= atol + rtol * max|b|. The value targets
+      # run to hundreds and their gradients to thousands, so an element
+      # near zero of such a tensor carries rounding far above any
+      # element-wise atol. The Adam moments sum those gradients, whose
+      # first-layer sums over 508 rows cancel: rtol 1e-3 for them.
+      a, b = a.cpu(), b.cpu()
+      if a.dtype.is_floating_point:
+        diffs[tag] = max_diff(a, b)
+        scale = float(b.double().abs().max()) if b.numel() else 0.0
+        relative[tag] = diffs[tag] / scale if scale else diffs[tag]
+        rtol = PPO_MOMENT_RTOL if ".exp_avg" in tag else PPO_RTOL
+        if diffs[tag] > PPO_ATOL + rtol * scale:
+          mismatched.append(tag)
+      elif not torch.equal(a, b):
+        mismatched.append(tag)
+
+    for it in range(iterations):
+      cstate, experience = cloop.collect(cstate)
+      gexperience = nest_utils.tree_map(lambda x: x.to("cuda"), experience)
+      for j, (a, b) in enumerate(zip(
+          policy_outputs(gagent, gstate, gexperience),
+          policy_outputs(cloop.agent, cstate.agent_state, experience))):
+        compare(f"iteration{it}.policy_info.{j}", a, b)
+      cagent_state, cinfo = cloop.agent.train(cstate.agent_state, experience,
+                                              draws=draws)
+      cstate = dataclasses.replace(cstate, agent_state=cagent_state)
+      perms = draws.records["ppo_permutation"][-cfg.num_epochs:]
+      gstate, ginfo = gagent.train(
+          gstate, gexperience,
+          draws=ReplayDraws({"ppo_permutation": perms}, "cuda"))
+      compare(f"iteration{it}.loss", cinfo.loss, ginfo.loss)
+      ctensors, gtensors = (ppo_tensors(s) for s in (cagent_state, gstate))
+      for k in ctensors:
+        compare(f"iteration{it}.{k}", ctensors[k], gtensors[k])
+    worst = max(diffs, key=diffs.get)
+    worst_relative = max(relative, key=relative.get)
+    case_ok = not mismatched and gstate.train_step == iterations
+    ok = ok and case_ok
+    out[name] = {
+        "batch_size": cfg.env_batch_size, "rollout_length": cfg.rollout_length,
+        "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches,
+        "fc": list(cfg.actor_fc_layers), "iterations": iterations,
+        "adam_steps": iterations * cfg.num_epochs * cfg.num_minibatches,
+        "largest_float_diff": {"name": worst, "abs": diffs[worst]},
+        "largest_relative_diff": {"name": worst_relative,
+                                  "of_max_abs": relative[worst_relative]},
+        "loss_diff": max(v for k, v in diffs.items() if k.endswith(".loss")),
+        "policy_info_diff": max(v for k, v in diffs.items()
+                                if ".policy_info." in k),
+        "compared": len(diffs), "mismatched": mismatched, "ok": case_ok}
+  emit("ppo_parity", card=card, rtol=PPO_RTOL, atol=PPO_ATOL,
+       adam_moment_rtol=PPO_MOMENT_RTOL,
+       criterion="max|card - cpu| <= atol + rtol * max|cpu| per tensor", **out,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("ppo_parity", "card and CPU disagree on the PPO path")
+
+
+def iteration_split(loop, state, repeats=1):
+  """One iteration timed in parts, each ended by a synchronize: the
+  rollout (collect), returns and advantages (GAE) alone, then the whole
+  `agent.train` (normalizers, GAE again and the epochs), ms each (the
+  mean of `repeats`). Returns (state, split)."""
+  import torch
+
+  split = {"collect_ms": 0.0, "gae_ms": 0.0, "train_ms": 0.0}
+  for _ in range(repeats):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, experience = loop.collect(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop.agent.compute_return_and_advantage(state.agent_state, experience)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    agent_state, _ = loop.agent.train(state.agent_state, experience,
+                                      draws=state.draws)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    state = dataclasses.replace(state, agent_state=agent_state)
+    for k, dt in (("collect_ms", t1 - t0), ("gae_ms", t2 - t1),
+                  ("train_ms", t3 - t2)):
+      split[k] += dt * 1e3 / repeats
+  return state, split
+
+
+def rollout_checks(experience):
+  """A rollout's legal step types (each frame's next step type is the
+  following frame's step type; post-LAST is FIRST) and its shape."""
+  from agents_tpu_torch.trajectories.time_step import StepType
+
+  st, nst = experience.step_type, experience.next_step_type
+  bad = int((nst[:, :-1] != st[:, 1:]).sum())
+  bad += int(((st == StepType.LAST) != (nst == StepType.FIRST)).sum())
+  return {"shape": list(st.shape), "illegal_step_type_transitions": bad,
+          "last_frames": int((st == StepType.LAST).sum())}
+
+
+def phase_ppo_main(card):
+  import statistics
+
+  import torch
+
+  from examples.ppo_cartpole_torch import Config
+  from examples.ppo_cartpole_torch import build_loop as ppo_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config()
+  loop = ppo_loop(cfg)
+  state = loop.init(cfg.seed)
+  state, losses = loop.run(state, PPO_WARMUP)
+  torch.cuda.synchronize()
+  state, losses, window_ms = timed_windows(loop, state,
+                                           PPO_TIMED_WINDOWS * PPO_WINDOW,
+                                           PPO_TIMED_WINDOWS)
+  ms = statistics.median(window_ms)
+  iterations = PPO_WARMUP + PPO_TIMED_WINDOWS * PPO_WINDOW
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  finite = bool(torch.isfinite(losses).all())
+  state, split = iteration_split(loop, state)
+  state, prof = profile_window(loop, state, PPO_PROFILED)
+  state, experience = loop.collect(state)
+  mb_steps = cfg.num_epochs * cfg.num_minibatches
+  (agent_state, _), train_prof = profile_call(
+      lambda: loop.agent.train(state.agent_state, experience,
+                               draws=state.draws), mb_steps, "minibatch_step",
+      name="profile_train.json")
+  _, gae_prof = profile_call(
+      lambda: loop.agent.compute_return_and_advantage(agent_state,
+                                                      experience),
+      1, "call", name="profile_gae.json")
+  state = dataclasses.replace(state, agent_state=agent_state)
+  rollout = rollout_checks(experience)
+  iterations += 1 + PPO_PROFILED + 1
+  ok = (not off_card and finite and rollout["illegal_step_type_transitions"]
+        == 0 and state.agent_state.train_step == iterations)
+  frames = cfg.env_batch_size * cfg.rollout_length
+  emit("ppo_main", card=card, batch_size=cfg.env_batch_size,
+       rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
+       minibatches=cfg.num_minibatches,
+       minibatch_size=cfg.env_batch_size * (cfg.rollout_length - 1)
+       // cfg.num_minibatches, fc=list(cfg.actor_fc_layers),
+       sync_debug_mode="error", timed_windows=PPO_TIMED_WINDOWS,
+       iterations_per_window=PPO_WINDOW, ms_per_iteration_median=ms,
+       window_ms_per_iteration=window_ms, env_steps_per_s=frames * 1e3 / ms,
+       minibatch_steps_per_s=mb_steps * 1e3 / ms, split_ms=split,
+       profile=prof,
+       train_operator_records_per_minibatch_step=train_prof[
+           "trace_events_per_minibatch_step"].get("cpu_op", 0.0),
+       train_device_ops_per_minibatch_step=train_prof[
+           "device_ops_per_minibatch_step"],
+       train_profile=train_prof,
+       gae={"steps": cfg.rollout_length - 1,
+            "device_ops": gae_prof["device_ops_per_call"],
+            "device_ms": gae_prof["device_ms_per_call"],
+            "wall_ms": gae_prof["wall_ms_per_call"]},
+       tensors_off_card=off_card, losses_finite=finite,
+       last_loss=float(losses[-1]), rollout=rollout,
+       train_step=state.agent_state.train_step,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("ppo_main", "PPO CartPole point checks failed")
+  return cfg, loop, state, iterations
+
+
+def phase_ppo_learn(card, cfg, loop, state, iterations):
+  import torch
+
+  from examples.ppo_cartpole_torch import evaluate
+
+  t0 = time.perf_counter()
+  ret = float(loop.results(state)["AverageReturn"])
+  points = [[iterations, ret]]
+  while ret < PPO_LEARN_GATE and iterations < PPO_LEARN_ITERATIONS:
+    state, losses = loop.run(state, PPO_LEARN_CHUNK)
+    iterations += PPO_LEARN_CHUNK
+    ret = float(loop.results(state)["AverageReturn"])
+    points.append([iterations, ret])
+  learn_s = time.perf_counter() - t0
+  t_eval = time.perf_counter()
+  out = evaluate(cfg, loop, state, cfg.seed + 101, 30)
+  episodes = int(out["NumberOfEpisodes"])
+  torch.cuda.synchronize()
+  ok = ret >= PPO_LEARN_GATE and episodes == 30
+  emit("ppo_learn", card=card, batch_size=cfg.env_batch_size,
+       rollout_length=cfg.rollout_length, iterations=iterations,
+       last20_average_return=ret, gate=PPO_LEARN_GATE,
+       budget=PPO_LEARN_ITERATIONS, points=points, learn_seconds=learn_s,
+       eval_episodes=episodes, eval_envs=cfg.num_eval_envs,
+       eval_average_return=float(out["AverageReturn"]),
+       eval_average_episode_length=float(out["AverageEpisodeLength"]),
+       eval_seconds=time.perf_counter() - t_eval,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("ppo_learn", f"last-20 return {ret} (gate {PPO_LEARN_GATE} within "
+         f"{PPO_LEARN_ITERATIONS} iterations), {episodes} eval episodes of 30")
+
+
+def phase_ppo_schulman17(card):
+  import torch
+
+  from examples.ppo_cartpole_torch import SCHULMAN17_PENDULUM, Config
+  from examples.ppo_cartpole_torch import build_loop as ppo_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config(**SCHULMAN17_PENDULUM)
+  loop = ppo_loop(cfg)
+  state = loop.init(cfg.seed)
+  state, losses = loop.run(state, 1)
+  torch.cuda.synchronize()
+  state, losses, window_ms = timed_windows(loop, state, SCHULMAN17_TIMED,
+                                           SCHULMAN17_TIMED)
+  ms = sum(window_ms) / len(window_ms)
+  finite = bool(torch.isfinite(losses).all())
+  state, split = iteration_split(loop, state)
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  mb_steps = cfg.num_epochs * cfg.num_minibatches
+  lr = state.agent_state.optimizer.param_groups[0]["lr"]
+  expected_lr = cfg.learning_rate * (1.0 - (SCHULMAN17_TIMED + 2) * mb_steps
+                                     / (cfg.num_iterations * mb_steps))
+  ok = (finite and not off_card
+        and state.agent_state.train_step == SCHULMAN17_TIMED + 2
+        and math.isclose(lr, expected_lr, rel_tol=1e-9))
+  frames = cfg.env_batch_size * cfg.rollout_length
+  emit("ppo_schulman17", card=card, env="pendulum (for HalfCheetah-v5)",
+       batch_size=cfg.env_batch_size, rollout_length=cfg.rollout_length,
+       epochs=cfg.num_epochs, minibatches=cfg.num_minibatches,
+       minibatch_size=(cfg.rollout_length - 1) // cfg.num_minibatches,
+       fc=list(cfg.actor_fc_layers), activation=cfg.activation,
+       sync_debug_mode="error", timed_iterations=SCHULMAN17_TIMED,
+       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
+       env_steps_per_s=frames * 1e3 / ms,
+       minibatch_steps_per_s=mb_steps * 1e3 / ms, split_ms=split,
+       collect_ms_per_env_step=split["collect_ms"] / cfg.rollout_length,
+       train_ms_per_minibatch_step=split["train_ms"] / mb_steps,
+       losses=[float(x) for x in losses], losses_finite=finite,
+       learning_rate=lr, expected_learning_rate=expected_lr,
+       tensors_off_card=off_card, train_step=state.agent_state.train_step,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("ppo_schulman17", "schulman17 Pendulum point checks failed")
+
+
+def build_reinforce_loop(device="cuda", seed=0):
+  """REINFORCE with a (64, 64) value baseline on CartPole: B=32, T=128,
+  Adam 1e-3, gamma 0.99."""
+  import torch
+
+  from agents_tpu_torch import metrics
+  from agents_tpu_torch.agents.reinforce import ReinforceAgent
+  from agents_tpu_torch.networks import (make_actor_distribution_network,
+                                         make_value_network)
+  from agents_tpu_torch.train import OnPolicyTrainLoop
+  from examples.ppo_cartpole_torch import Config, build_env
+
+  env = build_env(Config(device=device), 32)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  generator = torch.Generator(device=device)
+  generator.manual_seed(seed)
+  agent = ReinforceAgent(
+      tss, asp,
+      make_actor_distribution_network(tss.observation, asp,
+                                      fc_layer_params=(64, 64),
+                                      device=device, generator=generator),
+      lambda p: torch.optim.Adam(p, lr=1e-3),
+      value_network=make_value_network(tss.observation, (64, 64),
+                                       device=device, generator=generator),
+      gamma=0.99, device=device)
+  return OnPolicyTrainLoop(env, agent, metrics.standard_collect_metrics(20),
+                           rollout_length=128, device=device)
+
+
+def phase_reinforce(card):
+  import torch
+
+  t0 = time.perf_counter()
+  loop = build_reinforce_loop()
+  state = loop.init(0)
+  state, losses = loop.run(state, 1)
+  torch.cuda.synchronize()
+  state, losses, window_ms = timed_windows(loop, state, REINFORCE_TIMED,
+                                           REINFORCE_TIMED)
+  ms = sum(window_ms) / len(window_ms)
+  finite = bool(torch.isfinite(losses).all())
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  ok = (finite and not off_card
+        and state.agent_state.train_step == REINFORCE_TIMED + 1)
+  emit("reinforce", card=card, batch_size=32, rollout_length=128,
+       fc=[64, 64], value_baseline=True, sync_debug_mode="error",
+       timed_iterations=REINFORCE_TIMED, ms_per_iteration=ms,
+       window_ms_per_iteration=window_ms,
+       env_steps_per_s=32 * 128 * 1e3 / ms,
+       losses=[float(x) for x in losses], losses_finite=finite,
+       tensors_off_card=off_card, train_step=state.agent_state.train_step,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("reinforce", "REINFORCE checks failed")
+
+
 def main():
   import torch
 
@@ -915,6 +1393,13 @@ def main():
   phase_sac_parity(card)
   phase_sac_main(card)
   phase_sac_learn(card)
+  free_card()
+  phase_ppo_parity(card)
+  cfg, loop, state, iterations = phase_ppo_main(card)
+  phase_ppo_learn(card, cfg, loop, state, iterations)
+  del loop, state
+  phase_ppo_schulman17(card)
+  phase_reinforce(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")
   print(json.dumps({"kernels": []}), flush=True)

@@ -206,3 +206,81 @@ def test_sac_example_train_eval_smoke_on_cpu(tmp_path):
   losses = [r["loss"] for r in records if "loss" in r]
   assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
   assert records[-1]["EvalAverageReturn"] == eval_return
+
+
+# -- the PPO example ----------------------------------------------------------
+
+
+def test_ppo_example_defaults_and_schulman17_preset():
+  """The defaults are ``examples/ppo_cartpole.py``'s Config; the
+  schulman17_pendulum preset is ``examples/ppo_halfcheetah.py``'s
+  operating point on the device Pendulum; --smoke and --cfg.* override
+  either."""
+  from examples import ppo_cartpole, ppo_halfcheetah
+  from examples.ppo_cartpole_torch import Config, parse_ppo_args
+  cartpole = Config()
+  for f in dataclasses.fields(ppo_cartpole.Config):
+    if f.name != "root_dir":
+      assert getattr(cartpole, f.name) == f.default, f.name
+  assert (cartpole.env, cartpole.activation, cartpole.initial_std,
+          cartpole.adam_eps, cartpole.lr_decay, cartpole.gradient_clipping,
+          cartpole.device) == ("cartpole", "relu", 0.0, 1e-8, False, 0.0,
+                               "cuda")
+  pend = parse_ppo_args(["--preset=schulman17_pendulum"])
+  skipped = {"root_dir", "env_name", "eval_every_iterations"}
+  for f in dataclasses.fields(ppo_halfcheetah.Config):
+    if f.name not in skipped:
+      assert getattr(pend, f.name) == f.default, f.name
+  assert (pend.env, pend.activation, pend.initial_std, pend.adam_eps,
+          pend.lr_decay) == ("pendulum", "tanh", 0.35, 1e-5, True)
+  # 2,048 training frames in 32 minibatches of 64.
+  assert (pend.rollout_length - 1) // pend.num_minibatches == 64
+  cfg = parse_ppo_args(["--preset=schulman17_pendulum", "--smoke",
+                        "--device=cpu", "--cfg.actor_fc_layers=8,8"])
+  assert (cfg.env, cfg.num_iterations, cfg.rollout_length, cfg.device,
+          cfg.actor_fc_layers) == ("pendulum", 20, 65, "cpu", (8, 8))
+  with pytest.raises(SystemExit):
+    parse_ppo_args(["--preset=halfcheetah"])
+
+
+@pytest.mark.parametrize("preset", [None, "schulman17_pendulum"])
+def test_ppo_example_command_line_on_cpu(tmp_path, preset):
+  args = [] if preset is None else [f"--preset={preset}"]
+  out = subprocess.run(
+      [sys.executable, os.path.join(ROOT, "examples", "ppo_cartpole_torch.py"),
+       *args, "--device", "cpu", "--smoke", f"--cfg.root_dir={tmp_path}",
+       "--cfg.env_batch_size=4", "--cfg.max_episode_steps=20",
+       "--cfg.actor_fc_layers=8", "--cfg.value_fc_layers=8",
+       "--cfg.num_eval_envs=2"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
+  assert out.returncode == 0, out.stderr
+  final = json.loads(out.stdout.strip().splitlines()[-1])
+  assert math.isfinite(final["final_average_return"])
+  if preset is None:
+    assert 0.0 < final["eval_average_return"] <= 20.0
+  else:
+    # Twenty steps of at most -(pi^2 + 0.1 * 8^2 + 0.001 * 2^2) each.
+    assert -340.0 <= final["eval_average_return"] <= 0.0
+  records = _records(tmp_path / "train.jsonl")
+  assert [r["step"] for r in records if "loss" in r] == [10, 20]
+  assert "EvalAverageReturn" in records[-1]
+  with open(tmp_path / "config.json") as f:
+    saved = json.load(f)
+  assert saved["env"] == ("cartpole" if preset is None else "pendulum")
+
+
+def test_ppo_example_train_eval_smoke_on_cpu(tmp_path):
+  """`train_eval` over the PPO loop: finite losses, a logged return, and a
+  greedy eval over exactly the episodes asked for."""
+  from examples.ppo_cartpole_torch import SMOKE, Config
+  from examples.ppo_cartpole_torch import train_eval as ppo_train_eval
+  cfg = Config(**{**SMOKE, "num_iterations": 4, "log_interval": 2},
+               root_dir=str(tmp_path), env_batch_size=4,
+               actor_fc_layers=(8,), value_fc_layers=(8,), num_eval_envs=3,
+               device="cpu")
+  final, eval_return = ppo_train_eval(cfg)
+  assert math.isfinite(final) and 0.0 < eval_return <= 200.0
+  records = _records(tmp_path / "train.jsonl")
+  losses = [r["loss"] for r in records if "loss" in r]
+  assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+  assert records[-1]["EvalAverageReturn"] == eval_return

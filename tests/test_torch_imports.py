@@ -16,7 +16,7 @@ import agents_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
 EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
-            "sac_pendulum_torch.py")
+            "sac_pendulum_torch.py", "ppo_cartpole_torch.py")
 
 
 def _port_modules():
@@ -44,7 +44,11 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "environments.classic.pendulum", "agents.sac.sac_agent",
                "networks.actor_distribution_network",
                "networks.projection_networks", "networks.value_network",
-               "policies.actor_policy"):
+               "policies.actor_policy", "utils.value_ops",
+               "utils.tensor_normalizer", "agents.ppo.ppo_agent",
+               "agents.ppo.ppo_policy", "agents.ppo.ppo_variants",
+               "agents.reinforce.reinforce_agent", "train.on_policy_loop",
+               "eval.metric_utils"):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -86,16 +90,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   running on the CPU."""
   from agents_tpu_torch.agents.categorical_dqn import CategoricalDqnAgent
   from agents_tpu_torch.agents.dqn import DqnAgent
+  from agents_tpu_torch.agents.ppo import PPOAgent
+  from agents_tpu_torch.agents.reinforce import ReinforceAgent
   from agents_tpu_torch.agents.sac import SacAgent
   from agents_tpu_torch.environments import BatchedTorchEnv
   from agents_tpu_torch.environments.classic import (CartPole, Catch,
                                                      Pendulum,
                                                      SyntheticPixels)
-  from agents_tpu_torch.networks import (make_categorical_q_network,
+  from agents_tpu_torch.networks import (make_actor_distribution_network,
+                                         make_categorical_q_network,
                                          make_critic_network, make_q_network,
-                                         make_sac_actor_network)
+                                         make_sac_actor_network,
+                                         make_value_network)
   from agents_tpu_torch.replay_buffers import UniformReplay
-  from agents_tpu_torch.train import FusedTrainLoop
+  from agents_tpu_torch.train import FusedTrainLoop, OnPolicyTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
 
   env = BatchedTorchEnv(CartPole(), 4, device="cpu")
@@ -114,6 +122,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   actor = make_sac_actor_network(sobs, sact, (8,), device="cpu")
   critic = make_critic_network(sobs, sact, joint_fc_layer_params=(8,),
                                device="cpu")
+  ppo_actor = make_actor_distribution_network(tss.observation, asp, (), (8,),
+                                              device="cpu")
+  ppo_value = make_value_network(tss.observation, (8,), device="cpu")
+  ppo = PPOAgent(tss, asp, torch.optim.Adam, ppo_actor, ppo_value,
+                 device="cpu")
 
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   for build in (lambda: BatchedTorchEnv(CartPole(), 4),
@@ -132,7 +145,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                 lambda: SacAgent(tss, sact, critic, actor, torch.optim.Adam,
                                  torch.optim.Adam, torch.optim.Adam),
                 lambda: UniformReplay(tj.trajectory_spec(tss, asp), 4, 8),
-                lambda: FusedTrainLoop(env, agent, replay)):
+                lambda: FusedTrainLoop(env, agent, replay),
+                lambda: make_actor_distribution_network(tss.observation, asp),
+                lambda: make_value_network(tss.observation),
+                lambda: PPOAgent(tss, asp, torch.optim.Adam, ppo_actor,
+                                 ppo_value),
+                lambda: ReinforceAgent(tss, asp, ppo_actor,
+                                       torch.optim.Adam),
+                lambda: OnPolicyTrainLoop(env, ppo)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 
@@ -149,3 +169,4 @@ def test_example_raises_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0, example
     assert "torch.cuda.is_available() is False" in out.stderr, example
+

@@ -130,8 +130,27 @@ def _actor_draws(k_pol, batch_size, action_spec):
                           for k, s in zip(keys, leaves)]}
 
 
+def _ppo_draws(k_pol, batch_size, action_spec):
+  """`PPOPolicy`'s draws (ppo_policy.py:48-56): the policy key split once
+  per action leaf; a continuous leaf draws its normals, a discrete leaf of
+  K actions the uniforms in [tiny, 1) of ``jax.random.categorical``'s
+  Gumbel noise (``gumbel``'s "low" mode) over ``[B, *shape, K]``."""
+  leaves = _spec_leaves(action_spec)
+  out = []
+  for k, s in zip(jax.random.split(k_pol, len(leaves)), leaves):
+    shape = (batch_size,) + s.shape
+    if np.issubdtype(s.dtype, np.floating):
+      out.append(jax.random.normal(k, shape))
+    else:
+      k_actions = int(np.max(s.maximum)) - int(np.min(s.minimum)) + 1
+      out.append(jax.random.uniform(
+          k, shape + (k_actions,), jnp.float32,
+          minval=jnp.finfo(jnp.float32).tiny, maxval=1.0))
+  return {"actor_noise": out}
+
+
 POLICY_DRAWS = {"epsilon_greedy": _epsilon_greedy_draws,
-                "actor": _actor_draws}
+                "actor": _actor_draws, "ppo": _ppo_draws}
 
 
 def _collect_step_draws(step_key, batch_size, action_spec, env, policy):
@@ -159,7 +178,7 @@ def _per_step(value):
 def jax_collect_draws(key, num_steps, batch_size, action_spec,
                       env=JaxCartPole(), policy="epsilon_greedy"):
   """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env` with
-  an epsilon-greedy or an actor collect policy."""
+  an epsilon-greedy, an actor or a PPO collect policy."""
   keys = jax.random.split(key, num_steps)
   draws = jax.vmap(lambda k: _collect_step_draws(
       k, batch_size, action_spec, env, policy))(keys)

@@ -190,10 +190,18 @@ def test_init_distributions_match_flax():
 
 
 def test_unported_heads_are_refused():
+  """The default head is now `NormalProjection` and a discrete leaf gets a
+  `CategoricalProjection` (both ported with PPO); what stays refused is
+  what the JAX package refuses: a discrete leaf that is not a scalar."""
+  from agents_tpu_torch.networks import (CategoricalProjection,
+                                         NormalProjection)
   obs, act = _specs(tspec)
-  with pytest.raises(NotImplementedError, match="NormalProjection"):
-    make_actor_distribution_network(obs, act, device="cpu")
-  with pytest.raises(NotImplementedError, match="categorical"):
+  net = make_actor_distribution_network(obs, act, device="cpu")
+  assert isinstance(net.projections[0], NormalProjection)
+  net = make_actor_distribution_network(
+      obs, tspec.BoundedArraySpec((), np.int32, 0, 2), device="cpu",
+      continuous_projection=TanhNormalProjection)
+  assert isinstance(net.projections[0], CategoricalProjection)
+  with pytest.raises(ValueError, match="scalar action spec"):
     make_actor_distribution_network(
-        obs, tspec.BoundedArraySpec((), np.int32, 0, 2), device="cpu",
-        continuous_projection=TanhNormalProjection)
+        obs, tspec.BoundedArraySpec((3,), np.int32, 0, 2), device="cpu")
