@@ -4,8 +4,10 @@ The port sits beside the JAX package and imports nothing of it (nor JAX,
 flax or optax); each ported module names its JAX counterpart in its
 docstring. It carries fused DQN on CartPole, the pixel DQN path (conv Q
 networks, D3QN, C51 on SyntheticPixels and Catch), fused SAC on the device
-Pendulum, and PPO and REINFORCE on the on-policy loop (CartPole and the
-device Pendulum), each with its greedy-eval path:
+Pendulum, PPO and REINFORCE on the on-policy loop (CartPole and the
+device Pendulum), TD3 and DDPG on the device Pendulum, and CQL-SAC and
+behavioural cloning from a dataset on disk, each with its greedy-eval
+path:
 
   typing, utils     - aliases, nests (`nest_utils`), losses, target
                       updates and log-prob/entropy sums (`common`),
@@ -13,7 +15,8 @@ device Pendulum), each with its greedy-eval path:
                       normalizers (`tensor_normalizer`), device
                       resolution (`device`), random draw sources
                       (`draws`), flax->torch weight conversion
-                      (`convert`)
+                      (`convert`), offline datasets on disk
+                      (`dataset_io`)
   specs             - ArraySpec / BoundedArraySpec
   trajectories      - TimeStep, PolicyStep, Trajectory, transitions
   environments      - BatchedTorchEnv (lockstep auto-reset), CartPole,
@@ -22,15 +25,20 @@ device Pendulum), each with its greedy-eval path:
                       Deterministic, kl_divergence
   networks          - EncoderModule, Q modules, ActorDistributionModule
                       with CategoricalProjection, NormalProjection or
-                      TanhNormalProjection, ValueModule, CriticModule
+                      TanhNormalProjection, DeterministicActorModule,
+                      ValueModule, CriticModule
   policies          - QPolicy, CategoricalQPolicy, ActorPolicy (with the
-                      observation normalizer), GreedyPolicy,
-                      EpsilonGreedyPolicy
+                      observation normalizer), DeterministicActorPolicy,
+                      RandomPolicy, GreedyPolicy, EpsilonGreedyPolicy,
+                      GaussianPolicy, OUNoisePolicy
   ops               - gather_rows (replay row gather)
-  replay_buffers    - UniformReplay (time-major ring on the device)
+  replay_buffers    - UniformReplay (time-major ring on the device,
+                      `add_sequence` for datasets)
   agents            - DqnAgent, DdqnAgent, D3qnAgent, CategoricalDqnAgent,
                       SacAgent, PPOAgent (PPOPolicy, PPOClipAgent,
-                      PPOKLPenaltyAgent), ReinforceAgent
+                      PPOKLPenaltyAgent), ReinforceAgent, Td3Agent,
+                      DdpgAgent, CqlSacAgent, BehavioralCloningAgent,
+                      RandomAgent, FixedPolicyAgent
   metrics           - collect metrics as device-tensor reducers
   drivers           - TorchDriver (optionally returning the rollout),
                       TorchEpisodeDriver

@@ -15,6 +15,8 @@ from __future__ import annotations
 import abc
 from typing import Any, Optional, Tuple
 
+from agents_tpu_torch.trajectories import trajectory as tj
+from agents_tpu_torch.utils import common, nest_utils
 from agents_tpu_torch.utils.common import LossInfo
 
 
@@ -26,6 +28,29 @@ def check_network_devices(device, **networks) -> None:
     if param_device.type != device.type:
       raise ValueError(
           f"{name} lives on {param_device}, the agent on {device}")
+
+
+def first_transition(experience, agent_name: str):
+  """(time steps, actions, next time steps) of a ``[B, 2]`` experience of
+  adjacent frames."""
+  tj.check_adjacent_transition_sequence(experience, agent_name)
+  transition = tj.to_transition(experience)
+  first = lambda x: x[:, 0]  # noqa: E731
+  return (nest_utils.tree_map(first, transition.time_step),
+          nest_utils.tree_map(first, transition.action_step.action),
+          nest_utils.tree_map(first, transition.next_time_step))
+
+
+def apply_gradients(groups, gradient_clipping: Optional[float]) -> None:
+  """For each (gradients, parameters, optimizer): clip the gradients'
+  global norm if asked, set them and step the optimizer. Callers take
+  every group's gradients first, so no loss reads a stepped parameter."""
+  for grads, params, optimizer in groups:
+    if gradient_clipping is not None:
+      common.clip_gradient_norms(grads, gradient_clipping)
+    for p, g in zip(params, grads):
+      p.grad = g
+    optimizer.step()
 
 
 class Agent(abc.ABC):

@@ -43,12 +43,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices,
+                                           first_transition)
 from agents_tpu_torch.networks.network import seeded_generator
 from agents_tpu_torch.policies.actor_policy import ActorPolicy
 from agents_tpu_torch.policies.wrappers import GreedyPolicy
 from agents_tpu_torch.specs import array_spec
-from agents_tpu_torch.trajectories import trajectory as tj
 from agents_tpu_torch.utils import common, nest_utils
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import resolve_device
@@ -231,13 +232,8 @@ class SacAgent(Agent):
   def train(self, agent_state: SacAgentState, experience,
             weights=None) -> Tuple[SacAgentState, LossInfo]:
     """experience: Trajectory [B, 2]."""
-    tj.check_adjacent_transition_sequence(experience, "SacAgent")
-    transition = tj.to_transition(experience)
-    first = lambda x: x[:, 0]  # noqa: E731
-    time_steps = nest_utils.tree_map(first, transition.time_step)
-    actions = nest_utils.tree_map(first, transition.action_step.action)
-    next_time_steps = nest_utils.tree_map(first, transition.next_time_step)
-
+    time_steps, actions, next_time_steps = first_transition(experience,
+                                                            "SacAgent")
     s = agent_state
     critic_loss = self.critic_loss_weight * self.critic_loss(
         s, time_steps, actions, next_time_steps, weights)
@@ -250,13 +246,9 @@ class SacAgent(Agent):
         (alpha_loss, [s.log_alpha], s.alpha_optimizer))
     # Every gradient is taken before any optimizer steps: the losses read
     # the pre-step parameters, which the steps overwrite in place.
-    grads = [torch.autograd.grad(loss, params) for loss, params, _ in groups]
-    for (_, params, optimizer), group_grads in zip(groups, grads):
-      if self.gradient_clipping is not None:
-        common.clip_gradient_norms(group_grads, self.gradient_clipping)
-      for p, g in zip(params, group_grads):
-        p.grad = g
-      optimizer.step()
+    apply_gradients([(torch.autograd.grad(loss, params), params, optimizer)
+                     for loss, params, optimizer in groups],
+                    self.gradient_clipping)
 
     train_step = s.train_step + 1
     for source, target in ((s.critic1_network, s.target_critic1_network),

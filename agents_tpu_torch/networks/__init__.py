@@ -1,5 +1,6 @@
 from agents_tpu_torch.networks.actor_distribution_network import (
-    ActorDistributionModule, make_actor_distribution_network,
+    ActorDistributionModule, DeterministicActorModule,
+    make_actor_distribution_network, make_deterministic_actor_network,
     make_sac_actor_network)
 from agents_tpu_torch.networks.encoding_network import EncoderModule
 from agents_tpu_torch.networks.network import Network
@@ -16,9 +17,11 @@ from agents_tpu_torch.networks.value_network import (CriticModule,
                                                      make_value_network)
 
 __all__ = ["ActorDistributionModule", "CategoricalProjection",
-           "CategoricalQModule", "CriticModule", "DuelingQModule",
+           "CategoricalQModule", "CriticModule", "DeterministicActorModule",
+           "DuelingQModule",
            "EncoderModule", "Network", "NormalProjection", "QModule",
            "TanhNormalProjection", "ValueModule", "default_projection",
            "make_actor_distribution_network", "make_categorical_q_network",
-           "make_critic_network", "make_q_network", "make_sac_actor_network",
+           "make_critic_network", "make_deterministic_actor_network",
+           "make_q_network", "make_sac_actor_network",
            "make_value_network"]

@@ -9,9 +9,15 @@ distribution nest in turn from the draw site "actor_noise" (the JAX
 policy splits its key once per leaf, policy.py:94-97), then clips into
 the action spec; `GreedyPolicy(ActorPolicy(...))` acts with the
 distributions' modes.
+
+`DeterministicActorPolicy` (:42-62), for DDPG and TD3 actors that emit
+actions directly: `action` ignores the draws, and `distribution` is a
+`Deterministic` at the action with one event dim, so `GreedyPolicy` over
+it acts the same.
 """
 from __future__ import annotations
 
+from agents_tpu_torch import distributions as dist_lib
 from agents_tpu_torch.policies.policy import Policy
 from agents_tpu_torch.trajectories import policy_step as ps
 from agents_tpu_torch.utils import nest_utils
@@ -44,3 +50,24 @@ class ActorPolicy(Policy):
         lambda d: d.sample(draws, site=ACTOR_NOISE_SITE), dstep.action,
         is_leaf=lambda d: hasattr(d, "sample"))
     return ps.PolicyStep(action=action, state=dstep.state, info=dstep.info)
+
+
+class DeterministicActorPolicy(Policy):
+
+  def __init__(self, time_step_spec, action_spec, actor_network,
+               clip: bool = True):
+    super().__init__(time_step_spec, action_spec,
+                     state_spec=actor_network.state_spec, clip=clip)
+    self.actor_network = actor_network
+
+  def _action(self, params, time_step, state, draws):
+    del draws
+    action, new_state = params(time_step.observation, time_step.step_type,
+                               state)
+    return ps.PolicyStep(action=action, state=new_state, info=())
+
+  def _distribution(self, params, time_step, state):
+    action, new_state = params(time_step.observation, time_step.step_type,
+                               state)
+    return ps.PolicyStep(action=dist_lib.Deterministic(action, event_ndims=1),
+                         state=new_state, info=())

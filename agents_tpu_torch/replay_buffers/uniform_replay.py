@@ -1,7 +1,7 @@
 """On-device uniform replay: a ring buffer in device memory.
 
 Port of ``agents_tpu/replay_buffers/uniform_replay.py`` (`init`,
-`add_batch`, `sample`, `_gather`, `gather_all`, `clear`). Layout is
+`add_batch`, `add_sequence`, `sample`, `_gather`, `gather_all`, `clear`). Layout is
 time-major ``[capacity, B, ...]`` per leaf, as in the JAX package.
 
 The frame count is a host Python int, where the JAX package keeps a traced
@@ -83,6 +83,22 @@ class UniformReplay:
     row = state.count % self.capacity
     nest_utils.tree_map(lambda s, x: s[row].copy_(x), state.storage, items)
     return ReplayState(storage=state.storage, count=state.count + 1)
+
+  def add_sequence(self, state: ReplayState, items) -> ReplayState:
+    """Write ``[N, B, ...]`` frames in order, as N `add_batch` calls would:
+    frame i goes to slot ``(count + i) % capacity``. Only the last
+    `capacity` frames can survive a wrap, so only they are written, with
+    one indexed copy per leaf."""
+    n = nest_utils.flatten(items)[0].shape[0]
+    keep = min(n, self.capacity)
+    start = state.count + n - keep
+    slots = (torch.arange(keep, device=self.device) + start) % self.capacity
+
+    def write(s, x):
+      s.index_copy_(0, slots, x[n - keep:].to(device=s.device, dtype=s.dtype))
+
+    nest_utils.tree_map(write, state.storage, items)
+    return ReplayState(storage=state.storage, count=state.count + n)
 
   def sample(self, state: ReplayState, draws, sample_batch_size: int,
              num_steps: Optional[int] = None):

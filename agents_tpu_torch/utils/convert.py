@@ -37,6 +37,14 @@ The on-policy networks' trees are
 
 A `NormalProjection`'s own `std_bias` parameter comes first in the port
 module's `state_dict()`, before its `means` (and `stds`) layers.
+
+The deterministic (DDPG, TD3) actor's tree is
+
+    {"params": {"EncoderModule_0": ..., "Dense_0": ...}}   # the action layer
+
+Whole TD3, DDPG, CQL-SAC and behavioural-cloning agent states cross with
+their Adams' moments and counts (`td3_agent_state_to_torch` and the
+others below, each with its `load_*`).
 """
 from __future__ import annotations
 
@@ -168,6 +176,20 @@ def value_params_to_state_dict(params: Mapping
   out = collections.OrderedDict()
   _encoder(out, tree["EncoderModule_0"])
   _dense(out, "value_head", tree["Dense_0"])
+  return out
+
+
+def deterministic_actor_params_to_state_dict(params: Mapping
+                                             ) -> "collections.OrderedDict":
+  """flax `DeterministicActorModule` params
+  (`make_deterministic_actor_network`) -> the port module's
+  `state_dict()`."""
+  tree = params["params"]
+  if set(tree) != {"EncoderModule_0", "Dense_0"}:
+    raise ValueError(f"unexpected deterministic actor entries: {sorted(tree)}")
+  out = collections.OrderedDict()
+  _encoder(out, tree["EncoderModule_0"])
+  _dense(out, "action_head", tree["Dense_0"])
   return out
 
 
@@ -399,6 +421,130 @@ def load_reinforce_agent_state(agent_state, converted: Dict):
     raise ValueError("one state has a value network, the other none")
   if agent_state.value_network is not None:
     agent_state.value_network.load_state_dict(converted["value_network"])
+  _load_optimizer(agent_state.optimizer, converted["adam"])
+  return dataclasses.replace(agent_state,
+                             train_step=converted["train_step"])
+
+
+def _adam_of(opt_state, converters, trees_of=lambda t: (t,)) -> Dict:
+  """The "state" part of a `torch.optim.Adam` state dict from an
+  ``optax.adam`` state (its first entry holds count, mu and nu); the
+  moments are `trees_of(mu)` (a tuple of trees), each converted by the
+  matching entry of `converters`, in parameter order."""
+  adam = opt_state[0]
+  moments = lambda tree: [  # noqa: E731
+      v for fn, t in zip(converters, trees_of(tree), strict=True)
+      for v in fn(t).values()]
+  return _adam_state(adam.count, moments(adam.mu), moments(adam.nu))
+
+
+_critic_sd = sac_critic_params_to_state_dict
+_actor_sd = deterministic_actor_params_to_state_dict
+
+# (JAX state field, port state field, converter)
+_TD3_NETWORKS = (
+    ("actor_params", "actor_network", _actor_sd),
+    ("critic1_params", "critic1_network", _critic_sd),
+    ("critic2_params", "critic2_network", _critic_sd),
+    ("target_actor_params", "target_actor_network", _actor_sd),
+    ("target_critic1_params", "target_critic1_network", _critic_sd),
+    ("target_critic2_params", "target_critic2_network", _critic_sd))
+_DDPG_NETWORKS = (
+    ("actor_params", "actor_network", _actor_sd),
+    ("critic_params", "critic_network", _critic_sd),
+    ("target_actor_params", "target_actor_network", _actor_sd),
+    ("target_critic_params", "target_critic_network", _critic_sd))
+
+
+def td3_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `Td3AgentState` (numpy leaves; ``optax.adam`` for the
+  actor and for the critics over ``(critic 1, critic 2)``) in port terms:
+  the six networks' state dicts under the port state's field names,
+  "actor_adam", "critic_adam" (critic 1's then critic 2's parameters) and
+  "train_step"; `load_td3_agent_state` applies it."""
+  out = {field: fn(getattr(state, jax_field))
+         for jax_field, field, fn in _TD3_NETWORKS}
+  out.update(actor_adam=_adam_of(state.actor_opt_state, (_actor_sd,)),
+             critic_adam=_adam_of(state.critic_opt_state,
+                                  (_critic_sd, _critic_sd), tuple),
+             train_step=int(np.asarray(state.train_step)))
+  return out
+
+
+def ddpg_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `DdpgAgentState` (numpy leaves, two ``optax.adam``) in
+  port terms: the four networks' state dicts, "actor_adam", "critic_adam"
+  and "train_step"; `load_ddpg_agent_state` applies it."""
+  out = {field: fn(getattr(state, jax_field))
+         for jax_field, field, fn in _DDPG_NETWORKS}
+  out.update(actor_adam=_adam_of(state.actor_opt_state, (_actor_sd,)),
+             critic_adam=_adam_of(state.critic_opt_state, (_critic_sd,)),
+             train_step=int(np.asarray(state.train_step)))
+  return out
+
+
+def _load_networks_and_adams(agent_state, converted, networks, adams):
+  for _, field, _ in networks:
+    getattr(agent_state, field).load_state_dict(converted[field])
+  for name in adams:
+    _load_optimizer(getattr(agent_state, f"{name}_optimizer"),
+                    converted[f"{name}_adam"])
+  return dataclasses.replace(agent_state,
+                             train_step=converted["train_step"])
+
+
+def load_td3_agent_state(agent_state, converted: Dict):
+  """Load `td3_agent_state_to_torch`'s output into a port `Td3AgentState`
+  (in place) and return it with the converted train step."""
+  return _load_networks_and_adams(agent_state, converted, _TD3_NETWORKS,
+                                  ("actor", "critic"))
+
+
+def load_ddpg_agent_state(agent_state, converted: Dict):
+  """Load `ddpg_agent_state_to_torch`'s output into a port
+  `DdpgAgentState` (in place) and return it with the converted train
+  step."""
+  return _load_networks_and_adams(agent_state, converted, _DDPG_NETWORKS,
+                                  ("actor", "critic"))
+
+
+def cql_sac_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `CqlSacAgentState`: `sac_agent_state_to_torch`'s dict plus
+  "log_cql_alpha" (a 0-dim tensor) and "cql_alpha_adam" (the Adam of
+  `log_cql_alpha`); `load_cql_sac_agent_state` applies it."""
+  adam = state.cql_alpha_opt_state[0]
+  return {**sac_agent_state_to_torch(state),
+          "log_cql_alpha": _t(state.log_cql_alpha),
+          "cql_alpha_adam": _adam_state(adam.count, [_t(adam.mu)],
+                                        [_t(adam.nu)])}
+
+
+def load_cql_sac_agent_state(agent_state, converted: Dict):
+  """Load `cql_sac_agent_state_to_torch`'s output into a port
+  `CqlSacAgentState` (in place) and return it with the converted train
+  step."""
+  agent_state = load_sac_agent_state(agent_state, converted)
+  with torch.no_grad():
+    agent_state.log_cql_alpha.copy_(converted["log_cql_alpha"])
+  _load_optimizer(agent_state.cql_alpha_optimizer,
+                  converted["cql_alpha_adam"])
+  return agent_state
+
+
+def bc_agent_state_to_torch(state, params_to_state_dict) -> Dict:
+  """A whole JAX `BcAgentState` (numpy leaves, ``optax.adam``) in port
+  terms, its network converted by `params_to_state_dict` (e.g.
+  `sac_actor_params_to_state_dict` or `q_params_to_state_dict`):
+  "network", "adam" and "train_step"; `load_bc_agent_state` applies it."""
+  return {"network": params_to_state_dict(state.params),
+          "adam": _adam_of(state.opt_state, (params_to_state_dict,)),
+          "train_step": int(np.asarray(state.train_step))}
+
+
+def load_bc_agent_state(agent_state, converted: Dict):
+  """Load `bc_agent_state_to_torch`'s output into a port `BcAgentState`
+  (in place) and return it with the converted train step."""
+  agent_state.network.load_state_dict(converted["network"])
   _load_optimizer(agent_state.optimizer, converted["adam"])
   return dataclasses.replace(agent_state,
                              train_step=converted["train_step"])

@@ -36,6 +36,29 @@ Sites:
                                                           actions)
   "sac_action_noise"    normal [S, *leaf shape]          (SAC actor loss's
                                                           actions)
+  "exploration_noise"   normal [B, *leaf shape]          (GaussianPolicy,
+                                                          one per action
+                                                          leaf)
+  "ou_noise"            normal [B, *leaf shape]          (OUNoisePolicy,
+                                                          one per action
+                                                          leaf)
+  "td3_target_noise"    normal [S, *action shape]        (TD3 target
+                                                          policy smoothing)
+  "cql_next_action_noise"
+                        normal [S, *leaf shape]          (CQL-SAC critic
+                                                          targets' next
+                                                          actions)
+  "cql_reward_noise"    normal [S]                       (CQL-SAC reward
+                                                          noise, only with
+                                                          a variance > 0)
+  "cql_uniform_actions" uniform [n, S, *leaf] in [0, 1)  (CQL uniform
+                                                          proposals, scaled
+                                                          to the bounds)
+  "cql_policy_noise"    normal [n, S, *leaf shape]       (CQL proposals
+                                                          from the actor)
+  "cql_action_noise"    normal [S, *leaf shape]          (CQL-SAC actor
+                                                          loss's actions)
+  "random_policy"       as `sample_spec` [B, *leaf]      (RandomPolicy)
   "random_action"       randint [B] in [0, num_actions)  (epsilon-greedy)
   "explore"             uniform [B] in [0, 1)            (epsilon-greedy
                                                           coin)

@@ -4,7 +4,11 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line;
-any failed phase exits non-zero before the last line.
+any failed phase exits non-zero before the last line. The phases run in
+the order below, except the three long learning runs: `sac_learn` runs
+last, while `td3_learn` and `cql_offline` with `bc` run beside it in two
+child processes of this script (``chip_smoke.py --child NAME``) on the
+same card, after every timed phase.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -103,16 +107,70 @@ any failed phase exits non-zero before the last line.
  17. reinforce    REINFORCE with a (64, 64) value baseline on CartPole,
                   B=32, T=128: 1 warm-up and 5 timed iterations under the
                   sync debug mode, finite losses.
- 18. kernels      the port's hand-written kernels on these paths (none: the
+ 18. td3_parity   `examples/td3_pendulum_torch.py`'s loop on the device
+                  Pendulum at B=8, ring 64, sample 32, 2 train steps,
+                  (64, 64): 16 collect steps then 5 fused iterations on
+                  "cpu" and "cuda" from numpy-made params and one replayed
+                  stream of draws (TF32 off), for TD3 (Gaussian exploration,
+                  the actor every 2nd step), DDPG (OU exploration) and DDPG
+                  with dQ/da clipped at 0.5: losses, every network, both
+                  Adams' moments, replay storage and metrics agree (floats
+                  rtol 1e-5 / atol 1e-5; step types exactly).
+ 19. td3_main     the TD3 bench point (the example's defaults: B=32, ring
+                  4096, sample 256, (256, 256), 32 train steps per
+                  iteration, 64 collect steps): 5 warm-up iterations, then 5
+                  windows of 10 under the sync debug mode (median
+                  ms/iteration, train-steps/s, model TFLOP/s from
+                  `td3_train_step_flops`), a 5-iteration profile (operator
+                  records and device ops per train step, busy share, top
+                  ops); then DDPG at the same point, its OU state in the
+                  driver, 10 iterations under the sync debug mode.
+ 20. td3_learn    the example's --preset=live (B=8, ring 8192, sample 256, 4
+                  train steps, (64, 64)): up to 8,000 iterations, checked
+                  every 250, to a last-20 return of -250 or more (the JAX
+                  package's TD3 passes it at 3,500-7,000 over five seeds),
+                  then greedy eval over exactly 30 episodes.
+ 21. cql_parity   `CqlSacAgent.train` for 3 steps on three fixed numpy-made
+                  batches of 256 from numpy-made params on "cpu" and "cuda",
+                  the card replaying the CPU's draws (TF32 off): the
+                  offline example's agent (temperature 50, 8 samples) and
+                  the kumar20 preset's (256, 256, 256) critics with
+                  CQL-Lagrange, each with 1 BC step; losses, the CQL term
+                  and weight, every network and the four Adams' moments,
+                  each tensor to max|card - cpu| <= 1e-5 + 1e-4 max|cpu|.
+ 22. cql_main     the kumar20 preset's train step (10 samples: 2 critics x
+                  21 Q passes of 256 rows, (256, 256, 256) critics, (256,
+                  256) actor) over a ring of 32 rows x 4,096 Pendulum frames
+                  filled by `RandomPolicy`: 10 warm-up steps, 5 windows of
+                  20 under the sync debug mode past the BC steps (median ms
+                  per train step, train-steps/s, GFLOP per step, model
+                  TFLOP/s), 5 windows of the BC-phase step, and a
+                  10-step profile.
+ 23. cql_offline  `examples/cql_sac_offline_torch.py`'s defaults end to end
+                  with the dataset in a temporary directory: the SAC
+                  behaviour policy (greedy return > -1,000), the npz round
+                  trip, 1,000 BC steps (greedy return > -500) and 3,000
+                  CQL steps in all (> -700), the bars of
+                  ``tests/test_cql_offline_e2e.py:66, :147, :151``.
+ 24. bc           `--agent=bc` on the same dataset: 3,000 steps, then the
+                  greedy return over exactly 30 episodes as a D4RL
+                  normalized score, 0 at `RandomPolicy` and 1 at the
+                  behaviour policy's greedy return (each over the same 30
+                  episodes): at least 0.8 (the JAX package's BC at this
+                  config scores 0.922 to 0.993 over four seeds,
+                  `tests/test_torch_reference_bars.py`).
+ 25. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 19. the last line: {"ok": true, "device": {...}}.
+ 26. the last line: {"ok": true, "device": {...}}.
 """
 import dataclasses
+import functools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B_PARITY, B_MAIN = 64, 4096
@@ -143,6 +201,20 @@ PPO_WARMUP, PPO_TIMED_WINDOWS, PPO_WINDOW, PPO_PROFILED = 2, 5, 2, 2
 PPO_LEARN_ITERATIONS, PPO_LEARN_CHUNK, PPO_LEARN_GATE = 150, 10, 195.0
 SCHULMAN17_TIMED = 3
 REINFORCE_TIMED = 5
+TD3_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
+                  train_steps_per_iteration=2, actor_fc_layers=(64, 64),
+                  critic_joint_fc_layers=(64, 64))
+TD3_PARITY_INITIAL, TD3_PARITY_ITERATIONS = 16, 5
+TD3_WARMUP, TD3_TIMED_WINDOWS, TD3_WINDOW, TD3_PROFILED = 5, 5, 10, 5
+DDPG_SYNC_FREE = 10
+TD3_LEARN_CHUNK, TD3_LEARN_GATE = 250, -250.0
+CQL_RTOL, CQL_ATOL = 1e-4, 1e-5
+CQL_PARITY_STEPS, CQL_PARITY_SAMPLE = 3, 256
+CQL_RING_ROWS, CQL_RING_FRAMES = 32, 4096
+CQL_WARMUP, CQL_TIMED_WINDOWS, CQL_WINDOW, CQL_PROFILED = 10, 5, 20, 10
+CQL_BC_GATE, CQL_OFFLINE_GATE, CQL_BEHAVIOR_GATE = -500.0, -700.0, -1000.0
+BC_SCORE_GATE = 0.8
+CHILD_TIMEOUT_S = 900
 
 
 def emit(phase, **fields):
@@ -236,22 +308,25 @@ def dqn_tensors(agent_state):
           for k, v in getattr(agent_state, net).state_dict().items()}
 
 
-def sac_tensors(agent_state):
-  """The five SAC networks' tensors, log alpha, the three Adams' moments
-  and step counts, and the train step, by name."""
+def state_tensors(agent_state):
+  """Every network's tensors, every tensor field, every optimizer's
+  moments and step counts, and the train step of an agent state, by
+  name."""
   import torch
 
-  out = {f"{net}.{k}": v
-         for net in ("actor_network", "critic1_network", "critic2_network",
-                     "target_critic1_network", "target_critic2_network")
-         for k, v in getattr(agent_state, net).state_dict().items()}
-  out["log_alpha"] = agent_state.log_alpha.detach()
-  for name in ("actor", "critic", "alpha"):
-    optimizer = getattr(agent_state, f"{name}_optimizer")
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    for i, p in enumerate(params):
-      for k, v in optimizer.state[p].items():
-        out[f"{name}_adam.{i}.{k}"] = v
+  out = {}
+  for field in dataclasses.fields(agent_state):
+    value = getattr(agent_state, field.name)
+    if isinstance(value, torch.nn.Module):
+      out.update({f"{field.name}.{k}": v
+                  for k, v in value.state_dict().items()})
+    elif isinstance(value, torch.Tensor):
+      out[field.name] = value.detach()
+    elif isinstance(value, torch.optim.Optimizer):
+      params = [p for g in value.param_groups for p in g["params"]]
+      for i, p in enumerate(params):
+        for k, v in value.state.get(p, {}).items():
+          out[f"{field.name}.{i}.{k}"] = v
   out["train_step"] = torch.tensor(agent_state.train_step)
   return out
 
@@ -817,7 +892,8 @@ def phase_sac_parity(card):
   runs = run_on_both(
       lambda device: sac_loop(dataclasses.replace(cfg, device=device)),
       load, initial_collect_steps=16, iterations=3)
-  diffs, mismatched = compare_runs(runs, SAC_RTOL, SAC_ATOL, sac_tensors)
+  diffs, mismatched = compare_runs(runs, SAC_RTOL, SAC_ATOL,
+                                    state_tensors)
   worst = max(diffs, key=diffs.get)
   gstate = runs["cuda"][1]
   ok = not mismatched and gstate.agent_state.train_step == 3 * 2
@@ -1364,7 +1440,642 @@ def phase_reinforce(card):
     fail("reinforce", "REINFORCE checks failed")
 
 
-def main():
+def numpy_deterministic_actor_params(rng, fc, obs_dim=3, act_dim=1):
+  """A flax-shaped deterministic actor tree drawn with numpy."""
+  import numpy as np
+
+  def layer(shape, scale):
+    return {"kernel": rng.uniform(-scale, scale, shape).astype(np.float32),
+            "bias": rng.uniform(-0.05, 0.05, shape[-1:]).astype(np.float32)}
+
+  encoder, width = {}, obs_dim
+  for i, out in enumerate(fc):
+    encoder[f"Dense_{i}"] = layer((width, out), math.sqrt(3.0 / width))
+    width = out
+  return {"params": {"EncoderModule_0": encoder,
+                     "Dense_0": layer((width, act_dim), 0.3)}}
+
+
+def td3_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
+                         critic_fc, actor_update_period):
+  """Analytic FLOPs of one TD3 train step, 2 per multiply-add of the dense
+  layers, averaged over the actor's period p. Per sampled row, with A and
+  C one actor and one critic forward: the critic targets take the target
+  actor and two target critics (A + 2C), the critic loss two critic
+  forwards and their backward, about twice the forward (6C); on an actor
+  step the actor loss takes the actor and critic 1 forward, critic 1's
+  backward to the actions and the actor's backward (3A + 2C), on the
+  others only the forward it reports (A + C)."""
+  def macs(width, widths):
+    total = 0
+    for out in widths:
+      total += width * out
+      width = out
+    return total
+
+  a = macs(obs_dim, tuple(actor_fc) + (act_dim,))
+  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
+  p = actor_update_period
+  per_row = (a + 8 * c + (3 * a + 2 * c) / p
+             + (1.0 - 1.0 / p) * (a + c))
+  return 2 * sample_batch_size * per_row
+
+
+def phase_td3_parity(card):
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert
+  from examples.td3_pendulum_torch import Config
+  from examples.td3_pendulum_torch import build_loop as td3_loop
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  out, ok = {}, True
+  cases = (("td3", dict(agent="td3")), ("ddpg", dict(agent="ddpg")),
+           ("ddpg_dqda_clipping", dict(agent="ddpg", dqda_clipping=0.5)))
+  for i, (name, overrides) in enumerate(cases):
+    cfg = Config(**TD3_PARITY, **overrides)
+    rng = np.random.RandomState(11 + i)
+    actor = numpy_deterministic_actor_params(rng, cfg.actor_fc_layers)
+    _, critic1, critic2 = numpy_sac_params(rng, cfg.actor_fc_layers,
+                                           cfg.critic_joint_fc_layers)
+
+    def load(loop, actor=actor, critic1=critic1, critic2=critic2):
+      agent = loop.agent
+      agent.actor_network.load_state_dict(
+          convert.deterministic_actor_params_to_state_dict(actor))
+      agent.critic_network.load_state_dict(
+          convert.sac_critic_params_to_state_dict(critic1))
+      if hasattr(agent, "critic_network_2"):
+        agent.critic_network_2.load_state_dict(
+            convert.sac_critic_params_to_state_dict(critic2))
+
+    runs = run_on_both(
+        lambda device, cfg=cfg: td3_loop(dataclasses.replace(cfg,
+                                                             device=device)),
+        load, initial_collect_steps=TD3_PARITY_INITIAL,
+        iterations=TD3_PARITY_ITERATIONS)
+    diffs, mismatched = compare_runs(runs, SAC_RTOL, SAC_ATOL, state_tensors)
+    gstate = runs["cuda"][1]
+    if cfg.agent == "ddpg":
+      cpu_ou = runs["cpu"][1].driver_state.policy_state[1][0]
+      diffs["ou_state"] = max_diff(cpu_ou, gstate.driver_state.policy_state[
+          1][0].cpu())
+      if not torch.allclose(cpu_ou, gstate.driver_state.policy_state[1][
+          0].cpu(), rtol=SAC_RTOL, atol=SAC_ATOL):
+        mismatched.append("ou_state")
+    worst = max(diffs, key=diffs.get)
+    case_ok = not mismatched and gstate.agent_state.train_step == (
+        TD3_PARITY_ITERATIONS * cfg.train_steps_per_iteration)
+    ok = ok and case_ok
+    out[name] = {"largest_float_diff": {"name": worst, "abs": diffs[worst]},
+                 "loss_diff": diffs["losses"], "compared": len(diffs),
+                 "mismatched": mismatched, "ok": case_ok}
+  emit("td3_parity", card=card, actor=list(TD3_PARITY["actor_fc_layers"]),
+       critic=list(TD3_PARITY["critic_joint_fc_layers"]),
+       batch_size=TD3_PARITY["env_batch_size"],
+       ring=TD3_PARITY["replay_capacity"],
+       sample=TD3_PARITY["sample_batch_size"],
+       train_steps_per_iteration=TD3_PARITY["train_steps_per_iteration"],
+       initial_collect_steps=TD3_PARITY_INITIAL,
+       iterations=TD3_PARITY_ITERATIONS, rtol=SAC_RTOL, atol=SAC_ATOL, **out,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("td3_parity", "card and CPU disagree on the TD3/DDPG path")
+
+
+def phase_td3_main(card):
+  import statistics
+
+  import torch
+
+  from examples.td3_pendulum_torch import Config
+  from examples.td3_pendulum_torch import build_loop as td3_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config()
+  loop = td3_loop(cfg)
+  t_init = time.perf_counter()
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  state, losses = loop.run(state, TD3_WARMUP)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t_init
+  state, losses, window_ms = timed_windows(
+      loop, state, TD3_TIMED_WINDOWS * TD3_WINDOW, TD3_TIMED_WINDOWS)
+  ms = statistics.median(window_ms)
+  iterations = TD3_WARMUP + TD3_TIMED_WINDOWS * TD3_WINDOW
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  finite = bool(torch.isfinite(losses).all())
+  bad_transitions, lasts = check_step_types(loop, state)
+  steps = cfg.train_steps_per_iteration
+  p = next(state.agent_state.actor_network.parameters())
+  actor_adam_steps = float(state.agent_state.actor_optimizer.state[p]["step"])
+  ok = (not off_card and finite and bad_transitions == 0
+        and state.replay_state.count == cfg.initial_collect_steps + iterations
+        and state.agent_state.train_step == iterations * steps
+        and actor_adam_steps == iterations * steps // cfg.actor_update_period)
+  state, prof = profile_window(loop, state, TD3_PROFILED)
+  flops = td3_train_step_flops(cfg.sample_batch_size, 3, 1,
+                               cfg.actor_fc_layers, cfg.critic_joint_fc_layers,
+                               cfg.actor_update_period)
+  del loop, state
+
+  # DDPG at the same point: the OU state rides in the driver.
+  ddpg = td3_loop(dataclasses.replace(cfg, agent="ddpg"))
+  dstate = ddpg.init(seed=cfg.seed,
+                     initial_collect_steps=cfg.initial_collect_steps)
+  dstate, dlosses = ddpg.run(dstate, 1)
+  torch.cuda.synchronize()
+  dstate, dlosses, ddpg_ms = timed_windows(ddpg, dstate, DDPG_SYNC_FREE, 1)
+  ou = dstate.driver_state.policy_state[1][0]
+  ddpg_ok = (bool(torch.isfinite(dlosses).all()) and ou.device.type == "cuda"
+             and bool((ou != 0).any()))
+  ok = ok and ddpg_ok
+  emit("td3_main", card=card, batch_size=cfg.env_batch_size,
+       ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       train_steps_per_iteration=steps,
+       actor_update_period=cfg.actor_update_period,
+       timed_windows=TD3_TIMED_WINDOWS, iterations_per_window=TD3_WINDOW,
+       sync_debug_mode="error", ms_per_iteration_median=ms,
+       window_ms_per_iteration=window_ms, ms_per_train_step=ms / steps,
+       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
+       train_steps_per_s=steps * 1e3 / ms,
+       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
+           "cpu_op", 0.0) / steps,
+       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
+       model_gflop_per_train_step=flops / 1e9,
+       model_tflop_per_s=flops * steps / ms / 1e9,
+       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       losses_finite=finite, last_loss=float(losses[-1]),
+       actor_adam_steps=actor_adam_steps,
+       illegal_step_type_transitions=bad_transitions,
+       last_frames_in_ring=lasts, profile=prof,
+       ddpg={"iterations": DDPG_SYNC_FREE, "sync_debug_mode": "error",
+             "ms_per_iteration": ddpg_ms[0],
+             "train_steps_per_s": steps * 1e3 / ddpg_ms[0],
+             "last_loss": float(dlosses[-1]),
+             "ou_state_abs_mean": float(ou.abs().mean()), "ok": ddpg_ok},
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("td3_main", "TD3 bench point checks failed")
+
+
+def phase_td3_learn(card):
+  import torch
+
+  from examples.td3_pendulum_torch import parse_td3_args
+  from examples.td3_pendulum_torch import build_loop as td3_loop
+
+  t0 = time.perf_counter()
+  cfg = parse_td3_args(["--preset=live"])
+  loop = td3_loop(cfg)
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  iterations, ret, points = 0, -math.inf, []
+  while iterations < cfg.num_iterations:
+    state, losses = loop.run(state, TD3_LEARN_CHUNK)
+    iterations += TD3_LEARN_CHUNK
+    ret = float(loop.results(state)["AverageReturn"])
+    points.append([iterations, ret])
+    if ret >= TD3_LEARN_GATE:
+      break
+  learn_s = time.perf_counter() - t0
+  t_eval = time.perf_counter()
+  out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
+  episodes = int(out["NumberOfEpisodes"])
+  eval_return = float(out["AverageReturn"])
+  torch.cuda.synchronize()
+  finite = bool(torch.isfinite(losses).all())
+  ok = ret >= TD3_LEARN_GATE and finite and episodes == 30
+  emit("td3_learn", card=card, batch_size=cfg.env_batch_size,
+       sample_batch_size=cfg.sample_batch_size,
+       train_steps_per_iteration=cfg.train_steps_per_iteration,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       iterations=iterations, budget=cfg.num_iterations,
+       last20_average_return=ret, gate=TD3_LEARN_GATE, points=points,
+       losses_finite=finite, ms_per_iteration=learn_s * 1e3 / iterations,
+       learn_seconds=learn_s, eval_episodes=episodes,
+       eval_average_return=eval_return,
+       eval_seconds=time.perf_counter() - t_eval,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("td3_learn", f"last-20 return {ret} (gate {TD3_LEARN_GATE} within "
+         f"{cfg.num_iterations} iterations), {episodes} eval episodes of 30")
+
+
+def numpy_experience(rng, sample_batch_size):
+  """A [S, 2] Pendulum-shaped Trajectory batch drawn with numpy, a fifth of
+  its actions at the bounds."""
+  import numpy as np
+
+  from agents_tpu_torch.trajectories import trajectory as tj
+
+  action = rng.uniform(-2, 2, (sample_batch_size, 2, 1))
+  action[rng.uniform(size=action.shape) < 0.2] = 2.0
+  return tj.Trajectory(
+      step_type=rng.choice([0, 1, 2], (sample_batch_size, 2),
+                           p=[0.1, 0.8, 0.1]).astype(np.int32),
+      observation=(rng.randn(sample_batch_size, 2, 3) * 2).astype(np.float32),
+      action=action.astype(np.float32), policy_info=(),
+      next_step_type=rng.choice([1, 2], (sample_batch_size, 2),
+                                p=[0.9, 0.1]).astype(np.int32),
+      reward=(-rng.uniform(0, 16, (sample_batch_size, 2))).astype(np.float32),
+      discount=np.ones((sample_batch_size, 2), np.float32))
+
+
+def load_agent_state(dst, src):
+  """Copy every network, tensor field and optimizer state of the agent
+  state `src` into `dst` (in place, onto `dst`'s device; an optimizer's
+  state is copied, not shared, even on one device) and return `dst` with
+  `src`'s train step."""
+  import copy
+
+  import torch
+
+  for field in dataclasses.fields(src):
+    value, target = getattr(src, field.name), getattr(dst, field.name)
+    if isinstance(value, torch.nn.Module):
+      target.load_state_dict(value.state_dict())
+    elif isinstance(value, torch.optim.Optimizer):
+      target.load_state_dict(copy.deepcopy(value.state_dict()))
+    elif isinstance(value, torch.Tensor):
+      with torch.no_grad():
+        target.copy_(value)
+  return dataclasses.replace(dst, train_step=src.train_step)
+
+
+def phase_cql_parity(card):
+  """Three CQL-SAC steps, each taken by the card from the CPU's state
+  before it.
+
+  The first step from one set of numpy-made parameters agrees to about
+  1e-6 of each tensor's scale. Run on from there, the card's own states
+  part at a few elements: Adam normalises each gradient by its running
+  size, so an element whose gradient is near zero moves by up to the
+  learning rate either way on rounding alone, and with 5,376 critic rows
+  a pre-activation a rounding away from a ReLU kink changes side. So
+  before each step the card takes the CPU's state (networks, log alphas,
+  the four Adams), replays the CPU's draws, and each step is held to
+  max|card - cpu| <= 1e-5 + 1e-4 max|cpu| per tensor.
+  """
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert, nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+  from examples.cql_sac_offline_torch import KUMAR20, Config, build_agent
+  from examples.cql_sac_offline_torch import build_env
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cases = (("offline_default", Config(num_bc_steps=1), {}),
+           ("kumar20_lagrange", Config(**{**KUMAR20, "num_bc_steps": 1}),
+            dict(use_lagrange_cql_alpha=True, cql_tau=5.0,
+                 log_cql_alpha_clipping=(-2.0, 2.0))))
+  out, ok = {}, True
+  for i, (name, cfg, extra) in enumerate(cases):
+    rng = np.random.RandomState(21 + i)
+    actor, critic1, critic2 = numpy_sac_params(
+        rng, cfg.actor_fc_layers, cfg.critic_joint_fc_layers)
+    batches = [numpy_experience(rng, CQL_PARITY_SAMPLE)
+               for _ in range(CQL_PARITY_STEPS)]
+    agents = {}
+    for role, device in (("host", "cpu"), ("card", "cuda")):
+      cfg_d = dataclasses.replace(cfg, device=device)
+      agent = build_agent(cfg_d, build_env(cfg_d), "cql", cfg.seed + 2)
+      for key, value in extra.items():
+        setattr(agent, key, value)
+      agent.actor_network.load_state_dict(
+          convert.sac_actor_params_to_state_dict(actor))
+      agent.critic_network.load_state_dict(
+          convert.sac_critic_params_to_state_dict(critic1))
+      agent.critic_network_2.load_state_dict(
+          convert.sac_critic_params_to_state_dict(critic2))
+      agents[role] = agent
+    draws = RecordingDraws(Draws(0, "cpu"))
+    cstate = agents["host"].init(draws=draws)
+    gstate = agents["card"].init()
+    diffs, relative, mismatched, cql_losses = {}, {}, [], []
+
+    def compare(tag, a, b):
+      a, b = a.cpu(), b.cpu()
+      if not a.dtype.is_floating_point:
+        if not torch.equal(a, b):
+          mismatched.append(tag)
+        return
+      diffs[tag] = max_diff(a, b)
+      scale = float(b.double().abs().max()) if b.numel() else 0.0
+      relative[tag] = diffs[tag] / scale if scale else diffs[tag]
+      if diffs[tag] > CQL_ATOL + CQL_RTOL * scale:
+        mismatched.append(tag)
+
+    for step, batch in enumerate(batches, start=1):
+      gstate = load_agent_state(gstate, cstate)
+      seen = {site: len(v) for site, v in draws.records.items()}
+      cstate, cinfo = agents["host"].train(
+          cstate, nest_utils.tree_map(torch.from_numpy, batch))
+      gstate = dataclasses.replace(gstate, draws=ReplayDraws(
+          {site: v[seen.get(site, 0):] for site, v in draws.records.items()},
+          "cuda"))
+      gstate, ginfo = agents["card"].train(gstate, nest_utils.tree_map(
+          lambda x: torch.from_numpy(x).to("cuda"), batch))
+      compare(f"step{step}.loss", ginfo.loss, cinfo.loss)
+      for field in dataclasses.fields(cinfo.extra):
+        compare(f"step{step}.extra.{field.name}",
+                getattr(ginfo.extra, field.name),
+                getattr(cinfo.extra, field.name))
+      ctensors, gtensors = state_tensors(cstate), state_tensors(gstate)
+      if set(ctensors) != set(gtensors):
+        mismatched.append(f"step{step}.agent_state.names")
+      for k in ctensors:
+        compare(f"step{step}.{k}", gtensors[k], ctensors[k])
+      cql_losses.append(float(ginfo.extra.cql_loss))
+    worst = max(diffs, key=diffs.get)
+    worst_relative = max(relative, key=relative.get)
+    case_ok = not mismatched and gstate.train_step == CQL_PARITY_STEPS
+    ok = ok and case_ok
+    out[name] = {
+        "actor": list(cfg.actor_fc_layers),
+        "critic": list(cfg.critic_joint_fc_layers),
+        "num_cql_samples": cfg.num_cql_samples,
+        "softmax_temperature": cfg.softmax_temperature,
+        "lagrange": bool(extra), "num_bc_steps": 1,
+        "largest_float_diff": {"name": worst, "abs": diffs[worst]},
+        "largest_relative_diff": {"name": worst_relative,
+                                  "of_max_abs": relative[worst_relative]},
+        "cql_loss_diff": max(v for k, v in diffs.items()
+                             if k.endswith("extra.cql_loss")),
+        "cql_loss": cql_losses, "compared": len(diffs),
+        "mismatched": mismatched, "ok": case_ok}
+  emit("cql_parity", card=card, steps=CQL_PARITY_STEPS,
+       sample=CQL_PARITY_SAMPLE, rtol=CQL_RTOL, atol=CQL_ATOL,
+       criterion="each step from the CPU's state before it: max|card - cpu| "
+       "<= atol + rtol * max|cpu| per tensor", **out,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("cql_parity", "card and CPU disagree on the CQL-SAC step")
+
+
+def cql_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
+                         critic_fc, num_samples):
+  """Analytic FLOPs of one CQL-SAC train step past the BC steps, 2 per
+  multiply-add of the dense layers. Per sampled row, with A and C one actor
+  (its mean and log-std head) and one critic forward: the policy proposals
+  one actor forward (A); each critic (2n + 1) passes (the n policy and n
+  uniform proposals and the data action) and their backward, about twice
+  the forward (2 x 3(2n + 1)C); the TD targets the actor and two target
+  critics (A + 2C); the actor loss the actor and two critics forward, the
+  critics' backward to the actions and the actor's backward (3A + 4C). In
+  all 5A + (12n + 12)C."""
+  def macs(width, widths):
+    total = 0
+    for out in widths:
+      total += width * out
+      width = out
+    return total
+
+  a = macs(obs_dim, tuple(actor_fc) + (2 * act_dim,))
+  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
+  return 2 * sample_batch_size * (5 * a + (12 * num_samples + 12) * c)
+
+
+def timed_train_steps(agent, state, replay, rstate, draws, steps, windows,
+                      sample_batch_size):
+  """`steps` train steps on replay samples of `sample_batch_size` under the
+  sync debug mode, in `windows` windows each ended by a synchronize.
+  Returns (state, the last loss, ms per train step of each window)."""
+  import torch
+
+  window_ms, per_window = [], steps // windows
+  for _ in range(windows):
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    for _ in range(per_window):
+      experience, _ = replay.sample(rstate, draws, sample_batch_size,
+                                    num_steps=2)
+      state, info = agent.train(state, experience)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    window_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
+  return state, info.loss, window_ms
+
+
+def phase_cql_main(card):
+  import statistics
+
+  import torch
+
+  from agents_tpu_torch.drivers import TorchDriver
+  from agents_tpu_torch.policies import RandomPolicy
+  from agents_tpu_torch.replay_buffers import UniformReplay
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from agents_tpu_torch.utils.draws import Draws
+  from examples.cql_sac_offline_torch import KUMAR20, Config, build_agent
+  from examples.cql_sac_offline_torch import build_env
+
+  t_phase = time.perf_counter()
+  cfg = Config(**{**KUMAR20, "env_batch_size": CQL_RING_ROWS})
+  env = build_env(cfg)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  replay = UniformReplay(tj.trajectory_spec(tss, asp), CQL_RING_ROWS,
+                         CQL_RING_FRAMES, device=env.device)
+  driver = TorchDriver(env, RandomPolicy(tss, asp),
+                       observers=[replay.add_batch])
+  draws = Draws(cfg.seed, env.device)
+  _, (rstate,) = driver.run((), driver.init(draws), (replay.init(),), draws,
+                            CQL_RING_FRAMES)
+  torch.cuda.synchronize()
+  fill_s = time.perf_counter() - t_phase
+  agent = build_agent(cfg, env, "cql", cfg.seed + 2)
+  state = agent.init()
+  steps = functools.partial(timed_train_steps, agent, replay=replay,
+                            rstate=rstate, draws=draws,
+                            sample_batch_size=cfg.offline_batch_size)
+  state, _, _ = steps(state, steps=CQL_WARMUP, windows=1)
+  state, _, bc_ms = steps(state, steps=CQL_TIMED_WINDOWS * CQL_WINDOW,
+                          windows=CQL_TIMED_WINDOWS)
+  state = dataclasses.replace(state, train_step=cfg.num_bc_steps)
+  state, _, _ = steps(state, steps=CQL_WARMUP, windows=1)
+  state, loss, window_ms = steps(state, steps=CQL_TIMED_WINDOWS * CQL_WINDOW,
+                                 windows=CQL_TIMED_WINDOWS)
+  ms = statistics.median(window_ms)
+  (state, _, _), prof = profile_call(
+      lambda: steps(state, steps=CQL_PROFILED, windows=1), CQL_PROFILED,
+      "train_step", name="profile_cql.json")
+  flops = cql_train_step_flops(cfg.offline_batch_size, 3, 1,
+                               cfg.actor_fc_layers, cfg.critic_joint_fc_layers,
+                               cfg.num_cql_samples)
+  off_card = [k for k, v in state_tensors(state).items()
+              if k != "train_step" and not k.endswith(".step")
+              and v.device.type != "cuda"]
+  finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(
+      state.log_alpha.detach()))
+  ok = (finite and not off_card and rstate.count == CQL_RING_FRAMES
+        and state.train_step == cfg.num_bc_steps + CQL_WARMUP
+        + CQL_TIMED_WINDOWS * CQL_WINDOW + CQL_PROFILED)
+  emit("cql_main", card=card, ring_rows=CQL_RING_ROWS,
+       ring_frames=CQL_RING_FRAMES, ring_fill_s=fill_s,
+       sample_batch_size=cfg.offline_batch_size,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       num_cql_samples=cfg.num_cql_samples,
+       critic_rows_per_pass=(2 * cfg.num_cql_samples + 1)
+       * cfg.offline_batch_size,
+       sync_debug_mode="error", timed_windows=CQL_TIMED_WINDOWS,
+       steps_per_window=CQL_WINDOW, ms_per_train_step_median=ms,
+       window_ms_per_train_step=window_ms,
+       train_steps_per_s=1e3 / ms,
+       bc_phase_ms_per_train_step_median=statistics.median(bc_ms),
+       bc_phase_window_ms_per_train_step=bc_ms,
+       model_gflop_per_train_step=flops / 1e9,
+       model_tflop_per_s=flops / ms / 1e9,
+       operator_records_per_train_step=prof[
+           "trace_events_per_train_step"].get("cpu_op", 0.0),
+       device_ops_per_train_step=prof["device_ops_per_train_step"],
+       profile=prof, last_loss=float(loss), losses_finite=finite,
+       tensors_off_card=off_card, train_step=state.train_step,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("cql_main", "kumar20 CQL train step checks failed")
+
+
+def phase_cql_offline(card, data_dir):
+  """The offline example's pipeline; returns (config, env, behaviour agent,
+  its state) for `bc`."""
+  import torch
+
+  from examples.cql_sac_offline_torch import (Config, behavior_phase,
+                                              build_env, dataset_phase,
+                                              greedy_eval, offline_phase)
+
+  t0 = time.perf_counter()
+  cfg = Config()
+  env = build_env(cfg)
+  behavior, behavior_state, iterations, collect_return = behavior_phase(
+      cfg, env)
+  behavior_return, _ = greedy_eval(cfg, env, behavior, behavior_state,
+                                   cfg.num_eval_episodes, cfg.seed + 7)
+  behavior_s = time.perf_counter() - t0
+  t1 = time.perf_counter()
+  dataset_return = dataset_phase(cfg, env, behavior, behavior_state, data_dir)
+  dataset_s = time.perf_counter() - t1
+  bc_phase = {}
+
+  def on_step(step, agent, agent_state):
+    if step == cfg.num_bc_steps:
+      bc_phase["return"], bc_phase["episodes"] = greedy_eval(
+          cfg, env, agent, agent_state, cfg.num_eval_episodes, cfg.seed + 7)
+
+  t2 = time.perf_counter()
+  agent, agent_state, losses, rstate = offline_phase(cfg, env, data_dir,
+                                                     on_step=on_step)
+  offline_return, episodes = greedy_eval(cfg, env, agent, agent_state,
+                                         cfg.num_eval_episodes, cfg.seed + 7)
+  torch.cuda.synchronize()
+  offline_s = time.perf_counter() - t2
+  finite = bool(torch.isfinite(losses).all())
+  ok = (behavior_return > CQL_BEHAVIOR_GATE and bc_phase["return"]
+        > CQL_BC_GATE and offline_return > CQL_OFFLINE_GATE and finite
+        and rstate.count == cfg.dataset_frames
+        and episodes == bc_phase["episodes"] == cfg.num_eval_episodes)
+  emit("cql_offline", card=card, batch_size=cfg.env_batch_size,
+       behavior_iterations=iterations, behavior_last20_return=collect_return,
+       behavior_greedy_return=behavior_return,
+       behavior_gate=CQL_BEHAVIOR_GATE, behavior_seconds=behavior_s,
+       dataset_frames=rstate.count, dataset_rows=cfg.env_batch_size,
+       dataset_policy_return=dataset_return, dataset_seconds=dataset_s,
+       offline_train_steps=cfg.offline_train_steps,
+       num_bc_steps=cfg.num_bc_steps, bc_phase_return=bc_phase["return"],
+       bc_gate=CQL_BC_GATE, offline_return=offline_return,
+       offline_gate=CQL_OFFLINE_GATE, eval_episodes=episodes,
+       last_loss=float(losses[-1]), losses_finite=finite,
+       offline_ms_per_train_step=offline_s * 1e3 / cfg.offline_train_steps,
+       offline_seconds=offline_s, seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("cql_offline", f"behaviour {behavior_return}, after BC "
+         f"{bc_phase['return']}, offline {offline_return}")
+  return cfg, env, behavior, behavior_state
+
+
+def phase_bc(card, cfg, env, data_dir, behavior, behavior_state):
+  """Behavioural cloning on the offline phase's dataset, scored against
+  that dataset's behaviour policy: a fixed return bar would not carry
+  from one behaviour run to another."""
+  import torch
+
+  from agents_tpu_torch.agents.random import RandomAgent
+  from examples.cql_sac_offline_torch import greedy_eval, offline_phase
+
+  t0 = time.perf_counter()
+  agent, agent_state, losses, _ = offline_phase(cfg, env, data_dir,
+                                                kind="bc")
+  ret, episodes = greedy_eval(cfg, env, agent, agent_state, 30, cfg.seed + 7)
+  behavior_return, _ = greedy_eval(cfg, env, behavior, behavior_state, 30,
+                                   cfg.seed + 7)
+  random = RandomAgent(env.time_step_spec(), env.action_spec(), env.device)
+  random_return, _ = greedy_eval(cfg, env, random, random.init(), 30,
+                                 cfg.seed + 7)
+  score = (ret - random_return) / (behavior_return - random_return)
+  finite = bool(torch.isfinite(losses).all())
+  ok = score >= BC_SCORE_GATE and finite and episodes == 30
+  emit("bc", card=card, train_steps=cfg.offline_train_steps,
+       sample_batch_size=cfg.offline_batch_size,
+       actor=list(cfg.actor_fc_layers), eval_episodes=episodes,
+       eval_average_return=ret, behavior_greedy_return=behavior_return,
+       random_policy_return=random_return, normalized_score=score,
+       gate=BC_SCORE_GATE, last_loss=float(losses[-1]),
+       losses_finite=finite, seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("bc", f"BC normalized score {score} (return {ret}, behaviour "
+         f"{behavior_return}, random {random_return}; gate "
+         f"{BC_SCORE_GATE}), {episodes} eval episodes of 30")
+
+
+def phase_offline(card):
+  """`cql_offline`, then `bc` on its dataset."""
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=RUNS_DIR) as data_dir:
+    cfg, env, behavior, behavior_state = phase_cql_offline(card, data_dir)
+    phase_bc(card, cfg, env, data_dir, behavior, behavior_state)
+
+
+# The learning runs, each in a process of its own (see `learning_phases`).
+CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline}
+
+
+def learning_phases(card):
+  """`sac_learn` here while `td3_learn` and `cql_offline` + `bc` run in two
+  child processes of this script on the same card. Each is a long run of
+  small host-bound steps (the card idles over 90% of the time), so three
+  at once take about as long as the longest; no timed phase runs beside
+  them. Their lines are printed as each ends; a child that fails fails
+  the script, and no child outlives it."""
+  children = {
+      name: subprocess.Popen(
+          [sys.executable, os.path.abspath(__file__), "--child", name],
+          stdout=subprocess.PIPE, text=True)
+      for name in CHILD_PHASES}
+  try:
+    phase_sac_learn(card)
+    for name, proc in children.items():
+      out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
+      sys.stdout.write(out)
+      sys.stdout.flush()
+      if proc.returncode != 0:
+        fail(name, f"its process exited with {proc.returncode}")
+  finally:
+    for proc in children.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def main(argv=()):
   import torch
 
   if not torch.cuda.is_available():
@@ -1375,6 +2086,9 @@ def main():
   import agents_tpu_torch  # noqa: F401  (fails outside the repository)
 
   card = card_line()
+  if len(argv) == 2 and argv[0] == "--child":
+    CHILD_PHASES[argv[1]](card)
+    return 0
   print(card, flush=True)
   emit("device", torch=torch.__version__, cuda=torch.version.cuda,
        name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -1392,7 +2106,6 @@ def main():
   free_card()
   phase_sac_parity(card)
   phase_sac_main(card)
-  phase_sac_learn(card)
   free_card()
   phase_ppo_parity(card)
   cfg, loop, state, iterations = phase_ppo_main(card)
@@ -1400,6 +2113,14 @@ def main():
   del loop, state
   phase_ppo_schulman17(card)
   phase_reinforce(card)
+  free_card()
+  phase_td3_parity(card)
+  phase_td3_main(card)
+  free_card()
+  phase_cql_parity(card)
+  phase_cql_main(card)
+  free_card()
+  learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")
   print(json.dumps({"kernels": []}), flush=True)
@@ -1410,4 +2131,4 @@ def main():
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  sys.exit(main(sys.argv[1:]))

@@ -22,3 +22,9 @@ jax.config.update("jax_default_matmul_precision", "highest")
 # test processes.
 jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache_cpu")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "slow: a long learning run, left out of the tier-1 run "
+      "(-m 'not slow')")

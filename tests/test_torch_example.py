@@ -284,3 +284,118 @@ def test_ppo_example_train_eval_smoke_on_cpu(tmp_path):
   losses = [r["loss"] for r in records if "loss" in r]
   assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
   assert records[-1]["EvalAverageReturn"] == eval_return
+
+
+# -- the TD3 / DDPG example ---------------------------------------------------
+
+
+def test_td3_example_bench_defaults_and_presets():
+  """The defaults are the SAC bench point's construction with Fujimoto et
+  al.'s TD3 settings; --agent=ddpg takes Lillicrap et al.'s OU noise;
+  --preset=live is ``tests/test_live_windows.py:89-123``'s construction;
+  --smoke and --cfg.* override either."""
+  from examples.td3_pendulum_torch import Config, parse_td3_args
+  bench = Config()
+  assert (bench.agent, bench.env_batch_size, bench.replay_capacity,
+          bench.sample_batch_size, bench.train_steps_per_iteration,
+          bench.initial_collect_steps) == ("td3", 32, 4096, 256, 32, 64)
+  assert (bench.actor_fc_layers, bench.critic_joint_fc_layers) == (
+      (256, 256), (256, 256))
+  assert (bench.actor_lr, bench.critic_lr, bench.gamma,
+          bench.target_update_tau, bench.target_update_period,
+          bench.reward_scale_factor, bench.actor_update_period,
+          bench.target_policy_noise, bench.target_policy_noise_clip,
+          bench.exploration_noise_std, bench.device) == (
+              3e-4, 3e-4, 0.99, 0.005, 1, 1.0, 2, 0.2, 0.5, 0.1, "cuda")
+  live = parse_td3_args(["--preset=live", "--agent=ddpg"])
+  assert (live.agent, live.env_batch_size, live.replay_capacity,
+          live.sample_batch_size, live.train_steps_per_iteration,
+          live.initial_collect_steps, live.num_iterations) == (
+              "ddpg", 8, 8192, 256, 4, 128, 8000)
+  assert (live.actor_fc_layers, live.ou_damping, live.ou_stddev,
+          live.dqda_clipping) == ((64, 64), 0.15, 0.2, 0.0)
+  cfg = parse_td3_args(["--smoke", "--device=cpu", "--cfg.dqda_clipping=0.5"])
+  assert (cfg.num_iterations, cfg.device, cfg.dqda_clipping) == (200, "cpu",
+                                                                  0.5)
+  for bad in (["--preset=halfcheetah"], ["--agent=sac"]):
+    with pytest.raises(SystemExit):
+      parse_td3_args(bad)
+
+
+@pytest.mark.parametrize("agent", ["td3", "ddpg"])
+def test_td3_example_command_line_on_cpu(tmp_path, agent):
+  out = subprocess.run(
+      [sys.executable, os.path.join(ROOT, "examples", "td3_pendulum_torch.py"),
+       f"--agent={agent}", "--device", "cpu", "--smoke",
+       f"--cfg.root_dir={tmp_path}", "--cfg.env_batch_size=4",
+       "--cfg.max_episode_steps=10", "--cfg.actor_fc_layers=8",
+       "--cfg.critic_joint_fc_layers=8", "--cfg.num_iterations=20",
+       "--cfg.log_interval=10"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
+  assert out.returncode == 0, out.stderr
+  final = json.loads(out.stdout.strip().splitlines()[-1])
+  assert final["agent"] == agent
+  assert math.isfinite(final["final_average_return"])
+  # Ten steps of at most -(pi^2 + 0.1 * 8^2 + 0.001 * 2^2) each.
+  assert -170.0 <= final["eval_average_return"] <= 0.0
+  records = _records(tmp_path / "train.jsonl")
+  assert [r["step"] for r in records if "loss" in r] == [10, 20]
+  with open(tmp_path / "config.json") as f:
+    assert json.load(f)["agent"] == agent
+
+
+# -- the offline example ------------------------------------------------------
+
+
+def test_offline_example_defaults_and_kumar20_preset():
+  """The defaults are ``tests/test_cql_offline_e2e.py``'s pipeline; the
+  kumar20 preset takes ``examples/cql_sac_offline.py``'s Config widths and
+  CQL settings over the device Pendulum."""
+  from examples import cql_sac_offline
+  from examples.cql_sac_offline_torch import parse_offline_args
+  cfg = parse_offline_args([])
+  assert (cfg.agent, cfg.device, cfg.behavior_iterations,
+          cfg.behavior_chunk, cfg.behavior_gate, cfg.num_eval_episodes) == (
+              "cql", "cuda", 6000, 250, -250.0, 10)
+  kumar = parse_offline_args(["--preset=kumar20"])
+  reference = cql_sac_offline.Config()
+  for name in ("actor_fc_layers", "critic_joint_fc_layers", "cql_alpha",
+               "num_cql_samples", "softmax_temperature", "num_bc_steps",
+               "offline_train_steps", "offline_batch_size",
+               "reward_scale_factor", "env_batch_size", "gamma",
+               "target_update_tau", "actor_lr", "critic_lr", "alpha_lr",
+               "include_critic_entropy_term", "reward_noise_variance"):
+    assert getattr(kumar, name) == getattr(reference, name), name
+  assert kumar.dataset_frames * kumar.env_batch_size == 100_000
+  assert (kumar.behavior_iterations * kumar.env_batch_size
+          == reference.behavior_env_steps)
+  assert kumar.initial_alpha == 1.0   # initial_log_alpha 0
+  bc = parse_offline_args(["--agent=bc", "--smoke", "--device=cpu"])
+  assert (bc.agent, bc.offline_train_steps, bc.device) == ("bc", 20, "cpu")
+  for bad in (["--preset=d4rl"], ["--agent=sac"]):
+    with pytest.raises(SystemExit):
+      parse_offline_args(bad)
+
+
+@pytest.mark.parametrize("agent", ["cql", "bc"])
+def test_offline_example_command_line_on_cpu(tmp_path, agent):
+  """The whole pipeline at the smoke size: a dataset on disk that loads
+  back whole, finite losses and greedy evals over the episodes asked."""
+  out = subprocess.run(
+      [sys.executable,
+       os.path.join(ROOT, "examples", "cql_sac_offline_torch.py"),
+       f"--agent={agent}", "--device", "cpu", "--smoke",
+       f"--cfg.root_dir={tmp_path}", "--cfg.env_batch_size=4",
+       "--cfg.max_episode_steps=10"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
+  assert out.returncode == 0, out.stderr
+  final = json.loads(out.stdout.strip().splitlines()[-1])
+  assert final["agent"] == agent and final["eval_episodes"] == 4
+  assert math.isfinite(final["last_loss"])
+  assert -170.0 <= final["offline_return"] <= 0.0
+  assert ("bc_phase_return" in final) == (agent == "cql")
+  shards = sorted(os.listdir(tmp_path / "dataset"))
+  assert shards == [f"shard_{i:05d}.npz" for i in range(4)] + ["spec.json"]
+  from agents_tpu_torch.utils import dataset_io
+  assert dataset_io.dataset_num_frames(str(tmp_path / "dataset")) == 64
+  assert _records(tmp_path / "offline.jsonl")

@@ -16,7 +16,8 @@ import agents_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
 EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
-            "sac_pendulum_torch.py", "ppo_cartpole_torch.py")
+            "sac_pendulum_torch.py", "ppo_cartpole_torch.py",
+            "td3_pendulum_torch.py", "cql_sac_offline_torch.py")
 
 
 def _port_modules():
@@ -48,7 +49,11 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "utils.tensor_normalizer", "agents.ppo.ppo_agent",
                "agents.ppo.ppo_policy", "agents.ppo.ppo_variants",
                "agents.reinforce.reinforce_agent", "train.on_policy_loop",
-               "eval.metric_utils"):
+               "eval.metric_utils", "agents.td3.td3_agent",
+               "agents.ddpg.ddpg_agent", "agents.cql.cql_sac_agent",
+               "agents.behavioral_cloning.behavioral_cloning_agent",
+               "agents.random.random_agent", "policies.random_policy",
+               "policies.wrappers", "utils.dataset_io"):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -79,7 +84,7 @@ def _imported_names(path):
 
 def test_port_sources_name_no_forbidden_import():
   sources = _port_sources()
-  assert len(sources) > 45
+  assert len(sources) > 55
   offending = {os.path.relpath(p, ROOT): bad for p in sources
                if (bad := [n for n in _imported_names(p) if _forbidden(n)])}
   assert offending == {}
@@ -88,18 +93,26 @@ def test_port_sources_name_no_forbidden_import():
 def test_entry_points_raise_without_a_card(monkeypatch):
   """The default device is "cuda"; with no card they raise instead of
   running on the CPU."""
+  from agents_tpu_torch.agents.behavioral_cloning import \
+      BehavioralCloningAgent
   from agents_tpu_torch.agents.categorical_dqn import CategoricalDqnAgent
+  from agents_tpu_torch.agents.cql import CqlSacAgent
+  from agents_tpu_torch.agents.ddpg import DdpgAgent
   from agents_tpu_torch.agents.dqn import DqnAgent
   from agents_tpu_torch.agents.ppo import PPOAgent
   from agents_tpu_torch.agents.reinforce import ReinforceAgent
+  from agents_tpu_torch.agents.random import RandomAgent
   from agents_tpu_torch.agents.sac import SacAgent
+  from agents_tpu_torch.agents.td3 import Td3Agent
   from agents_tpu_torch.environments import BatchedTorchEnv
   from agents_tpu_torch.environments.classic import (CartPole, Catch,
                                                      Pendulum,
                                                      SyntheticPixels)
   from agents_tpu_torch.networks import (make_actor_distribution_network,
                                          make_categorical_q_network,
-                                         make_critic_network, make_q_network,
+                                         make_critic_network,
+                                         make_deterministic_actor_network,
+                                         make_q_network,
                                          make_sac_actor_network,
                                          make_value_network)
   from agents_tpu_torch.replay_buffers import UniformReplay
@@ -127,6 +140,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   ppo_value = make_value_network(tss.observation, (8,), device="cpu")
   ppo = PPOAgent(tss, asp, torch.optim.Adam, ppo_actor, ppo_value,
                  device="cpu")
+  det_actor = make_deterministic_actor_network(sobs, sact, (8,), device="cpu")
 
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   for build in (lambda: BatchedTorchEnv(CartPole(), 4),
@@ -152,19 +166,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                  ppo_value),
                 lambda: ReinforceAgent(tss, asp, ppo_actor,
                                        torch.optim.Adam),
-                lambda: OnPolicyTrainLoop(env, ppo)):
+                lambda: OnPolicyTrainLoop(env, ppo),
+                lambda: make_deterministic_actor_network(sobs, sact),
+                lambda: Td3Agent(tss, sact, det_actor, critic,
+                                 torch.optim.Adam, torch.optim.Adam),
+                lambda: DdpgAgent(tss, sact, det_actor, critic,
+                                  torch.optim.Adam, torch.optim.Adam),
+                lambda: CqlSacAgent(tss, sact, critic, actor,
+                                    torch.optim.Adam, torch.optim.Adam,
+                                    torch.optim.Adam),
+                lambda: BehavioralCloningAgent(tss, sact, actor,
+                                               torch.optim.Adam),
+                lambda: RandomAgent(tss, sact)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 
 
 def test_example_raises_without_a_card():
-  """The examples' default device is "cuda" too."""
+  """The examples' default device is "cuda" too (the offline example
+  builds its environment first)."""
   for example in EXAMPLES:
     code = ("import sys, torch\n"
             "torch.cuda.is_available = lambda: False\n"
             f"sys.path.insert(0, {os.path.join(ROOT, 'examples')!r})\n"
             f"import {example[:-3]} as ex\n"
-            "ex.build_loop(ex.Config())\n")
+            "(getattr(ex, 'build_loop', None) or ex.build_env)(ex.Config())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0, example

@@ -149,8 +149,26 @@ def _ppo_draws(k_pol, batch_size, action_spec):
   return {"actor_noise": out}
 
 
+def _noise_wrapper_draws(site):
+  """`GaussianPolicy`'s or `OUNoisePolicy`'s normals over a deterministic
+  actor (wrappers.py:180-189, :219-231): the policy key split into the
+  wrapped policy's and the noise key, the latter once per action leaf,
+  each leaf's normal ``[B, *shape]``."""
+
+  def draws(k_pol, batch_size, action_spec):
+    leaves = _spec_leaves(action_spec)
+    _, k_noise = jax.random.split(k_pol)
+    return {site: [jax.random.normal(k, (batch_size,) + s.shape)
+                   for k, s in zip(jax.random.split(k_noise, len(leaves)),
+                                   leaves)]}
+
+  return draws
+
+
 POLICY_DRAWS = {"epsilon_greedy": _epsilon_greedy_draws,
-                "actor": _actor_draws, "ppo": _ppo_draws}
+                "actor": _actor_draws, "ppo": _ppo_draws,
+                "gaussian": _noise_wrapper_draws("exploration_noise"),
+                "ou": _noise_wrapper_draws("ou_noise")}
 
 
 def _collect_step_draws(step_key, batch_size, action_spec, env, policy):
@@ -178,7 +196,8 @@ def _per_step(value):
 def jax_collect_draws(key, num_steps, batch_size, action_spec,
                       env=JaxCartPole(), policy="epsilon_greedy"):
   """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env` with
-  an epsilon-greedy, an actor or a PPO collect policy."""
+  an epsilon-greedy, an actor, a PPO, a Gaussian-noise or an OU-noise
+  collect policy (`POLICY_DRAWS`)."""
   keys = jax.random.split(key, num_steps)
   draws = jax.vmap(lambda k: _collect_step_draws(
       k, batch_size, action_spec, env, policy))(keys)
