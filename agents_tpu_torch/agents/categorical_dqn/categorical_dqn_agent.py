@@ -9,7 +9,9 @@ Port of ``agents_tpu/agents/categorical_dqn/categorical_dqn_agent.py``:
     online logits of the taken action against the projected target
     distribution, masked on boundary transitions (``~is_last``) and
     averaged over the batch; the target network follows by periodic soft
-    updates.
+    updates. With an `observation_and_action_constraint_splitter` the
+    policies are masked and the next action is the argmax over the valid
+    actions (:128-138).
 
 The train step is a host int and `train` is `DqnAgent.train` (see
 ``agents/dqn/dqn_agent.py``). The collect policy is epsilon-greedy at a
@@ -75,21 +77,27 @@ class CategoricalDqnAgent(DqnAgent):
                categorical_q_network: nn.Module, optimizer_fn: Callable,
                min_q_value: float = -10.0, max_q_value: float = 10.0,
                epsilon_greedy: float = 0.1, n_step_update: int = 1,
-               gamma: float = 1.0, reward_scale_factor: float = 1.0,
+               gamma: float = 1.0,
+               observation_and_action_constraint_splitter=None,
+               reward_scale_factor: float = 1.0,
                target_update_tau: float = 1.0,
                target_update_period: int = 1,
                gradient_clipping: Optional[float] = None, device="cuda"):
     super().__init__(
         time_step_spec, action_spec, categorical_q_network, optimizer_fn,
         epsilon_greedy=epsilon_greedy, n_step_update=n_step_update,
+        observation_and_action_constraint_splitter=(
+            observation_and_action_constraint_splitter),
         gamma=gamma, reward_scale_factor=reward_scale_factor,
         target_update_tau=target_update_tau,
         target_update_period=target_update_period,
         gradient_clipping=gradient_clipping, device=device)
     self.num_atoms = categorical_q_network.num_atoms
-    self._q_policy = CategoricalQPolicy(time_step_spec, action_spec,
-                                        categorical_q_network, min_q_value,
-                                        max_q_value)
+    self._q_policy = CategoricalQPolicy(
+        time_step_spec, action_spec, categorical_q_network, min_q_value,
+        max_q_value,
+        observation_and_action_constraint_splitter=(
+            observation_and_action_constraint_splitter))
     self.policy = GreedyPolicy(self._q_policy)
     self.collect_policy = EpsilonGreedyPolicy(self._q_policy, epsilon_greedy)
 
@@ -104,17 +112,22 @@ class CategoricalDqnAgent(DqnAgent):
     support = self._q_policy.support(self.device)
 
     with torch.no_grad():
+      next_obs, mask = self._q_policy.split(next_time_steps.observation)
       target_logits, _ = agent_state.target_q_network(
-          next_time_steps.observation, next_time_steps.step_type, ())
+          next_obs, next_time_steps.step_type, ())
       target_probs = torch.softmax(target_logits, dim=-1)   # [B, A, N]
-      best = torch.argmax((target_probs * support).sum(-1), dim=-1)
+      target_q = (target_probs * support).sum(-1)           # [B, A]
+      if mask is not None:
+        target_q = torch.where(mask, target_q, -1e9)
+      best = torch.argmax(target_q, dim=-1)
       next_dist = _take_action(target_probs, best)          # [B, N]
       rewards = self.reward_scale_factor * next_time_steps.reward
       discounts = self.gamma * next_time_steps.discount
       shifted = rewards[:, None] + discounts[:, None] * support[None, :]
       projected = project_distribution(shifted, next_dist, support)
 
-    logits, _ = q_network(time_steps.observation, time_steps.step_type, ())
+    obs, _ = self._q_policy.split(time_steps.observation)
+    logits, _ = q_network(obs, time_steps.step_type, ())
     chosen = _take_action(logits, transition.action_step.action)
     ce = -(projected * torch.log_softmax(chosen, dim=-1)).sum(-1)
     ce = ce * (~time_steps.is_last()).to(torch.float32)

@@ -3,7 +3,14 @@
 Port of `DqnAgent`, `DdqnAgent`, `D3qnAgent` and `_ScheduledQPolicy` of
 ``agents_tpu/agents/dqn/dqn_agent.py``:
   - epsilon-greedy collect and greedy eval policies; the collect params are
-    always {"q", "train_step"} (:105-118);
+    always {"q", "train_step"} (:105-118); with `boltzmann_temperature` the
+    collect policy is a `BoltzmannPolicy` over the Q policy and its params
+    the Q network (:100-103);
+  - an `observation_and_action_constraint_splitter` maps observations to
+    ``(network observation, mask)``: the policies become masked and the
+    next state's max (DDQN: the online argmax) runs over the valid actions
+    alone (:141-152);
+  - action specs whose minimum is not 0 raise `ValueError`;
   - n-step TD targets through `to_n_step_transition`, whose discount already
     holds gamma^(N-1); the loss multiplies by gamma once more (:175);
   - boundary transitions masked, 1/N aggregation;
@@ -28,7 +35,9 @@ from torch import nn
 
 from agents_tpu_torch.agents.agent import Agent, check_network_devices
 from agents_tpu_torch.policies.q_policy import QPolicy
-from agents_tpu_torch.policies.wrappers import EpsilonGreedyPolicy, GreedyPolicy
+from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
+                                                EpsilonGreedyPolicy,
+                                                GreedyPolicy)
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import trajectory as tj
 from agents_tpu_torch.utils import common, nest_utils
@@ -73,6 +82,8 @@ class DqnAgent(Agent):
   def __init__(self, time_step_spec, action_spec, q_network: nn.Module,
                optimizer_fn: Callable, epsilon_greedy=0.1,
                n_step_update: int = 1,
+               boltzmann_temperature: Optional[float] = None,
+               observation_and_action_constraint_splitter=None,
                td_errors_loss_fn: Callable = common.element_wise_huber_loss,
                gamma: float = 1.0, reward_scale_factor: float = 1.0,
                target_update_tau: float = 1.0,
@@ -99,12 +110,23 @@ class DqnAgent(Agent):
     self.gradient_clipping = gradient_clipping
     self.train_sequence_length = train_sequence_length or n_step_update + 1
 
-    self.policy = GreedyPolicy(QPolicy(time_step_spec, action_spec, q_network))
-    eps = epsilon_greedy if callable(epsilon_greedy) \
-        else lambda _: epsilon_greedy
-    self.collect_policy = EpsilonGreedyPolicy(
-        _ScheduledQPolicy(time_step_spec, action_spec, q_network),
-        lambda p: eps(p["train_step"]))
+    splitter = observation_and_action_constraint_splitter
+    self._q_policy = QPolicy(
+        time_step_spec, action_spec, q_network,
+        observation_and_action_constraint_splitter=splitter)
+    self.policy = GreedyPolicy(self._q_policy)
+    self._collect_carries_step = boltzmann_temperature is None
+    if boltzmann_temperature is not None:
+      self.collect_policy = BoltzmannPolicy(self._q_policy,
+                                            boltzmann_temperature)
+    else:
+      eps = epsilon_greedy if callable(epsilon_greedy) \
+          else lambda _: epsilon_greedy
+      self.collect_policy = EpsilonGreedyPolicy(
+          _ScheduledQPolicy(
+              time_step_spec, action_spec, q_network,
+              observation_and_action_constraint_splitter=splitter),
+          lambda p: eps(p["train_step"]))
 
   def init(self) -> DqnAgentState:
     target = copy.deepcopy(self.q_network).requires_grad_(False)
@@ -117,12 +139,18 @@ class DqnAgent(Agent):
     return agent_state.q_network
 
   def collect_policy_params(self, agent_state):
-    return {"q": agent_state.q_network, "train_step": agent_state.train_step}
+    if self._collect_carries_step:
+      return {"q": agent_state.q_network,
+              "train_step": agent_state.train_step}
+    return agent_state.q_network
 
   def _next_best_q(self, agent_state, next_time_steps):
-    """max_a Q_target(s', a)."""
-    q_next, _ = agent_state.target_q_network(
-        next_time_steps.observation, next_time_steps.step_type, ())
+    """max_a Q_target(s', a) over the valid actions (:141-152)."""
+    obs, mask = self._q_policy.split(next_time_steps.observation)
+    q_next, _ = agent_state.target_q_network(obs, next_time_steps.step_type,
+                                             ())
+    if mask is not None:
+      q_next = torch.where(mask, q_next, -1e9)
     return torch.max(q_next, dim=-1).values
 
   def _loss(self, q_network, agent_state, experience, weights=None):
@@ -132,7 +160,8 @@ class DqnAgent(Agent):
     actions = transition.action_step.action
     next_time_steps = transition.next_time_step
 
-    q_all, _ = q_network(time_steps.observation, time_steps.step_type, ())
+    obs, _ = self._q_policy.split(time_steps.observation)
+    q_all, _ = q_network(obs, time_steps.step_type, ())
     q_values = common.index_with_actions(q_all, actions)
 
     with torch.no_grad():
@@ -175,11 +204,13 @@ class DdqnAgent(DqnAgent):
   """Double DQN: online-network argmax, target-network evaluation."""
 
   def _next_best_q(self, agent_state, next_time_steps):
-    q_online, _ = agent_state.q_network(
-        next_time_steps.observation, next_time_steps.step_type, ())
+    obs, mask = self._q_policy.split(next_time_steps.observation)
+    q_online, _ = agent_state.q_network(obs, next_time_steps.step_type, ())
+    if mask is not None:
+      q_online = torch.where(mask, q_online, -1e9)
     best = torch.argmax(q_online, dim=-1)
-    q_target, _ = agent_state.target_q_network(
-        next_time_steps.observation, next_time_steps.step_type, ())
+    q_target, _ = agent_state.target_q_network(obs, next_time_steps.step_type,
+                                               ())
     return common.index_with_actions(q_target, best)
 
 

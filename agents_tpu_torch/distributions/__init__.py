@@ -1,8 +1,9 @@
-from agents_tpu_torch.distributions.distributions import (Categorical,
-                                                          Deterministic,
-                                                          Independent, Normal,
-                                                          SquashedNormal,
-                                                          kl_divergence)
+from agents_tpu_torch.distributions.distributions import (
+    NEG_INF, Bernoulli, Beta, Categorical, Deterministic, GumbelSoftmax,
+    Independent, MaskedCategorical, Normal, OneHotCategorical,
+    ShiftedCategorical, SquashedNormal, kl_divergence)
 
-__all__ = ["Categorical", "Deterministic", "Independent", "Normal",
+__all__ = ["Bernoulli", "Beta", "Categorical", "Deterministic",
+           "GumbelSoftmax", "Independent", "MaskedCategorical", "NEG_INF",
+           "Normal", "OneHotCategorical", "ShiftedCategorical",
            "SquashedNormal", "kl_divergence"]

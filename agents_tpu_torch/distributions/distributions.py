@@ -2,6 +2,8 @@
 
 Port of ``agents_tpu/distributions/distributions.py``: `Normal`,
 `Independent` and `SquashedNormal` (:54-196), `Categorical` (:199-235),
+`NEG_INF`, `MaskedCategorical`, `ShiftedCategorical`,
+`OneHotCategorical`, `GumbelSoftmax`, `Bernoulli` and `Beta` (:238-410),
 `Deterministic` (:414-439) and `kl_divergence` (:441).
 
 `log_prob` returns one value per batch element: `Independent` and
@@ -213,6 +215,190 @@ class Categorical(_Distribution):
     u = draws.uniform(site, shape, tiny, 1.0, dtype=self.logits.dtype)
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(self.logits + gumbel, dim=-1).to(self.dtype)
+
+
+NEG_INF = -1e9
+
+
+def _one_hot(index: torch.Tensor, depth: int, dtype) -> torch.Tensor:
+  return torch.nn.functional.one_hot(index.long(), depth).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedCategorical(_Distribution):
+  """Categorical whose invalid actions (`mask` False) take the logit
+  `NEG_INF`."""
+  logits: torch.Tensor
+  mask: torch.Tensor
+  dtype: Any = static_field(default=torch.int32)
+
+  @property
+  def _masked(self) -> Categorical:
+    return Categorical(torch.where(self.mask, self.logits, NEG_INF),
+                       dtype=self.dtype)
+
+  def sample(self, draws, sample_shape=(), site: str = "categorical"):
+    return self._masked.sample(draws, sample_shape, site)
+
+  def log_prob(self, value):
+    return self._masked.log_prob(value)
+
+  def entropy(self):
+    """Masked entries add nothing, even where their probability is 0."""
+    lp = self._masked.log_probs
+    return -torch.sum(torch.where(self.mask, torch.exp(lp) * lp, 0.0), dim=-1)
+
+  def mode(self):
+    return self._masked.mode()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedCategorical(_Distribution):
+  """Categorical over ``[shift, shift + K)``."""
+  logits: torch.Tensor
+  shift: int = static_field(default=0)
+  dtype: Any = static_field(default=torch.int32)
+
+  @property
+  def _base(self) -> Categorical:
+    return Categorical(self.logits, dtype=self.dtype)
+
+  def sample(self, draws, sample_shape=(), site: str = "categorical"):
+    return self._base.sample(draws, sample_shape, site) + self.shift
+
+  def log_prob(self, value):
+    return self._base.log_prob(value - self.shift)
+
+  def entropy(self):
+    return self._base.entropy()
+
+  def mode(self):
+    return self._base.mode() + self.shift
+
+
+@dataclasses.dataclass(frozen=True)
+class OneHotCategorical(_Distribution):
+  """Categorical whose samples and mode are one-hot vectors."""
+  logits: torch.Tensor
+  dtype: Any = static_field(default=torch.float32)
+
+  def sample(self, draws, sample_shape=(), site: str = "categorical"):
+    index = Categorical(self.logits).sample(draws, sample_shape, site)
+    return _one_hot(index, self.logits.shape[-1], self.dtype)
+
+  def log_prob(self, value):
+    return torch.sum(torch.log_softmax(self.logits, dim=-1) * value, dim=-1)
+
+  def entropy(self):
+    return Categorical(self.logits).entropy()
+
+  def mode(self):
+    return _one_hot(torch.argmax(self.logits, dim=-1), self.logits.shape[-1],
+                    self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class GumbelSoftmax(_Distribution):
+  """The Concrete (Gumbel-softmax) relaxation of a Categorical: samples are
+  ``softmax((logits + g) / temperature)`` with Gumbel noise g from uniforms
+  in [tiny, 1) at `site`; `convert_to_one_hot` is the straight-through
+  discretization (the one-hot forward, the identity gradient)."""
+  logits: torch.Tensor
+  temperature: Any = 1.0
+  dtype: Any = static_field(default=torch.float32)
+
+  def sample(self, draws, sample_shape=(), site: str = "gumbel_softmax"):
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    tiny = torch.finfo(self.logits.dtype).tiny
+    u = draws.uniform(site, shape, tiny, 1.0, dtype=self.logits.dtype)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.softmax((self.logits + gumbel) / self.temperature, dim=-1)
+
+  def convert_to_one_hot(self, samples):
+    hard = _one_hot(torch.argmax(samples, dim=-1), self.logits.shape[-1],
+                    self.dtype)
+    return (hard - samples).detach() + samples
+
+  def log_prob(self, value):
+    """The underlying Categorical's log-probability of ``argmax(value)``."""
+    return Categorical(self.logits).log_prob(torch.argmax(value, dim=-1))
+
+  def entropy(self):
+    return Categorical(self.logits).entropy()
+
+  def mode(self):
+    return _one_hot(torch.argmax(self.logits, dim=-1), self.logits.shape[-1],
+                    self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bernoulli(_Distribution):
+  """Bernoulli(sigmoid(logits)); a sample is ``uniform < probs``."""
+  logits: torch.Tensor
+  dtype: Any = static_field(default=torch.int32)
+
+  @property
+  def probs(self):
+    return torch.sigmoid(self.logits)
+
+  def sample(self, draws, sample_shape=(), site: str = "bernoulli"):
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    u = draws.uniform(site, shape, dtype=self.logits.dtype)
+    return (u < self.probs).to(self.dtype)
+
+  def log_prob(self, value):
+    v = value.to(self.logits.dtype)
+    return (v * torch.nn.functional.logsigmoid(self.logits)
+            + (1 - v) * torch.nn.functional.logsigmoid(-self.logits))
+
+  def entropy(self):
+    p = self.probs
+    return -(p * torch.nn.functional.logsigmoid(self.logits)
+             + (1 - p) * torch.nn.functional.logsigmoid(-self.logits))
+
+  def mode(self):
+    return (self.logits > 0).to(self.dtype)
+
+  def mean(self):
+    return self.probs
+
+
+def _betaln(a, b):
+  return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Beta(_Distribution):
+  """Beta(concentration1, concentration0), its batch shape the broadcast of
+  the two. A sample is ``x / (x + y)`` with x and y two draws of
+  standard-gamma variates of shape ``concentration1`` and
+  ``concentration0``, in that order, at `site`."""
+  concentration1: torch.Tensor
+  concentration0: torch.Tensor
+
+  def sample(self, draws, sample_shape=(), site: str = "beta_gamma"):
+    shape = tuple(sample_shape) + tuple(torch.broadcast_shapes(
+        self.concentration1.shape, self.concentration0.shape))
+    x = draws.gamma(site, self.concentration1.expand(shape))
+    y = draws.gamma(site, self.concentration0.expand(shape))
+    return x / (x + y)
+
+  def log_prob(self, value):
+    a, b = self.concentration1, self.concentration0
+    return ((a - 1) * torch.log(value) + (b - 1) * torch.log1p(-value)
+            - _betaln(a, b))
+
+  def mean(self):
+    return self.concentration1 / (self.concentration1 + self.concentration0)
+
+  def mode(self):
+    a, b = self.concentration1, self.concentration0
+    return (a - 1) / (a + b - 2)
+
+  def entropy(self):
+    a, b = self.concentration1, self.concentration0
+    return (_betaln(a, b) - (a - 1) * torch.digamma(a)
+            - (b - 1) * torch.digamma(b) + (a + b - 2) * torch.digamma(a + b))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -85,15 +85,18 @@ class TorchDriver(_DriverBase):
 
 def _mask_frame(frame: tj.Trajectory, valid: torch.Tensor) -> tj.Trajectory:
   """Rewrite the rows that filled their quota as boundary frames with zero
-  reward and discount, which every standard metric ignores."""
+  reward and discount, which every standard metric ignores. The ``[B]``
+  row mask reaches every leaf of the reward and discount nests (a ``[B,
+  K]`` vector reward, a dict reward) along its first axis."""
+  zero = lambda nest: nest_utils.tree_map(torch.zeros_like, nest)  # noqa: E731
   return frame.replace(
       step_type=torch.where(valid, frame.step_type, ts.StepType.LAST).to(
           frame.step_type.dtype),
       next_step_type=torch.where(valid, frame.next_step_type,
                                  ts.StepType.MID).to(
                                      frame.next_step_type.dtype),
-      reward=torch.where(valid, frame.reward, 0.0),
-      discount=torch.where(valid, frame.discount, 0.0))
+      reward=nest_utils.where(valid, frame.reward, zero(frame.reward)),
+      discount=nest_utils.where(valid, frame.discount, zero(frame.discount)))
 
 
 class TorchEpisodeDriver(_DriverBase):

@@ -11,12 +11,16 @@ from agents_tpu_torch.networks.q_network import (CategoricalQModule,
                                                  DuelingQModule, QModule,
                                                  make_categorical_q_network,
                                                  make_q_network)
+from agents_tpu_torch.networks.sequential import (BiasLayer, NestMapModule,
+                                                  SequentialModule,
+                                                  inner_reshape,
+                                                  mask_splitter, sequential)
 from agents_tpu_torch.networks.value_network import (CriticModule,
                                                      ValueModule,
                                                      make_critic_network,
                                                      make_value_network)
 
-__all__ = ["ActorDistributionModule", "CategoricalProjection",
+__all__ = ["ActorDistributionModule", "BiasLayer", "CategoricalProjection",
            "CategoricalQModule", "CriticModule", "DeterministicActorModule",
            "DuelingQModule",
            "EncoderModule", "Network", "NormalProjection", "QModule",
@@ -24,4 +28,5 @@ __all__ = ["ActorDistributionModule", "CategoricalProjection",
            "make_actor_distribution_network", "make_categorical_q_network",
            "make_critic_network", "make_deterministic_actor_network",
            "make_q_network", "make_sac_actor_network",
-           "make_value_network"]
+           "make_value_network", "NestMapModule", "SequentialModule",
+           "inner_reshape", "mask_splitter", "sequential"]

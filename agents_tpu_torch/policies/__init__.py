@@ -1,12 +1,23 @@
 from agents_tpu_torch.policies.actor_policy import (ActorPolicy,
                                                    DeterministicActorPolicy)
+from agents_tpu_torch.policies.cem_policy import CEMPolicy
+from agents_tpu_torch.policies.cem_samplers import (ActionsSampler,
+                                                    GaussianContinuousSampler,
+                                                    GaussianHybridSampler,
+                                                    GaussianOneHotSampler)
 from agents_tpu_torch.policies.policy import Policy
 from agents_tpu_torch.policies.q_policy import CategoricalQPolicy, QPolicy
-from agents_tpu_torch.policies.random_policy import RandomPolicy
-from agents_tpu_torch.policies.wrappers import (EpsilonGreedyPolicy,
+from agents_tpu_torch.policies.random_policy import (FixedPolicy,
+                                                     RandomPolicy,
+                                                     ScriptedPolicy)
+from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
+                                                EpsilonGreedyPolicy,
                                                 GaussianPolicy, GreedyPolicy,
                                                 OUNoisePolicy)
 
-__all__ = ["ActorPolicy", "CategoricalQPolicy", "DeterministicActorPolicy",
-           "EpsilonGreedyPolicy", "GaussianPolicy", "GreedyPolicy",
-           "OUNoisePolicy", "Policy", "QPolicy", "RandomPolicy"]
+__all__ = ["ActionsSampler", "ActorPolicy", "BoltzmannPolicy", "CEMPolicy",
+           "CategoricalQPolicy", "DeterministicActorPolicy",
+           "EpsilonGreedyPolicy", "FixedPolicy", "GaussianContinuousSampler",
+           "GaussianHybridSampler", "GaussianOneHotSampler", "GaussianPolicy",
+           "GreedyPolicy", "OUNoisePolicy", "Policy", "QPolicy",
+           "RandomPolicy", "ScriptedPolicy"]

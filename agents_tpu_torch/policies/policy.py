@@ -1,6 +1,7 @@
 """Policy base: functions over (params, time_step, state, draws).
 
-Port of ``agents_tpu/policies/policy.py``. Parameters are an explicit
+Port of ``agents_tpu/policies/policy.py``, `emit_log_probability`
+(:100-105) included. Parameters are an explicit
 argument, as in the JAX package; here they are the network module itself
 (or a dict holding it), so target and behaviour copies are just different
 modules. Randomness comes from an explicit draw source
@@ -46,14 +47,18 @@ class Policy(abc.ABC):
 
   Attributes:
     time_step_spec / action_spec / info_spec / state_spec: spec nests.
+    emit_log_probability: if True, `action` writes the log-probability of
+      the action it took into the info (`policy_step.set_log_probability`).
   """
 
   def __init__(self, time_step_spec, action_spec, info_spec=(),
-               state_spec=(), clip: bool = True):
+               state_spec=(), emit_log_probability: bool = False,
+               clip: bool = True):
     self.time_step_spec = time_step_spec
     self.action_spec = action_spec
     self.info_spec = info_spec
     self.state_spec = state_spec
+    self.emit_log_probability = emit_log_probability
     self.clip = clip
 
   def init_state(self, batch_size: Optional[int] = None, device=None):
@@ -82,11 +87,19 @@ class Policy(abc.ABC):
     return self._distribution(params, time_step, state)
 
   def _action(self, params, time_step, state, draws) -> ps.PolicyStep:
-    """Default: sample from `_distribution`."""
+    """Default: sample each leaf of `_distribution` at its default site;
+    with `emit_log_probability`, the info takes the sum of the leaves'
+    log-probabilities of the sampled action."""
     dstep = self._distribution(params, time_step, state)
+    is_dist = lambda d: hasattr(d, "sample")  # noqa: E731
     action = nest_utils.tree_map(lambda d: d.sample(draws), dstep.action,
-                                 is_leaf=lambda d: hasattr(d, "sample"))
-    return ps.PolicyStep(action=action, state=dstep.state, info=dstep.info)
+                                 is_leaf=is_dist)
+    info = dstep.info
+    if self.emit_log_probability:
+      lps = nest_utils.flatten(nest_utils.tree_map(
+          lambda d, a: d.log_prob(a), dstep.action, action, is_leaf=is_dist))
+      info = ps.set_log_probability(info, sum(lps[1:], lps[0]))
+    return ps.PolicyStep(action=action, state=dstep.state, info=info)
 
   @abc.abstractmethod
   def _distribution(self, params, time_step, state) -> ps.PolicyStep:

@@ -1,8 +1,15 @@
-"""Greedy, epsilon-greedy, Gaussian and Ornstein-Uhlenbeck policy wrappers.
+"""Greedy, epsilon-greedy, Boltzmann, Gaussian and Ornstein-Uhlenbeck
+policy wrappers.
 
-Port of `GreedyPolicy` and `EpsilonGreedyPolicy` of
-``agents_tpu/policies/wrappers.py`` (:22-127), unmasked branch, and of
-`GaussianPolicy` and `OUNoisePolicy` (:169-236). The two noise wrappers
+Port of ``agents_tpu/policies/wrappers.py``: `GreedyPolicy` with
+`emit_log_probability` (:22-57); `EpsilonGreedyPolicy` (:60-132) with all
+its branches: over a wrapped distribution's mode, over a wrapped policy
+that acts by optimization (no distribution, as `CEMPolicy`: its `_action`
+is the greedy arm), and with exploration kept inside a
+`MaskedCategorical`'s mask or a `ShiftedCategorical`'s valid range (a
+uniform choice among the valid actions, drawn at "masked_random_action");
+`BoltzmannPolicy` (:135-166); and `GaussianPolicy` and `OUNoisePolicy`
+(:169-236). The two noise wrappers
 draw one normal ``[B, *leaf shape]`` per action leaf, at the sites
 "exploration_noise" and "ou_noise", and clip the noisy action into the
 spec. `OUNoisePolicy`'s state is ``(wrapped state, tuple of [B, *leaf]
@@ -21,24 +28,38 @@ from agents_tpu_torch.trajectories import policy_step as ps
 from agents_tpu_torch.utils import nest_utils
 
 
+MASKED_RANDOM_ACTION_SITE = "masked_random_action"
+
+
+def _is_dist(d) -> bool:
+  return hasattr(d, "mode")
+
+
 def _mode(dist_nest):
-  return nest_utils.tree_map(lambda d: d.mode(), dist_nest,
-                             is_leaf=lambda d: hasattr(d, "mode"))
+  return nest_utils.tree_map(lambda d: d.mode(), dist_nest, is_leaf=_is_dist)
 
 
 class GreedyPolicy(Policy):
-  """Mode of the wrapped policy's distribution."""
+  """Mode of the wrapped policy's distribution; with the wrapped policy's
+  `emit_log_probability`, the info's log-probability is 0."""
 
   def __init__(self, wrapped: Policy):
     super().__init__(wrapped.time_step_spec, wrapped.action_spec,
                      info_spec=wrapped.info_spec,
-                     state_spec=wrapped.state_spec, clip=wrapped.clip)
+                     state_spec=wrapped.state_spec,
+                     emit_log_probability=wrapped.emit_log_probability,
+                     clip=wrapped.clip)
     self.wrapped = wrapped
 
   def _action(self, params, time_step, state, draws):
     dstep = self.wrapped._distribution(params, time_step, state)
+    info = dstep.info
+    if self.emit_log_probability:
+      info = ps.set_log_probability(info, torch.zeros(
+          time_step.step_type.shape, dtype=torch.float32,
+          device=time_step.step_type.device))
     return ps.PolicyStep(action=_mode(dstep.action), state=dstep.state,
-                         info=dstep.info)
+                         info=info)
 
   def _distribution(self, params, time_step, state):
     """A `Deterministic` at each wrapped distribution's mode, keeping its
@@ -75,18 +96,83 @@ class EpsilonGreedyPolicy(Policy):
     return self.epsilon
 
   def _action(self, params, time_step, state, draws):
-    dstep = self.wrapped._distribution(params, time_step, state)
-    greedy_action = _mode(dstep.action)
+    try:
+      dstep = self.wrapped._distribution(params, time_step, state)
+    except NotImplementedError:
+      # A policy that acts by optimization (CEMPolicy) has no distribution:
+      # its own action is the greedy arm.
+      dstep = None
+      greedy = self.wrapped._action(params, time_step, state, draws)
+    else:
+      greedy = ps.PolicyStep(action=_mode(dstep.action), state=dstep.state,
+                             info=dstep.info)
     batch_shape = tuple(time_step.step_type.shape)
-    random_action = array_spec.sample_spec_nest(
-        self.action_spec, draws, outer_dims=batch_shape, site="random_action")
+    random_action = self._valid_random_action(dstep, draws)
+    if random_action is None:
+      random_action = array_spec.sample_spec_nest(
+          self.action_spec, draws, outer_dims=batch_shape,
+          site="random_action")
     explore = draws.uniform("explore", batch_shape) < self._epsilon(params)
-    action = nest_utils.where(explore, random_action, greedy_action)
-    return ps.PolicyStep(action=action, state=dstep.state, info=dstep.info)
+    return greedy.replace(
+        action=nest_utils.where(explore, random_action, greedy.action))
+
+  @staticmethod
+  def _valid_random_action(dstep, draws):
+    """A uniform action among the valid ones of a lone masked or shifted
+    Categorical (a nest like the distribution's), else None."""
+    leaves = [] if dstep is None else nest_utils.flatten(dstep.action,
+                                                         is_leaf=_is_dist)
+    if len(leaves) != 1:
+      return None
+    d = leaves[0]
+    if isinstance(d, dist_lib.MaskedCategorical):
+      uniform = dist_lib.MaskedCategorical(
+          logits=torch.zeros_like(d.logits), mask=d.mask, dtype=d.dtype)
+    elif isinstance(d, dist_lib.ShiftedCategorical):
+      valid = d.logits > dist_lib.NEG_INF / 2
+      uniform = dist_lib.ShiftedCategorical(
+          logits=torch.where(valid, 0.0, dist_lib.NEG_INF), shift=d.shift,
+          dtype=d.dtype)
+    else:
+      return None
+    sample = uniform.sample(draws, site=MASKED_RANDOM_ACTION_SITE)
+    return nest_utils.tree_map(lambda _: sample, dstep.action,
+                               is_leaf=_is_dist)
 
   def _distribution(self, params, time_step, state):
     raise NotImplementedError(
         "EpsilonGreedyPolicy does not expose a distribution")
+
+
+class BoltzmannPolicy(Policy):
+  """Samples the wrapped categorical policy at ``logits / temperature``
+  (masked and shifted Categoricals keep their mask and shift); the sample
+  is the default `Policy._action`'s, at the site "categorical"."""
+
+  def __init__(self, wrapped: Policy, temperature=1.0):
+    super().__init__(wrapped.time_step_spec, wrapped.action_spec,
+                     info_spec=wrapped.info_spec,
+                     state_spec=wrapped.state_spec, clip=wrapped.clip)
+    self.wrapped = wrapped
+    self.temperature = temperature
+
+  def _distribution(self, params, time_step, state):
+    dstep = self.wrapped._distribution(params, time_step, state)
+
+    def cool(d):
+      if isinstance(d, dist_lib.MaskedCategorical):
+        return dist_lib.MaskedCategorical(
+            logits=d.logits / self.temperature, mask=d.mask, dtype=d.dtype)
+      if isinstance(d, dist_lib.ShiftedCategorical):
+        return dist_lib.ShiftedCategorical(
+            logits=d.logits / self.temperature, shift=d.shift, dtype=d.dtype)
+      if isinstance(d, dist_lib.Categorical):
+        return dist_lib.Categorical(logits=d.logits / self.temperature,
+                                    dtype=d.dtype)
+      raise ValueError("BoltzmannPolicy requires a categorical policy")
+
+    return dstep.replace(action=nest_utils.tree_map(cool, dstep.action,
+                                                    is_leaf=_is_dist))
 
 
 EXPLORATION_NOISE_SITE = "exploration_noise"

@@ -1,9 +1,10 @@
 """Array specs: shape/dtype(/bounds) descriptors for nest leaves.
 
 Port of ``agents_tpu/specs/array_spec.py`` (`ArraySpec`, `BoundedArraySpec`,
-`zero_spec_nest`, `sample_spec_nest`). Dtypes stay numpy dtypes, as in the
-JAX package; `torch_dtype` maps them for tensor creation. Sampling takes a
-draw source (`agents_tpu_torch.utils.draws`) in place of a PRNG key.
+`zero_spec_nest`, `sample_spec_nest`, `is_discrete`, `is_continuous`).
+Dtypes stay numpy dtypes, as in the JAX package; `torch_dtype` maps them
+for tensor creation. Sampling takes a draw source
+(`agents_tpu_torch.utils.draws`) in place of a PRNG key.
 """
 from __future__ import annotations
 
@@ -166,6 +167,10 @@ def map_spec_nest(fn, *nests):
   return nest_utils.tree_map(fn, *nests, is_leaf=_is_spec)
 
 
+def is_discrete(spec: ArraySpec) -> bool:
+  return np.issubdtype(spec.dtype, np.integer) or spec.dtype == np.bool_
+
+
 def is_continuous(spec: ArraySpec) -> bool:
   return np.issubdtype(spec.dtype, np.floating)
 
@@ -204,6 +209,10 @@ def sample_spec(spec: ArraySpec, draws, outer_dims: Sequence[int] = (),
     lo_c = np.maximum(lo_f, -1e18)
     hi_c = np.minimum(hi_f, 1e18)
     u = draws.uniform(site, shape, dtype=torch.float64)
+    if np.all(lo_c == lo_c.flat[0]) and np.all(hi_c == hi_c.flat[0]):
+      # One bound each: Python floats, so nothing is copied to the device.
+      lo_s, hi_s = float(lo_c.flat[0]), float(hi_c.flat[0])
+      return (lo_s + u * (hi_s - lo_s)).to(dtype)
     lo_t = torch.as_tensor(lo_c, device=u.device)
     hi_t = torch.as_tensor(hi_c, device=u.device)
     return (lo_t + u * (hi_t - lo_t)).to(dtype)

@@ -42,9 +42,10 @@ The deterministic (DDPG, TD3) actor's tree is
 
     {"params": {"EncoderModule_0": ..., "Dense_0": ...}}   # the action layer
 
-Whole TD3, DDPG, CQL-SAC and behavioural-cloning agent states cross with
-their Adams' moments and counts (`td3_agent_state_to_torch` and the
-others below, each with its `load_*`).
+Whole TD3, DDPG, QtOpt, CQL-SAC and behavioural-cloning agent states
+cross with their Adams' moments and counts (`td3_agent_state_to_torch`,
+`qtopt_agent_state_to_torch` and the others below, each with its
+`load_*`). QtOpt's critic and its three targets are critic trees.
 """
 from __future__ import annotations
 
@@ -506,6 +507,39 @@ def load_ddpg_agent_state(agent_state, converted: Dict):
   step."""
   return _load_networks_and_adams(agent_state, converted, _DDPG_NETWORKS,
                                   ("actor", "critic"))
+
+
+_QTOPT_NETWORKS = (
+    ("q_params", "q_network", _critic_sd),
+    ("target_q_params", "target_q_network", _critic_sd),
+    ("target_q_params_delayed", "target_q_network_delayed", _critic_sd),
+    ("target_q_params_delayed_2", "target_q_network_delayed_2", _critic_sd))
+
+
+def qtopt_agent_state_to_torch(state) -> Dict:
+  """A whole JAX `QtOptAgentState` (numpy leaves, one ``optax.adam``) in
+  port terms: the critic, its target and the two delayed targets' state
+  dicts under the port state's field names (None where `enable_td3` is
+  off), "adam" and "train_step"; `load_qtopt_agent_state` applies it."""
+  out = {field: None if getattr(state, jax_field) is None
+         else fn(getattr(state, jax_field))
+         for jax_field, field, fn in _QTOPT_NETWORKS}
+  out.update(adam=_adam_of(state.opt_state, (_critic_sd,)),
+             train_step=int(np.asarray(state.train_step)))
+  return out
+
+
+def load_qtopt_agent_state(agent_state, converted: Dict):
+  """Load `qtopt_agent_state_to_torch`'s output into a port
+  `QtOptAgentState` (in place) and return it with the converted train
+  step."""
+  for _, field, _ in _QTOPT_NETWORKS:
+    if (getattr(agent_state, field) is None) != (converted[field] is None):
+      raise ValueError(f"one state has {field}, the other none")
+    if converted[field] is not None:
+      getattr(agent_state, field).load_state_dict(converted[field])
+  _load_optimizer(agent_state.optimizer, converted["adam"])
+  return dataclasses.replace(agent_state, train_step=converted["train_step"])
 
 
 def cql_sac_agent_state_to_torch(state) -> Dict:

@@ -36,6 +36,8 @@ Sites:
                                                           actions)
   "sac_action_noise"    normal [S, *leaf shape]          (SAC actor loss's
                                                           actions)
+  QtOpt's train step draws its CEM over the next time steps at
+  "cem_normal" (and "cem_categorical") from the agent state's own source.
   "exploration_noise"   normal [B, *leaf shape]          (GaussianPolicy,
                                                           one per action
                                                           leaf)
@@ -60,8 +62,45 @@ Sites:
                                                           loss's actions)
   "random_policy"       as `sample_spec` [B, *leaf]      (RandomPolicy)
   "random_action"       randint [B] in [0, num_actions)  (epsilon-greedy)
+  "masked_random_action"
+                        uniform [B, K] in [tiny, 1)      (epsilon-greedy's
+                                                          random action
+                                                          over a masked or
+                                                          shifted Q policy:
+                                                          Gumbel noise of a
+                                                          uniform choice
+                                                          among the valid
+                                                          actions)
   "explore"             uniform [B] in [0, 1)            (epsilon-greedy
                                                           coin)
+  "categorical"         uniform [*sample, B, K] in       (the default
+                        [tiny, 1)                         `Policy._action`'s
+                                                          sample of a
+                                                          categorical leaf,
+                                                          e.g. BoltzmannPolicy;
+                                                          Gumbel noise)
+  "cem_normal"          normal [N, B, *leaf shape]       (CEM samplers: one
+                                                          per Gaussian leaf
+                                                          per CEM iteration,
+                                                          leaves in sorted-key
+                                                          order)
+  "cem_categorical"     uniform [N, B, K] in [tiny, 1)   (CEM one-hot
+                                                          sampler: one per
+                                                          one-hot leaf per
+                                                          iteration; Gumbel
+                                                          noise)
+  "acrobot_physics"     uniform [B, 4] in [-0.1, 0.1)    (Acrobot reset)
+  "mountain_car_position"
+                        uniform [B] in [-0.6, -0.4)      (MountainCar and
+                                                          ContinuousMountainCar
+                                                          reset)
+  "gumbel_softmax"      uniform [*sample, *logits] in    (GumbelSoftmax
+                        [tiny, 1)                         sample)
+  "bernoulli"           uniform [*sample, *logits]       (Bernoulli sample)
+  "beta_gamma"          standard gamma [*sample, *batch] (Beta sample: the
+                                                          concentration1
+                                                          variates, then the
+                                                          concentration0 ones)
   "replay_t0"           randint [S] in [0, num_valid)    (window start
                                                           offset)
   "replay_rows"         randint [S] in [0, B)            (env row)
@@ -112,6 +151,13 @@ class Draws:
     return torch.randperm(int(n), generator=self.generator,
                           device=self.device)
 
+  def gamma(self, site: str, concentration: torch.Tensor) -> torch.Tensor:
+    """Standard-gamma variates of shape `concentration` (PyTorch's own
+    sampler, the one `torch.distributions.Gamma` uses)."""
+    del site
+    a = concentration.to(device=self.device, dtype=torch.float32)
+    return torch._standard_gamma(a, generator=self.generator)
+
 
 class ReplayDraws:
   """Replays recorded draws, one queue per site, in the order recorded.
@@ -154,6 +200,9 @@ class ReplayDraws:
   def permutation(self, site, n):
     return self._next(site, (n,), torch.int64)
 
+  def gamma(self, site, concentration):
+    return self._next(site, concentration.shape, concentration.dtype)
+
 
 class RecordingDraws:
   """Passes draws through from `source` and keeps a CPU copy of each."""
@@ -178,6 +227,9 @@ class RecordingDraws:
 
   def permutation(self, site, n):
     return self._keep(site, self.source.permutation(site, n))
+
+  def gamma(self, site, concentration):
+    return self._keep(site, self.source.gamma(site, concentration))
 
 
 def as_draws(seed_or_draws, device):

@@ -5,10 +5,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line;
 any failed phase exits non-zero before the last line. The phases run in
-the order below, except the three long learning runs: `sac_learn` runs
-last, while `td3_learn` and `cql_offline` with `bc` run beside it in two
-child processes of this script (``chip_smoke.py --child NAME``) on the
-same card, after every timed phase.
+the order below, except the four long learning runs: `sac_learn` runs
+last, while `td3_learn`, `cql_offline` with `bc`, and `qtopt_learn` run
+beside it in three child processes of this script (``chip_smoke.py
+--child NAME``) on the same card, after every timed phase.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -159,9 +159,42 @@ same card, after every timed phase.
                   episodes): at least 0.8 (the JAX package's BC at this
                   config scores 0.922 to 0.993 over four seeds,
                   `tests/test_torch_reference_bars.py`).
- 25. kernels      the port's hand-written kernels on these paths (none: the
+ 25. qtopt_parity QtOpt card against CPU from a numpy-made (256, 256)
+                  critic, TF32 off, the card replaying the CPU's draws:
+                  (a) `CEMPolicy.optimize` (32 samples, 4 elites, 3
+                  iterations) at B=256: equal elites on every row whose
+                  E-th and (E+1)-th Q lie more than 1e-5 of max|Q| apart,
+                  and the actions and Q values of the rows clear at every
+                  iteration; (b) 3 `QtOptAgent.train` steps at sample 256,
+                  each from the CPU's state before it; (c) the
+                  epsilon-greedy-over-CEM collect policy's actions on the
+                  CPU's time steps. Each tensor to max|card - cpu| <= 1e-5
+                  + 1e-4 max|cpu|.
+ 26. qtopt_main   the QtOpt bench point (`--agent=qtopt` at the example's
+                  defaults: B=32, ring 4096, sample 256, (256, 256) critic,
+                  Adam 3e-4, 32 train steps per iteration, 64 collect
+                  steps): 5 warm-up iterations, 5 windows of 10 under the
+                  sync debug mode (median ms/iteration, train-steps/s,
+                  model TFLOP/s from `qtopt_train_step_flops`), a
+                  5-iteration profile, and CEM's share of a train step from
+                  timing `optimize` alone at sample 256.
+ 27. discrete_parity  card against CPU, each step from the CPU's state:
+                  Acrobot, MountainCar and ContinuousMountainCar for 200
+                  steps of random actions over auto-resets (B=64); 3 fused
+                  iterations of Boltzmann-collect DQN on Acrobot; a masked
+                  `QPolicy` (a splitter over a [B, 6 + 3] observation), a
+                  shifted one (actions 1-3) and epsilon-greedy over each,
+                  exploration inside the mask and the shift.
+ 28. qtopt_learn  `--agent=qtopt --preset=live` (B=8, ring 8192, sample 256,
+                  4 train steps, (64, 64) critic): up to 8,000 iterations,
+                  checked every 250, to a last-20 return of -250 or more
+                  (the JAX package's QtOpt passes it at 1,750-3,500 over
+                  five seeds, `tests/test_torch_reference_bars.py`), then
+                  greedy eval over exactly 30 episodes; a third child
+                  process beside `td3_learn` and `cql_offline`.
+ 29. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 26. the last line: {"ok": true, "device": {...}}.
+ 30. the last line: {"ok": true, "device": {...}}.
 """
 import dataclasses
 import functools
@@ -214,6 +247,12 @@ CQL_RING_ROWS, CQL_RING_FRAMES = 32, 4096
 CQL_WARMUP, CQL_TIMED_WINDOWS, CQL_WINDOW, CQL_PROFILED = 10, 5, 20, 10
 CQL_BC_GATE, CQL_OFFLINE_GATE, CQL_BEHAVIOR_GATE = -500.0, -700.0, -1000.0
 BC_SCORE_GATE = 0.8
+QTOPT_PARITY_B, QTOPT_PARITY_STEPS, QTOPT_PARITY_SAMPLE = 256, 3, 256
+QTOPT_RTOL, QTOPT_ATOL, QTOPT_GAP = 1e-4, 1e-5, 1e-5
+QTOPT_WARMUP, QTOPT_TIMED_WINDOWS, QTOPT_WINDOW, QTOPT_PROFILED = 5, 5, 10, 5
+QTOPT_CEM_CALLS = 32
+QTOPT_LEARN_CHUNK, QTOPT_LEARN_GATE = 250, -250.0
+DISCRETE_B, DISCRETE_ENV_STEPS, DISCRETE_DQN_ITERATIONS = 64, 200, 3
 CHILD_TIMEOUT_S = 900
 
 
@@ -1709,6 +1748,108 @@ def load_agent_state(dst, src):
   return dataclasses.replace(dst, train_step=src.train_step)
 
 
+class BoundedComparison:
+  """Card-against-CPU comparisons, each tensor held to max|card - cpu| <=
+  atol + rtol * max|cpu| (anything not float: equal)."""
+
+  def __init__(self, rtol, atol):
+    self.rtol, self.atol = rtol, atol
+    self.diffs, self.relative, self.mismatched = {}, {}, []
+
+  def __call__(self, tag, card_value, cpu_value):
+    import torch
+
+    a, b = card_value.detach().cpu(), cpu_value.detach().cpu()
+    if not a.dtype.is_floating_point:
+      if not torch.equal(a, b):
+        self.mismatched.append(tag)
+      return
+    self.diffs[tag] = max_diff(a, b)
+    scale = float(b.double().abs().max()) if b.numel() else 0.0
+    self.relative[tag] = self.diffs[tag] / scale if scale else self.diffs[tag]
+    if self.diffs[tag] > self.atol + self.rtol * scale:
+      self.mismatched.append(tag)
+
+  def nests(self, tag, card_nest, cpu_nest):
+    import torch
+
+    from agents_tpu_torch.utils import nest_utils
+
+    for i, (a, b) in enumerate(zip(nest_utils.flatten(card_nest),
+                                   nest_utils.flatten(cpu_nest),
+                                   strict=True)):
+      if isinstance(a, torch.Tensor):
+        self(f"{tag}.{i}", a, b)
+
+  def summary(self):
+    worst = max(self.diffs, key=self.diffs.get) if self.diffs else None
+    worst_rel = max(self.relative, key=self.relative.get) \
+        if self.relative else None
+    return {"largest_float_diff": {"name": worst,
+                                   "abs": self.diffs.get(worst)},
+            "largest_relative_diff": {"name": worst_rel,
+                                      "of_max_abs": self.relative.get(
+                                          worst_rel)},
+            "compared": len(self.diffs), "mismatched": self.mismatched}
+
+
+def to_device(nest, device):
+  """Every tensor of a nest (dataclasses included) copied to `device`."""
+  import torch
+
+  from agents_tpu_torch.utils import nest_utils
+
+  return nest_utils.tree_map(
+      lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, nest)
+
+
+def new_records(draws, seen):
+  """The records of a `RecordingDraws` made since the per-site counts
+  `seen`."""
+  return {site: v[seen.get(site, 0):] for site, v in draws.records.items()}
+
+
+def record_counts(draws):
+  return {site: len(v) for site, v in draws.records.items()}
+
+
+def steps_from_cpu_state(agents, draws, batches, compare):
+  """A train step per numpy batch by the "host" agent (drawing from the
+  `RecordingDraws` `draws`), each repeated by the "card" agent from the
+  host's state before it with the host's draws replayed; the losses, the
+  extras and every tensor of the state compared after each. Returns (host
+  state, card state, the card's loss infos)."""
+  import torch
+
+  from agents_tpu_torch.utils import nest_utils
+  from agents_tpu_torch.utils.draws import ReplayDraws
+
+  cstate = agents["host"].init(draws=draws)
+  gstate = agents["card"].init()
+  infos = []
+  for step, batch in enumerate(batches, start=1):
+    gstate = load_agent_state(gstate, cstate)
+    seen = record_counts(draws)
+    cstate, cinfo = agents["host"].train(
+        cstate, nest_utils.tree_map(torch.from_numpy, batch))
+    gstate = dataclasses.replace(gstate, draws=ReplayDraws(
+        new_records(draws, seen), "cuda"))
+    gstate, ginfo = agents["card"].train(gstate, nest_utils.tree_map(
+        lambda x: torch.from_numpy(x).to("cuda"), batch))
+    compare(f"step{step}.loss", ginfo.loss, cinfo.loss)
+    for field in dataclasses.fields(cinfo.extra):
+      compare(f"step{step}.extra.{field.name}",
+              getattr(ginfo.extra, field.name),
+              getattr(cinfo.extra, field.name))
+    ctensors, gtensors = state_tensors(cstate), state_tensors(gstate)
+    if set(ctensors) != set(gtensors):
+      compare.mismatched.append(f"step{step}.agent_state.names")
+    for k in ctensors:
+      compare(f"step{step}.{k}", gtensors[k], ctensors[k])
+    infos.append(ginfo)
+  return cstate, gstate, infos
+
+
 def phase_cql_parity(card):
   """Three CQL-SAC steps, each taken by the card from the CPU's state
   before it.
@@ -1726,8 +1867,8 @@ def phase_cql_parity(card):
   import numpy as np
   import torch
 
-  from agents_tpu_torch.utils import convert, nest_utils
-  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+  from agents_tpu_torch.utils import convert
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws
   from examples.cql_sac_offline_torch import KUMAR20, Config, build_agent
   from examples.cql_sac_offline_torch import build_env
 
@@ -1758,61 +1899,20 @@ def phase_cql_parity(card):
       agent.critic_network_2.load_state_dict(
           convert.sac_critic_params_to_state_dict(critic2))
       agents[role] = agent
-    draws = RecordingDraws(Draws(0, "cpu"))
-    cstate = agents["host"].init(draws=draws)
-    gstate = agents["card"].init()
-    diffs, relative, mismatched, cql_losses = {}, {}, [], []
-
-    def compare(tag, a, b):
-      a, b = a.cpu(), b.cpu()
-      if not a.dtype.is_floating_point:
-        if not torch.equal(a, b):
-          mismatched.append(tag)
-        return
-      diffs[tag] = max_diff(a, b)
-      scale = float(b.double().abs().max()) if b.numel() else 0.0
-      relative[tag] = diffs[tag] / scale if scale else diffs[tag]
-      if diffs[tag] > CQL_ATOL + CQL_RTOL * scale:
-        mismatched.append(tag)
-
-    for step, batch in enumerate(batches, start=1):
-      gstate = load_agent_state(gstate, cstate)
-      seen = {site: len(v) for site, v in draws.records.items()}
-      cstate, cinfo = agents["host"].train(
-          cstate, nest_utils.tree_map(torch.from_numpy, batch))
-      gstate = dataclasses.replace(gstate, draws=ReplayDraws(
-          {site: v[seen.get(site, 0):] for site, v in draws.records.items()},
-          "cuda"))
-      gstate, ginfo = agents["card"].train(gstate, nest_utils.tree_map(
-          lambda x: torch.from_numpy(x).to("cuda"), batch))
-      compare(f"step{step}.loss", ginfo.loss, cinfo.loss)
-      for field in dataclasses.fields(cinfo.extra):
-        compare(f"step{step}.extra.{field.name}",
-                getattr(ginfo.extra, field.name),
-                getattr(cinfo.extra, field.name))
-      ctensors, gtensors = state_tensors(cstate), state_tensors(gstate)
-      if set(ctensors) != set(gtensors):
-        mismatched.append(f"step{step}.agent_state.names")
-      for k in ctensors:
-        compare(f"step{step}.{k}", gtensors[k], ctensors[k])
-      cql_losses.append(float(ginfo.extra.cql_loss))
-    worst = max(diffs, key=diffs.get)
-    worst_relative = max(relative, key=relative.get)
-    case_ok = not mismatched and gstate.train_step == CQL_PARITY_STEPS
+    compare = BoundedComparison(CQL_RTOL, CQL_ATOL)
+    _, gstate, infos = steps_from_cpu_state(
+        agents, RecordingDraws(Draws(0, "cpu")), batches, compare)
+    case_ok = not compare.mismatched and gstate.train_step == CQL_PARITY_STEPS
     ok = ok and case_ok
     out[name] = {
         "actor": list(cfg.actor_fc_layers),
         "critic": list(cfg.critic_joint_fc_layers),
         "num_cql_samples": cfg.num_cql_samples,
         "softmax_temperature": cfg.softmax_temperature,
-        "lagrange": bool(extra), "num_bc_steps": 1,
-        "largest_float_diff": {"name": worst, "abs": diffs[worst]},
-        "largest_relative_diff": {"name": worst_relative,
-                                  "of_max_abs": relative[worst_relative]},
-        "cql_loss_diff": max(v for k, v in diffs.items()
+        "lagrange": bool(extra), "num_bc_steps": 1, **compare.summary(),
+        "cql_loss_diff": max(v for k, v in compare.diffs.items()
                              if k.endswith("extra.cql_loss")),
-        "cql_loss": cql_losses, "compared": len(diffs),
-        "mismatched": mismatched, "ok": case_ok}
+        "cql_loss": [float(i.extra.cql_loss) for i in infos], "ok": case_ok}
   emit("cql_parity", card=card, steps=CQL_PARITY_STEPS,
        sample=CQL_PARITY_SAMPLE, rtol=CQL_RTOL, atol=CQL_ATOL,
        criterion="each step from the CPU's state before it: max|card - cpu| "
@@ -2044,15 +2144,564 @@ def phase_offline(card):
     phase_bc(card, cfg, env, data_dir, behavior, behavior_state)
 
 
+def numpy_qtopt_critic(rng, fc, obs_dim=3, act_dim=1):
+  """A flax-shaped critic tree drawn with numpy whose Q layer is as wide as
+  the others, so Q varies with the action on the scale of its inputs."""
+  import numpy as np
+
+  _, critic, _ = numpy_sac_params(rng, fc, fc, obs_dim, act_dim)
+  last = critic["params"][f"Dense_{len(fc)}"]
+  scale = math.sqrt(3.0 / fc[-1])
+  last["kernel"] = rng.uniform(-scale, scale, last["kernel"].shape).astype(
+      np.float32)
+  return critic
+
+
+def cem_trace(policy, params, time_step, draws):
+  """`CEMPolicy.optimize`'s refit loop step by step: per iteration, each
+  row's elite indices (sorted) and whether the gap between its E-th and
+  (E+1)-th Q exceeds QTOPT_GAP of the largest |Q|, so rounding cannot
+  swap an elite there."""
+  import torch
+
+  sampler, e = policy.sampler, policy.num_elites
+  b = time_step.step_type.shape[0]
+  dist = sampler.init(b, policy.initial_std, device=time_step.step_type.device)
+  out = []
+  for _ in range(policy.num_iterations):
+    samples = sampler.sample_batch_and_clip(draws, policy.num_samples, dist)
+    q = policy._eval_q(params, time_step, samples)
+    top = torch.topk(q.T, e + 1, dim=-1)
+    gap = top.values[:, e - 1] - top.values[:, e]
+    out.append((torch.sort(top.indices[:, :e], dim=-1).values.cpu(),
+                (gap > QTOPT_GAP * q.abs().max()).cpu()))
+    dist = sampler.refit_distribution_to(top.indices[:, :e], samples)
+  return out
+
+
+def compare_cem(policy, cpu_params, card_params, cpu_step, records, tag,
+                compare):
+  """Trace CEM on both devices from one record of draws: equal elites on
+  every row whose gaps are clear on both, and the actions and Q values
+  `optimize` returns on the rows clear at every iteration. Returns the
+  rows compared at each iteration and the rows clear at every one."""
+  import torch
+
+  from agents_tpu_torch.utils.draws import ReplayDraws
+
+  card_step = to_device(cpu_step, "cuda")
+  ctrace = cem_trace(policy, cpu_params, cpu_step,
+                     ReplayDraws(records, "cpu"))
+  gtrace = cem_trace(policy, card_params, card_step,
+                     ReplayDraws(records, "cuda"))
+  clear, per_iteration = torch.ones_like(ctrace[0][1]), []
+  for i, ((celite, cclear), (gelite, gclear)) in enumerate(zip(ctrace,
+                                                              gtrace)):
+    both = cclear & gclear
+    if not torch.equal(celite[both], gelite[both]):
+      compare.mismatched.append(f"{tag}.elites.{i}")
+    clear = clear & both
+    per_iteration.append(int(both.sum()))
+  caction, cq = policy.optimize(cpu_params, cpu_step,
+                                ReplayDraws(records, "cpu"))
+  gaction, gq = policy.optimize(card_params, card_step,
+                                ReplayDraws(records, "cuda"))
+  compare(f"{tag}.action", gaction.cpu()[clear], caction[clear])
+  compare(f"{tag}.q", gq.cpu()[clear], cq[clear])
+  return per_iteration, int(clear.sum())
+
+
+def cem_settings(policy):
+  """A `CEMPolicy`'s samples, elites and iterations, for a phase's line."""
+  return {"samples": policy.num_samples, "elites": policy.num_elites,
+          "iterations": policy.num_iterations}
+
+
+def qtopt_agents(cfg):
+  """The example's QtOpt agent of `cfg` on "cpu" ("host") and on "cuda"
+  ("card"), their critics loaded from one numpy-made tree."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.environments.classic import Pendulum
+  from agents_tpu_torch.utils import convert
+  from examples.td3_pendulum_torch import build_agent
+
+  critic = convert.sac_critic_params_to_state_dict(numpy_qtopt_critic(
+      np.random.RandomState(31), cfg.critic_joint_fc_layers))
+  env, agents = Pendulum(cfg.max_episode_steps), {}
+  for role, device in (("host", "cpu"), ("card", "cuda")):
+    generator = torch.Generator(device=device).manual_seed(0)
+    agent = build_agent(dataclasses.replace(cfg, device=device),
+                        env.time_step_spec(), env.action_spec(), device,
+                        generator)
+    agent.q_network.load_state_dict(critic)
+    agents[role] = agent
+  return agents
+
+
+def phase_qtopt_parity(card):
+  """QtOpt card against CPU, TF32 off: (a) `CEMPolicy.optimize` over the
+  bench critic at B=256, (b) 3 train steps at sample 256, each from the
+  CPU's state before it, (c) the epsilon-greedy-over-CEM collect policy's
+  actions. The card replays the CPU's draws. CEM's elite choice is
+  discontinuous: where two Q values lie within rounding a GEMM's summation
+  order may swap an elite, so elites are held on the rows whose gap is
+  clear, and actions on the rows clear at every iteration."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+  from examples.td3_pendulum_torch import Config
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = Config(agent="qtopt")
+  agents = qtopt_agents(cfg)
+  compare = BoundedComparison(QTOPT_RTOL, QTOPT_ATOL)
+  rng = np.random.RandomState(32)
+
+  # (a) CEM alone, over the critic.
+  obs = torch.from_numpy((rng.randn(QTOPT_PARITY_B, 3) * 2).astype(
+      np.float32))
+  cpu_step = ts.restart(obs, QTOPT_PARITY_B)
+  policy = agents["host"].policy
+  rec = RecordingDraws(Draws(0, "cpu"))
+  policy.optimize(agents["host"].q_network, cpu_step, rec)
+  cem_rows, cem_clear_rows = compare_cem(policy, agents["host"].q_network,
+                         agents["card"].q_network, cpu_step, rec.records,
+                         "cem", compare)
+
+  # (b) train steps, each from the CPU's state.
+  batches = [numpy_experience(rng, QTOPT_PARITY_SAMPLE)
+             for _ in range(QTOPT_PARITY_STEPS)]
+  cstate, gstate, infos = steps_from_cpu_state(
+      agents, RecordingDraws(Draws(0, "cpu")), batches, compare)
+  losses = [float(i.loss) for i in infos]
+
+  # (c) the collect policy on the CPU's time steps.
+  collect = BoundedComparison(QTOPT_RTOL, QTOPT_ATOL)
+  gstate = load_agent_state(gstate, cstate)
+  obs = torch.from_numpy((rng.randn(QTOPT_PARITY_B, 3) * 2).astype(
+      np.float32))
+  cpu_step = ts.restart(obs, QTOPT_PARITY_B)
+  rec = RecordingDraws(Draws(1, "cpu"))
+  agent = agents["host"]
+  caction = agent.collect_policy.action(agent.collect_policy_params(cstate),
+                                        cpu_step, (), rec).action
+  gaction = agents["card"].collect_policy.action(
+      agents["card"].collect_policy_params(gstate),
+      to_device(cpu_step, "cuda"), (), ReplayDraws(rec.records, "cuda")).action
+  explore = torch.from_numpy(
+      rec.records["explore"][0] < agent.collect_policy.epsilon)
+  trace = cem_trace(agent.policy, agent.collect_policy_params(cstate),
+                    cpu_step, ReplayDraws({"cem_normal": rec.records[
+                        "cem_normal"]}, "cpu"))
+  clear = torch.stack([c for _, c in trace]).all(0)
+  collect("collect.explored", gaction.cpu()[explore], caction[explore])
+  collect("collect.greedy", gaction.cpu()[clear & ~explore],
+          caction[clear & ~explore])
+  ok = (not compare.mismatched and not collect.mismatched
+        and gstate.train_step == QTOPT_PARITY_STEPS
+        and bool((caction.abs() <= 2.0).all()))
+  emit("qtopt_parity", card=card, critic=list(cfg.critic_joint_fc_layers),
+       cem=cem_settings(policy),
+       batch_size=QTOPT_PARITY_B, train_steps=QTOPT_PARITY_STEPS,
+       sample=QTOPT_PARITY_SAMPLE, rtol=QTOPT_RTOL, atol=QTOPT_ATOL,
+       elite_gap=QTOPT_GAP,
+       criterion="each train step from the CPU's state; max|card - cpu| <= "
+       "atol + rtol * max|cpu| per tensor; elites where the E-th/(E+1)-th "
+       "gap exceeds elite_gap * max|Q|",
+       cem_elite_rows_compared=cem_rows,
+       cem_rows_clear_every_iteration=cem_clear_rows, losses=losses,
+       **compare.summary(),
+       collect={"explored_rows": int(explore.sum()),
+                "greedy_rows_compared": int((clear & ~explore).sum()),
+                **collect.summary()},
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("qtopt_parity", "card and CPU disagree on the QtOpt path")
+
+
+def qtopt_train_step_flops(sample_batch_size, obs_dim, act_dim, critic_fc,
+                           num_samples, num_iterations, enable_td3=True):
+  """Analytic FLOPs of one QtOpt train step, 2 per multiply-add of the
+  critic's dense layers. Per sampled row, with C one critic forward: CEM
+  scores N candidates in each of its I iterations (N·I C) and the mode once
+  (C); the clipped double-Q target scores it on both delayed critics (2C);
+  the online critic's forward and its backward, about twice the forward
+  (3C). At (256, 256), N=32, I=3, S=256: 2 × 66,816 × 26,112 = 3.489
+  GFLOP."""
+  c, width = 0, obs_dim + act_dim
+  for out in tuple(critic_fc) + (1,):
+    c += width * out
+    width = out
+  rows = num_samples * num_iterations + 1 + (2 if enable_td3 else 0) + 3
+  return 2 * c * rows * sample_batch_size
+
+
+def phase_qtopt_main(card):
+  import statistics
+
+  import torch
+
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from examples.td3_pendulum_torch import Config
+  from examples.td3_pendulum_torch import build_loop as td3_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config(agent="qtopt")
+  loop = td3_loop(cfg)
+  t_init = time.perf_counter()
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  state, losses = loop.run(state, QTOPT_WARMUP)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t_init
+  state, losses, window_ms = timed_windows(
+      loop, state, QTOPT_TIMED_WINDOWS * QTOPT_WINDOW, QTOPT_TIMED_WINDOWS)
+  ms = statistics.median(window_ms)
+  iterations = QTOPT_WARMUP + QTOPT_TIMED_WINDOWS * QTOPT_WINDOW
+  off_card = [tuple(t.shape) for t in loop_tensors(state)
+              if t.device.type != "cuda"]
+  finite = bool(torch.isfinite(losses).all())
+  bad_transitions, lasts = check_step_types(loop, state)
+  steps = cfg.train_steps_per_iteration
+  ok = (not off_card and finite and bad_transitions == 0
+        and state.replay_state.count == cfg.initial_collect_steps + iterations
+        and state.agent_state.train_step == iterations * steps)
+  state, prof = profile_call(lambda: loop.run(state, QTOPT_PROFILED),
+                             QTOPT_PROFILED, "iteration",
+                             name="profile_qtopt.json")
+  state = state[0]
+  # CEM alone: the train step's optimizer over S next time steps.
+  agent, astate = loop.agent, state.agent_state
+  experience, _ = loop.replay.sample(state.replay_state, state.draws,
+                                     cfg.sample_batch_size, num_steps=2)
+  next_steps = tj.to_n_step_transition(experience, cfg.gamma).next_time_step
+  agent.policy.optimize(astate.target_q_network, next_steps, astate.draws)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  torch.cuda.set_sync_debug_mode("error")
+  with torch.no_grad():
+    for _ in range(QTOPT_CEM_CALLS):
+      agent.policy.optimize(astate.target_q_network, next_steps, astate.draws)
+  torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  cem_ms = (time.perf_counter() - t0) * 1e3 / QTOPT_CEM_CALLS
+  flops = qtopt_train_step_flops(cfg.sample_batch_size, 3, 1,
+                                 cfg.critic_joint_fc_layers,
+                                 agent.policy.num_samples,
+                                 agent.policy.num_iterations)
+  emit("qtopt_main", card=card, batch_size=cfg.env_batch_size,
+       ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
+       critic=list(cfg.critic_joint_fc_layers), cem=cem_settings(agent.policy),
+       train_steps_per_iteration=steps, timed_windows=QTOPT_TIMED_WINDOWS,
+       iterations_per_window=QTOPT_WINDOW, sync_debug_mode="error",
+       ms_per_iteration_median=ms, window_ms_per_iteration=window_ms,
+       ms_per_train_step=ms / steps,
+       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
+       train_steps_per_s=steps * 1e3 / ms,
+       cem_ms_per_call=cem_ms, cem_share_of_train_step=cem_ms / (ms / steps),
+       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
+           "cpu_op", 0.0) / steps,
+       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
+       model_gflop_per_train_step=flops / 1e9,
+       model_tflop_per_s=flops * steps / ms / 1e9,
+       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       losses_finite=finite, last_loss=float(losses[-1]),
+       illegal_step_type_transitions=bad_transitions,
+       last_frames_in_ring=lasts, profile=prof,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("qtopt_main", "QtOpt bench point checks failed")
+
+
+def phase_qtopt_learn(card):
+  import torch
+
+  from examples.td3_pendulum_torch import build_loop as td3_loop
+  from examples.td3_pendulum_torch import parse_td3_args
+
+  t0 = time.perf_counter()
+  cfg = parse_td3_args(["--preset=live", "--agent=qtopt"])
+  loop = td3_loop(cfg)
+  state = loop.init(seed=cfg.seed,
+                    initial_collect_steps=cfg.initial_collect_steps)
+  iterations, ret, points = 0, -math.inf, []
+  while iterations < cfg.num_iterations:
+    state, losses = loop.run(state, QTOPT_LEARN_CHUNK)
+    iterations += QTOPT_LEARN_CHUNK
+    ret = float(loop.results(state)["AverageReturn"])
+    points.append([iterations, ret])
+    if ret >= QTOPT_LEARN_GATE:
+      break
+  learn_s = time.perf_counter() - t0
+  t_eval = time.perf_counter()
+  out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
+  episodes = int(out["NumberOfEpisodes"])
+  eval_return = float(out["AverageReturn"])
+  torch.cuda.synchronize()
+  finite = bool(torch.isfinite(losses).all())
+  ok = ret >= QTOPT_LEARN_GATE and finite and episodes == 30
+  emit("qtopt_learn", card=card, batch_size=cfg.env_batch_size,
+       sample_batch_size=cfg.sample_batch_size,
+       train_steps_per_iteration=cfg.train_steps_per_iteration,
+       critic=list(cfg.critic_joint_fc_layers), iterations=iterations,
+       budget=cfg.num_iterations, last20_average_return=ret,
+       gate=QTOPT_LEARN_GATE, points=points, losses_finite=finite,
+       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
+       eval_episodes=episodes, eval_average_return=eval_return,
+       eval_seconds=time.perf_counter() - t_eval,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("qtopt_learn", f"last-20 return {ret} (gate {QTOPT_LEARN_GATE} "
+         f"within {cfg.num_iterations} iterations), {episodes} eval "
+         "episodes of 30")
+
+
+def _discrete_envs():
+  from agents_tpu_torch.environments.classic import (Acrobot,
+                                                     ContinuousMountainCar,
+                                                     MountainCar)
+
+  return (("acrobot", lambda: Acrobot(30)),
+          ("mountain_car", lambda: MountainCar(40)),
+          ("continuous_mountain_car", lambda: ContinuousMountainCar(40)))
+
+
+def discrete_env_parity(compare):
+  """Each env for DISCRETE_ENV_STEPS steps of random actions (and
+  auto-resets), the card taking the CPU's state and time step before each
+  step and replaying its reset draws. Returns the LAST frames seen per
+  env."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.environments import BatchedTorchEnv
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  lasts = {}
+  for i, (name, make) in enumerate(_discrete_envs()):
+    cenv = BatchedTorchEnv(make(), DISCRETE_B, device="cpu")
+    genv = BatchedTorchEnv(make(), DISCRETE_B, device="cuda")
+    spec = cenv.action_spec()
+    rng = np.random.RandomState(40 + i)
+    draws = RecordingDraws(Draws(40 + i, "cpu"))
+    cstate, cstep = cenv.reset(draws)
+    lasts[name] = 0
+    for t in range(DISCRETE_ENV_STEPS):
+      if np.issubdtype(spec.dtype, np.integer):
+        action = torch.from_numpy(rng.randint(0, 3, DISCRETE_B).astype(
+            np.int32))
+      else:
+        action = torch.from_numpy(rng.uniform(
+            -1.5, 1.5, (DISCRETE_B,) + spec.shape).astype(np.float32))
+      seen = record_counts(draws)
+      nstate, nstep = cenv.step(cstate, cstep, action, draws)
+      gstate, gstep = genv.step(
+          to_device(cstate, "cuda"), to_device(cstep, "cuda"),
+          action.to("cuda"), ReplayDraws(new_records(draws, seen), "cuda"))
+      compare.nests(f"{name}.state", gstate, nstate)
+      compare.nests(f"{name}.time_step", gstep, nstep)
+      cstate, cstep = nstate, nstep
+      lasts[name] += int(cstep.is_last().sum())
+  return lasts
+
+
+def boltzmann_dqn_loop(device):
+  """Boltzmann-collect DQN on Acrobot (30-step episodes), B=16, ring 64,
+  sample 32, 2 train steps per iteration, (64, 64), temperature 0.5."""
+  import torch
+
+  from agents_tpu_torch import metrics
+  from agents_tpu_torch.agents.dqn import DqnAgent
+  from agents_tpu_torch.environments import BatchedTorchEnv
+  from agents_tpu_torch.environments.classic import Acrobot
+  from agents_tpu_torch.networks import make_q_network
+  from agents_tpu_torch.replay_buffers import UniformReplay
+  from agents_tpu_torch.train import FusedTrainLoop
+  from agents_tpu_torch.trajectories import trajectory as tj
+
+  env = BatchedTorchEnv(Acrobot(30), 16, device=device)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  generator = torch.Generator(device=device).manual_seed(0)
+  agent = DqnAgent(tss, asp, make_q_network(
+      tss.observation, asp, fc_layer_params=(64, 64), device=device,
+      generator=generator), lambda p: torch.optim.Adam(p, lr=1e-3),
+                   boltzmann_temperature=0.5, gamma=0.99,
+                   target_update_tau=0.05, device=device)
+  replay = UniformReplay(tj.trajectory_spec(tss, asp), 16, 64, device=device)
+  return FusedTrainLoop(env, agent, replay,
+                        metrics=metrics.standard_collect_metrics(5),
+                        sample_batch_size=32, train_steps_per_iteration=2,
+                        device=device)
+
+
+def discrete_dqn_parity(compare):
+  """DISCRETE_DQN_ITERATIONS fused iterations of `boltzmann_dqn_loop`, the
+  card taking the CPU's whole loop state (driver, replay, metrics, agent)
+  before each and replaying that iteration's draws."""
+  import numpy as np
+
+  from agents_tpu_torch.replay_buffers.uniform_replay import ReplayState
+  from agents_tpu_torch.utils import convert
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  loops = {"host": boltzmann_dqn_loop("cpu"),
+           "card": boltzmann_dqn_loop("cuda")}
+  weights = convert.q_params_to_state_dict(numpy_q_params(
+      np.random.RandomState(41), (64, 64), obs_dim=6, num_actions=3))
+  for loop in loops.values():
+    loop.agent.q_network.load_state_dict(weights)
+  draws = RecordingDraws(Draws(41, "cpu"))
+  cstate = loops["host"].init(draws=draws, initial_collect_steps=16)
+  gstate = loops["card"].init(draws=Draws(0, "cuda"))
+  losses = []
+  for it in range(DISCRETE_DQN_ITERATIONS):
+    gstate = dataclasses.replace(
+        gstate, driver_state=to_device(cstate.driver_state, "cuda"),
+        replay_state=ReplayState(to_device(cstate.replay_state.storage,
+                                           "cuda"),
+                                 cstate.replay_state.count),
+        metric_states=to_device(cstate.metric_states, "cuda"),
+        agent_state=load_agent_state(gstate.agent_state, cstate.agent_state))
+    seen = record_counts(draws)
+    cstate, closs = loops["host"].iteration(cstate)
+    gstate = dataclasses.replace(gstate, draws=ReplayDraws(
+        new_records(draws, seen), "cuda"))
+    gstate, gloss = loops["card"].iteration(gstate)
+    compare(f"dqn.iteration{it}.loss", gloss.loss, closs.loss)
+    ctensors, gtensors = (state_tensors(cstate.agent_state),
+                          state_tensors(gstate.agent_state))
+    for k in ctensors:
+      compare(f"dqn.iteration{it}.{k}", gtensors[k], ctensors[k])
+    compare.nests(f"dqn.iteration{it}.replay", gstate.replay_state.storage,
+                  cstate.replay_state.storage)
+    compare.nests(f"dqn.iteration{it}.time_step",
+                  gstate.driver_state.time_step, cstate.driver_state.time_step)
+    losses.append(float(gloss.loss))
+  return losses, cstate.replay_state.storage.action
+
+
+def discrete_policy_parity(compare):
+  """A masked `QPolicy` (a splitter over a [B, 6 + 3] observation), a
+  shifted one (actions 1-3), and epsilon-greedy at 0.5 over each: the card
+  against the CPU on one batch, greedy actions on the rows whose top-two
+  valid Q values are clear of rounding, exploring actions on every
+  exploring row; exploration stays inside the mask and the shift."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch import distributions as dist_lib
+  from agents_tpu_torch.networks import make_q_network
+  from agents_tpu_torch.policies import EpsilonGreedyPolicy, GreedyPolicy
+  from agents_tpu_torch.policies import QPolicy
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils import convert
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  rng = np.random.RandomState(42)
+  b = QTOPT_PARITY_B
+  mask = rng.rand(b, 3) < 0.5
+  mask[np.arange(b), rng.randint(0, 3, b)] = True
+  obs = np.concatenate([rng.randn(b, 6), mask], -1).astype(np.float32)
+  weights = convert.q_params_to_state_dict(numpy_q_params(
+      rng, (64, 64), obs_dim=6, num_actions=3))
+  split = lambda o: (o[..., :6], o[..., 6:] > 0.5)  # noqa: E731
+  out = {}
+  for name, minimum, splitter in (("masked", 0, split),
+                                  ("shifted", 1, None)):
+    spec = array_spec.BoundedArraySpec((), np.int32, minimum, minimum + 2)
+    obs_spec = array_spec.ArraySpec((9 if splitter else 6,), np.float32)
+    x = obs if splitter else obs[:, :6]
+    policies, nets = {}, {}
+    for role, device in (("host", "cpu"), ("card", "cuda")):
+      nets[role] = make_q_network(array_spec.ArraySpec((6,), np.float32),
+                                  spec, fc_layer_params=(64, 64),
+                                  device=device)
+      nets[role].load_state_dict(weights)
+      policies[role] = QPolicy(ts.time_step_spec(obs_spec), spec, nets[role],
+                               splitter)
+    cstep = ts.restart(torch.from_numpy(x), b)
+    gstep = to_device(cstep, "cuda")
+    with torch.no_grad():
+      q_raw = policies["host"].distribution(nets["host"], cstep).action.logits
+    valid = torch.from_numpy(mask) if splitter else torch.ones_like(
+        q_raw, dtype=torch.bool)
+    # The scale of rounding is that of the valid Q values alone; a single
+    # valid action has no runner-up and is clear by itself.
+    q = torch.where(valid, q_raw, dist_lib.NEG_INF)
+    top = torch.topk(q, 2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > QTOPT_GAP * q_raw[valid].abs().max()
+    contested = clear & (valid.sum(-1) >= 2)
+    if not bool(contested.any()):
+      compare.mismatched.append(f"{name}.no_contested_rows")
+    cgreedy = GreedyPolicy(policies["host"]).action(nets["host"], cstep).action
+    ggreedy = GreedyPolicy(policies["card"]).action(nets["card"],
+                                                    gstep).action
+    compare(f"{name}.greedy", ggreedy.cpu()[clear], cgreedy[clear])
+    rec = RecordingDraws(Draws(43, "cpu"))
+    caction = EpsilonGreedyPolicy(policies["host"], 0.5).action(
+        nets["host"], cstep, (), rec).action
+    gaction = EpsilonGreedyPolicy(policies["card"], 0.5).action(
+        nets["card"], gstep, (), ReplayDraws(rec.records, "cuda")).action
+    explore = torch.from_numpy(rec.records["explore"][0] < 0.5)
+    compare(f"{name}.explored", gaction.cpu()[explore], caction[explore])
+    compare(f"{name}.epsilon_greedy", gaction.cpu()[clear], caction[clear])
+    inside = bool(((caction >= minimum) & (caction <= minimum + 2)).all())
+    if splitter:
+      inside = inside and bool(mask[np.arange(b), caction.numpy()].all())
+    if not inside:
+      compare.mismatched.append(f"{name}.outside")
+    out[name] = {"greedy_rows_compared": int(clear.sum()),
+                 "greedy_rows_with_two_or_more_valid": int(contested.sum()),
+                 "explored_rows": int(explore.sum()),
+                 "actions_seen": sorted(set(caction.tolist()))}
+  return out
+
+
+def phase_discrete_parity(card):
+  """The discrete-action surface, card against CPU, TF32 off."""
+  import torch
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  compare = BoundedComparison(QTOPT_RTOL, QTOPT_ATOL)
+  lasts = discrete_env_parity(compare)
+  losses, actions = discrete_dqn_parity(compare)
+  policies = discrete_policy_parity(compare)
+  ok = (not compare.mismatched and all(v > 0 for v in lasts.values())
+        and len(set(actions.flatten().tolist())) == 3
+        and all(math.isfinite(v) for v in losses))
+  emit("discrete_parity", card=card, batch_size=DISCRETE_B,
+       env_steps=DISCRETE_ENV_STEPS, last_frames=lasts,
+       dqn={"iterations": DISCRETE_DQN_ITERATIONS, "losses": losses,
+            "boltzmann_temperature": 0.5},
+       policies=policies, rtol=QTOPT_RTOL, atol=QTOPT_ATOL,
+       criterion="each env step and DQN iteration from the CPU's state; "
+       "max|card - cpu| <= atol + rtol * max|cpu| per tensor; integers "
+       "and step types equal", **compare.summary(),
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("discrete_parity", "card and CPU disagree on the discrete surface")
+
+
 # The learning runs, each in a process of its own (see `learning_phases`).
-CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline}
+CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline,
+                "qtopt_learn": phase_qtopt_learn}
 
 
 def learning_phases(card):
-  """`sac_learn` here while `td3_learn` and `cql_offline` + `bc` run in two
-  child processes of this script on the same card. Each is a long run of
-  small host-bound steps (the card idles over 90% of the time), so three
-  at once take about as long as the longest; no timed phase runs beside
+  """`sac_learn` here while `td3_learn`, `cql_offline` + `bc` and
+  `qtopt_learn` run in three child processes of this script on the same
+  card. Each is a long run of small host-bound steps (the card idles over
+  90% of the time), so four at once take about as long as the longest on
+  the host's cores; no timed phase runs beside
   them. Their lines are printed as each ends; a child that fails fails
   the script, and no child outlives it."""
   children = {
@@ -2119,6 +2768,11 @@ def main(argv=()):
   free_card()
   phase_cql_parity(card)
   phase_cql_main(card)
+  free_card()
+  phase_qtopt_parity(card)
+  phase_qtopt_main(card)
+  free_card()
+  phase_discrete_parity(card)
   free_card()
   learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "

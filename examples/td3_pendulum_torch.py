@@ -1,4 +1,4 @@
-"""TD3 (or DDPG) on the on-device Pendulum with the PyTorch port.
+"""TD3, DDPG or QtOpt on the on-device Pendulum with the PyTorch port.
 
 The default `Config` is the TD3 bench point: the SAC bench point's
 construction (``examples/sac_pendulum_torch.py``: B=32 env rows with a ring
@@ -12,6 +12,12 @@ step, gamma 0.99, target noise 0.2 clipped at 0.5, the actor stepped every
                  Ornstein-Uhlenbeck noise with damping 0.15 and stddev 0.2
                  (Lillicrap et al. 2015's theta and sigma); set
                  --cfg.dqda_clipping to clip dQ/da (0 leaves it off).
+  --agent=qtopt  QtOpt at the same env, replay, critic width, learning
+                 rate, gamma and target update, with the JAX package's
+                 `QtOptAgent` defaults otherwise: CEM over the target critic
+                 with 32 samples, 4 elites and 3 iterations, clipped double Q
+                 over two delayed targets copied every 5 steps, epsilon-
+                 greedy collect at 0.1, the Huber loss.
   --preset=live  the SAC live construction of
                  ``tests/test_live_windows.py:89-123`` with the agent above:
                  B=8, ring 8192, sample 256, 4 train steps per iteration,
@@ -25,8 +31,9 @@ under `root_dir` (``runs/td3_pendulum_torch`` unless set), evaluates
 greedily over `num_eval_episodes` and prints a final JSON line.
 
 Usage:
-  python examples/td3_pendulum_torch.py [--agent=td3|ddpg] [--preset=live]
-      [--device cuda|cpu] [--smoke] [--cfg.<field>=<value> ...]
+  python examples/td3_pendulum_torch.py [--agent=td3|ddpg|qtopt]
+      [--preset=live] [--device cuda|cpu] [--smoke]
+      [--cfg.<field>=<value> ...]
 """
 import dataclasses
 import json
@@ -42,7 +49,7 @@ from examples.dqn_cartpole_torch import parse_args, train_eval  # noqa: E402
 @dataclasses.dataclass(frozen=True)
 class Config:
   root_dir: str = os.path.join(_REPO, "runs", "td3_pendulum_torch")
-  agent: str = "td3"                   # or "ddpg"
+  agent: str = "td3"                   # or "ddpg" or "qtopt"
   max_episode_steps: int = 200         # Pendulum-v1's time limit
   env_batch_size: int = 32
   num_iterations: int = 2000
@@ -86,21 +93,15 @@ SMOKE = dict(env_batch_size=8, replay_capacity=256, sample_batch_size=32,
 
 
 def build_agent(cfg: Config, tss, asp, device, generator):
-  """The TD3 or DDPG agent of `cfg`, its networks drawn from
+  """The TD3, DDPG or QtOpt agent of `cfg`, its networks drawn from
   `generator`."""
   import torch
 
   from agents_tpu_torch.agents.ddpg import DdpgAgent
+  from agents_tpu_torch.agents.qtopt import QtOptAgent
   from agents_tpu_torch.agents.td3 import Td3Agent
   from agents_tpu_torch.networks import (make_critic_network,
                                          make_deterministic_actor_network)
-
-  actor = make_deterministic_actor_network(
-      tss.observation, asp, fc_layer_params=cfg.actor_fc_layers,
-      device=device, generator=generator)
-  critic = make_critic_network(tss.observation, asp,
-                               joint_fc_layer_params=cfg.critic_joint_fc_layers,
-                               device=device, generator=generator)
 
   def adam(lr):
     return lambda params: torch.optim.Adam(params, lr=lr)
@@ -109,6 +110,17 @@ def build_agent(cfg: Config, tss, asp, device, generator):
                 target_update_period=cfg.target_update_period,
                 gamma=cfg.gamma, reward_scale_factor=cfg.reward_scale_factor,
                 device=device)
+  if cfg.agent == "qtopt":
+    critic = make_critic_network(
+        tss.observation, asp, joint_fc_layer_params=cfg.critic_joint_fc_layers,
+        device=device, generator=generator)
+    return QtOptAgent(tss, asp, critic, adam(cfg.critic_lr), **common)
+  actor = make_deterministic_actor_network(
+      tss.observation, asp, fc_layer_params=cfg.actor_fc_layers,
+      device=device, generator=generator)
+  critic = make_critic_network(tss.observation, asp,
+                               joint_fc_layer_params=cfg.critic_joint_fc_layers,
+                               device=device, generator=generator)
   if cfg.agent == "td3":
     return Td3Agent(tss, asp, actor, critic, adam(cfg.actor_lr),
                     adam(cfg.critic_lr),
@@ -161,7 +173,7 @@ def parse_td3_args(argv) -> Config:
   for arg in argv:
     if arg.startswith("--agent="):
       agent = arg.split("=", 1)[1]
-      if agent not in ("td3", "ddpg"):
+      if agent not in ("td3", "ddpg", "qtopt"):
         raise SystemExit(f"unknown agent {agent!r}")
       cfg = dataclasses.replace(cfg, agent=agent)
     elif arg.startswith("--preset="):

@@ -322,7 +322,35 @@ def test_td3_example_bench_defaults_and_presets():
       parse_td3_args(bad)
 
 
-@pytest.mark.parametrize("agent", ["td3", "ddpg"])
+def test_qtopt_example_takes_the_jax_defaults_at_the_td3_point():
+  """--agent=qtopt keeps the TD3 point's env, replay, critic, Adam, gamma
+  and target update, with `QtOptAgent`'s JAX defaults otherwise."""
+  from examples.td3_pendulum_torch import build_agent, parse_td3_args
+  from agents_tpu_torch.environments.classic import Pendulum
+  from agents_tpu_torch.policies import EpsilonGreedyPolicy
+
+  cfg = parse_td3_args(["--agent=qtopt"])
+  assert (cfg.agent, cfg.env_batch_size, cfg.replay_capacity,
+          cfg.sample_batch_size, cfg.train_steps_per_iteration,
+          cfg.critic_joint_fc_layers, cfg.critic_lr) == (
+              "qtopt", 32, 4096, 256, 32, (256, 256), 3e-4)
+  env = Pendulum()
+  agent = build_agent(dataclasses.replace(cfg, device="cpu"),
+                      env.time_step_spec(), env.action_spec(), "cpu",
+                      torch.Generator().manual_seed(0))
+  assert (agent.policy.num_samples, agent.policy.num_elites,
+          agent.policy.num_iterations) == (32, 4, 3)
+  assert agent.enable_td3 and agent.delayed_target_update_period == 5
+  assert isinstance(agent.collect_policy, EpsilonGreedyPolicy)
+  assert agent.collect_policy.epsilon == 0.1
+  assert (agent.gamma, agent.target_update_tau,
+          agent.target_update_period) == (0.99, 0.005, 1)
+  live = parse_td3_args(["--preset=live", "--agent=qtopt"])
+  assert (live.env_batch_size, live.critic_joint_fc_layers,
+          live.num_iterations) == (8, (64, 64), 8000)
+
+
+@pytest.mark.parametrize("agent", ["td3", "ddpg", "qtopt"])
 def test_td3_example_command_line_on_cpu(tmp_path, agent):
   out = subprocess.run(
       [sys.executable, os.path.join(ROOT, "examples", "td3_pendulum_torch.py"),

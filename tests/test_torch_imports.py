@@ -53,7 +53,12 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "agents.ddpg.ddpg_agent", "agents.cql.cql_sac_agent",
                "agents.behavioral_cloning.behavioral_cloning_agent",
                "agents.random.random_agent", "policies.random_policy",
-               "policies.wrappers", "utils.dataset_io"):
+               "policies.wrappers", "utils.dataset_io",
+               "agents.qtopt.qtopt_agent", "policies.cem_policy",
+               "policies.cem_samplers", "networks.sequential",
+               "environments.classic.acrobot",
+               "environments.classic.mountain_car",
+               "environments.torch_wrappers"):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -100,15 +105,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   from agents_tpu_torch.agents.ddpg import DdpgAgent
   from agents_tpu_torch.agents.dqn import DqnAgent
   from agents_tpu_torch.agents.ppo import PPOAgent
+  from agents_tpu_torch.agents.qtopt import QtOptAgent
   from agents_tpu_torch.agents.reinforce import ReinforceAgent
   from agents_tpu_torch.agents.random import RandomAgent
   from agents_tpu_torch.agents.sac import SacAgent
   from agents_tpu_torch.agents.td3 import Td3Agent
   from agents_tpu_torch.environments import BatchedTorchEnv
-  from agents_tpu_torch.environments.classic import (CartPole, Catch,
-                                                     Pendulum,
+  from agents_tpu_torch.environments.classic import (Acrobot, CartPole,
+                                                     Catch,
+                                                     ContinuousMountainCar,
+                                                     MountainCar, Pendulum,
                                                      SyntheticPixels)
-  from agents_tpu_torch.networks import (make_actor_distribution_network,
+  from agents_tpu_torch.networks import (BiasLayer,
+                                         make_actor_distribution_network,
                                          make_categorical_q_network,
                                          make_critic_network,
                                          make_deterministic_actor_network,
@@ -177,7 +186,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     torch.optim.Adam),
                 lambda: BehavioralCloningAgent(tss, sact, actor,
                                                torch.optim.Adam),
-                lambda: RandomAgent(tss, sact)):
+                lambda: RandomAgent(tss, sact),
+                lambda: QtOptAgent(tss, sact, critic, torch.optim.Adam),
+                lambda: BatchedTorchEnv(Acrobot(), 4),
+                lambda: BatchedTorchEnv(MountainCar(), 4),
+                lambda: BatchedTorchEnv(ContinuousMountainCar(), 4),
+                lambda: BiasLayer(4)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 

@@ -17,8 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from agents_tpu.environments.classic.acrobot import Acrobot as JaxAcrobot
 from agents_tpu.environments.classic.cartpole import CartPole as JaxCartPole
 from agents_tpu.environments.classic.catch import Catch as JaxCatch
+from agents_tpu.environments.classic.mountain_car import (
+    ContinuousMountainCar as JaxContinuousMountainCar)
+from agents_tpu.environments.classic.mountain_car import \
+    MountainCar as JaxMountainCar
 from agents_tpu.environments.classic.pendulum import Pendulum as JaxPendulum
 from agents_tpu.environments.classic.synthetic_pixels import \
     SyntheticPixels as JaxSyntheticPixels
@@ -58,6 +63,11 @@ _ENV_SITES = {
     JaxCatch: ((("catch_ball_col", lambda s, t: s.ball_col),), ()),
     JaxPendulum: ((("pendulum_theta", lambda s, t: s.theta),
                    ("pendulum_theta_dot", lambda s, t: s.theta_dot)), ()),
+    JaxAcrobot: ((("acrobot_physics", lambda s, t: s.physics),), ()),
+    JaxMountainCar: ((("mountain_car_position",
+                       lambda s, t: s.physics[..., 0]),), ()),
+    JaxContinuousMountainCar: ((("mountain_car_position",
+                                 lambda s, t: s.physics[..., 0]),), ()),
 }
 
 
@@ -165,6 +175,69 @@ def _noise_wrapper_draws(site):
   return draws
 
 
+def jax_cem_key_draws(key, num_iterations, num_samples, batch_size,
+                      action_spec):
+  """`CEMPolicy.optimize(params, time_step, key)`'s draws (cem_policy.py:
+  59-69): per iteration ``k, sub = split(k)``, `sub` split once per action
+  leaf, a normal ``[N, B, *leaf]`` per Gaussian leaf, and per one-hot leaf
+  (rank 1, discrete, maximum 1) the uniforms in [tiny, 1) of
+  ``jax.random.categorical``'s Gumbel noise over ``[N, B, K]``. Returns
+  {site: [array] * draws}, in the port's order."""
+  out = {"cem_normal": [], "cem_categorical": []}
+  k = key
+  for _ in range(num_iterations):
+    k, sub = jax.random.split(k)
+    leaves = _spec_leaves(action_spec)
+    for s, kk in zip(leaves, jax.random.split(sub, len(leaves))):
+      if (np.issubdtype(s.dtype, np.integer) and len(s.shape) == 1
+          and int(np.max(s.maximum)) == 1):
+        out["cem_categorical"].append(jax.random.uniform(
+            kk, (num_samples, batch_size, s.shape[0]), jnp.float32,
+            minval=jnp.finfo(jnp.float32).tiny, maxval=1.0))
+      else:
+        out["cem_normal"].append(jax.random.normal(
+            kk, (num_samples, batch_size) + s.shape))
+  return {site: v for site, v in out.items() if v}
+
+
+def unit_uniforms(value, spec):
+  """The [0, 1) uniforms from which the port's `sample_spec` (float64
+  ``minimum + u * (maximum - minimum)``, cast to float32) rebuilds the JAX
+  package's float32 sample `value` of a bounded float spec."""
+  lo = np.asarray(spec.minimum, np.float64)
+  hi = np.asarray(spec.maximum, np.float64)
+  return (np.asarray(value, np.float64) - lo) / (hi - lo)
+
+
+def _epsilon_greedy_cem_draws(num_samples, num_iterations):
+  """The draws of ``EpsilonGreedyPolicy(CEMPolicy(...))`` (wrappers.py:
+  78-125): CEM's from `k_greedy`, the random action's values from `k_rand`,
+  the coin from `k_mix`."""
+
+  def draws(k_pol, batch_size, action_spec):
+    k_greedy, k_rand, k_mix = jax.random.split(k_pol, 3)
+    return {**jax_cem_key_draws(k_greedy, num_iterations, num_samples,
+                                batch_size, action_spec),
+            "random_action": jax_array_spec.sample_spec_nest(
+                action_spec, k_rand, outer_dims=(batch_size,)),
+            "explore": jax.random.uniform(k_mix, (batch_size,))}
+
+  return draws
+
+
+def jax_cem_collect_draws(key, num_steps, batch_size, action_spec, env,
+                          num_samples, num_iterations):
+  """`jax_collect_draws` of an epsilon-greedy-over-CEM collect policy over
+  one bounded float action leaf, its random actions as `unit_uniforms`."""
+  records = jax_collect_draws(
+      key, num_steps, batch_size, action_spec, env,
+      _epsilon_greedy_cem_draws(num_samples, num_iterations))
+  (spec,) = _spec_leaves(action_spec)
+  records["random_action"] = [unit_uniforms(v, spec)
+                              for v in records["random_action"]]
+  return records
+
+
 POLICY_DRAWS = {"epsilon_greedy": _epsilon_greedy_draws,
                 "actor": _actor_draws, "ppo": _ppo_draws,
                 "gaussian": _noise_wrapper_draws("exploration_noise"),
@@ -175,7 +248,8 @@ def _collect_step_draws(step_key, batch_size, action_spec, env, policy):
   """One `JaxDriver.run` step's draws: the policy's from `k_pol`
   (jax_driver.py:65) and the env's step and auto-reset draws."""
   k_pol, k_env = jax.random.split(step_key)
-  return {**POLICY_DRAWS[policy](k_pol, batch_size, action_spec),
+  policy_draws = policy if callable(policy) else POLICY_DRAWS[policy]
+  return {**policy_draws(k_pol, batch_size, action_spec),
           **jax_env_step_draws(k_env, batch_size, env)}
 
 
@@ -197,7 +271,8 @@ def jax_collect_draws(key, num_steps, batch_size, action_spec,
                       env=JaxCartPole(), policy="epsilon_greedy"):
   """Per-site draws of `JaxDriver.run(..., key, num_steps)` over `env` with
   an epsilon-greedy, an actor, a PPO, a Gaussian-noise or an OU-noise
-  collect policy (`POLICY_DRAWS`)."""
+  collect policy (`POLICY_DRAWS`), or `policy` itself when it is a
+  function of ``(k_pol, batch_size, action_spec)``."""
   keys = jax.random.split(key, num_steps)
   draws = jax.vmap(lambda k: _collect_step_draws(
       k, batch_size, action_spec, env, policy))(keys)

@@ -1,14 +1,23 @@
 """The JAX package's own runs that set the port's learning bars, and checks
 that they run the port's configurations.
 
-`chip_smoke.py`'s `td3_learn` and `bc` phases hold the port to bars set by
-the JAX package at the same configuration on the CPU, not by the port:
+`chip_smoke.py`'s `td3_learn`, `qtopt_learn` and `bc` phases hold the port
+to bars set by the JAX package at the same configuration on the CPU, not
+by the port:
 
   td3     `agents_tpu`'s `Td3Agent` in its `FusedTrainLoop` at
           `examples/td3_pendulum_torch.py --preset=live` (B=8, ring 8192,
           sample 256, 4 train steps, (64, 64), Fujimoto et al.'s TD3
           settings), checked every 250 iterations up to 8,000: the first
           iteration whose last-20 return reaches -250.
+  qtopt   `agents_tpu`'s `QtOptAgent` in its `FusedTrainLoop` at
+          `examples/td3_pendulum_torch.py --preset=live --agent=qtopt`
+          (TD3's live construction with the critic alone, CEM 32/4/3
+          over the target critic, delayed targets every 5 steps,
+          epsilon-greedy 0.1), run for the whole 8,000 iterations and
+          checked every 250: the first check at -250 or more, and the
+          last-20 return at the end. `qtopt_bar` turns the five seeds'
+          runs into the bar.
   offline the pipeline of `examples/cql_sac_offline_torch.py` (the device
           Pendulum pipeline of `tests/test_cql_offline_e2e.py`): a brief
           SAC behaviour run, a 2,048 x 8 frame collect by
@@ -21,10 +30,12 @@ the JAX package at the same configuration on the CPU, not by the port:
           after the BC steps and at the end).
 
 Run them (about 10 minutes on 8 CPU cores), over seeds 0-4 for TD3 and
-phase-C seeds 0-3 for the offline agents:
+QtOpt and phase-C seeds 0-3 for the offline agents (one QtOpt seed takes
+about 3 minutes on one core; ``--qtopt-seed=N``, repeated, runs only those
+seeds, so five processes can run them side by side):
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
-        [offline]
+        [offline] [qtopt [--qtopt-seed=N ...]]
 
 The tests below check that these runs are built from the port examples'
 configurations, so the bars are of the same configuration.
@@ -119,6 +130,76 @@ def run_td3_bar(cfg):
           "eval_episodes": int(out["NumberOfEpisodes"]),
           "eval_average_return": float(out["AverageReturn"]),
           "seconds": time.time() - t0}
+
+
+def jax_qtopt_loop(cfg):
+  """The JAX `FusedTrainLoop` of the example's `--agent=qtopt` config."""
+  from agents_tpu import metrics, networks
+  from agents_tpu.agents.qtopt import QtOptAgent
+  from agents_tpu.environments.classic.pendulum import Pendulum
+  from agents_tpu.environments.jax_environment import BatchedJaxEnv
+  from agents_tpu.replay_buffers import UniformReplay
+  from agents_tpu.train import FusedTrainLoop
+  from agents_tpu.trajectories import trajectory as tj
+
+  env = BatchedJaxEnv(Pendulum(cfg.max_episode_steps),
+                      batch_size=cfg.env_batch_size)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  critic = networks.make_critic_network(
+      tss.observation, asp, joint_fc_layer_params=cfg.critic_joint_fc_layers)
+  agent = QtOptAgent(
+      tss, asp, critic, _adam(cfg.critic_lr),
+      target_update_tau=cfg.target_update_tau,
+      target_update_period=cfg.target_update_period, gamma=cfg.gamma,
+      reward_scale_factor=cfg.reward_scale_factor)
+  replay = UniformReplay(tj.trajectory_spec(tss, asp), cfg.env_batch_size,
+                         cfg.replay_capacity)
+  return FusedTrainLoop(env, agent, replay,
+                        metrics=metrics.standard_collect_metrics(
+                            cfg.return_buffer),
+                        sample_batch_size=cfg.sample_batch_size,
+                        train_steps_per_iteration=cfg.train_steps_per_iteration)
+
+
+def run_qtopt_bar(cfg):
+  """QtOpt's whole 8,000-iteration budget, the last-20 return checked every
+  250: the first check at -250 or more, the return at the end, and greedy
+  eval over 30 episodes. Unlike `run_td3_bar` it does not stop at the gate,
+  since the bar may be set by the returns at the end."""
+  import jax
+  import numpy as np
+
+  loop = jax_qtopt_loop(cfg)
+  state = jax.jit(lambda k: loop.init(
+      k, initial_collect_steps=cfg.initial_collect_steps))(
+          jax.random.key(cfg.seed))
+  run = jax.jit(lambda s: loop.run(s, LEARN_CHUNK))
+  points, iterations, passed_at = [], 0, None
+  t0 = time.time()
+  while iterations < cfg.num_iterations:
+    state, _ = run(state)
+    iterations += LEARN_CHUNK
+    ret = float(np.asarray(loop.results(state)["AverageReturn"]))
+    points.append([iterations, ret])
+    print(f"qtopt seed {cfg.seed} {iterations}: {ret:.2f}", flush=True)
+    if passed_at is None and ret >= LEARN_GATE:
+      passed_at = iterations
+  out = loop.evaluate(state, jax.random.key(cfg.seed + 101), num_episodes=30,
+                      max_steps=2000)
+  return {"passed_at": passed_at, "last20_average_return": ret,
+          "points": points, "eval_episodes": int(out["NumberOfEpisodes"]),
+          "eval_average_return": float(out["AverageReturn"]),
+          "seconds": time.time() - t0}
+
+
+def qtopt_bar(runs):
+  """The `qtopt_learn` bar from the JAX runs over seeds 0-4: -250 within the
+  budget if at least 3 of 5 seeds pass it; otherwise the worst seed's
+  last-20 return at the end less a third of the spread across seeds."""
+  if sum(r["passed_at"] is not None for r in runs) >= 3:
+    return LEARN_GATE
+  finals = [r["last20_average_return"] for r in runs]
+  return min(finals) - (max(finals) - min(finals)) / 3.0
 
 
 def normalized_score(ret, behavior_return, random_return):
@@ -322,6 +403,44 @@ def test_td3_bar_runs_the_live_preset_and_ddpg_builds():
           ddpg.agent.collect_policy.ou_stddev) == (0.15, 0.2)
 
 
+def test_qtopt_bar_runs_the_live_preset_and_takes_an_iteration():
+  """The JAX QtOpt loop of the port's `--preset=live --agent=qtopt` config:
+  its replay, train steps, widths and QtOpt settings, and one fused
+  iteration with a finite loss."""
+  import jax
+  import numpy as np
+
+  from agents_tpu.policies.wrappers import EpsilonGreedyPolicy
+  from examples.td3_pendulum_torch import parse_td3_args
+
+  cfg = parse_td3_args(["--preset=live", "--agent=qtopt"])
+  loop = jax_qtopt_loop(cfg)
+  agent = loop.agent
+  assert (loop.env.batch_size, loop.replay.capacity, loop.sample_batch_size,
+          loop.train_steps) == (8, 8192, 256, 4)
+  assert (agent.policy.num_samples, agent.policy.num_elites,
+          agent.policy.num_iterations, agent.enable_td3,
+          agent.delayed_target_update_period, agent.target_update_tau,
+          agent.gamma) == (32, 4, 3, True, 5, 0.005, 0.99)
+  assert isinstance(agent.collect_policy, EpsilonGreedyPolicy)
+  state = loop.init(jax.random.key(0), initial_collect_steps=8)
+  state, losses = loop.run(state, 1)
+  assert np.isfinite(np.asarray(losses)).all()
+  assert int(state.agent_state.train_step) == 4
+
+
+def test_qtopt_bar_rule():
+  """-250 when 3 of 5 seeds pass it; else the worst last-20 return less a
+  third of the spread."""
+  runs = [{"passed_at": p, "last20_average_return": r}
+          for p, r in ((2000, -200.0), (None, -400.0), (3000, -180.0),
+                       (None, -500.0), (7000, -240.0))]
+  assert qtopt_bar(runs) == LEARN_GATE
+  for r in runs[:2]:
+    r["passed_at"] = None
+  assert qtopt_bar(runs) == -500.0 - (500.0 - 180.0) / 3.0
+
+
 def test_offline_bars_run_the_example_defaults():
   """The offline pipeline's config is `tests/test_cql_offline_e2e.py`'s:
   B=8, (64, 64), ring 4096 and 2 train steps of 128 for the behaviour run,
@@ -349,13 +468,24 @@ if __name__ == "__main__":
   from examples.cql_sac_offline_torch import Config as OfflineConfig
   from examples.td3_pendulum_torch import parse_td3_args
 
-  which = sys.argv[1:] or ["td3", "offline"]
+  which = sys.argv[1:] or ["td3", "offline", "qtopt"]
   if "td3" in which:
     for seed in range(5):
       td3 = run_td3_bar(dataclasses.replace(parse_td3_args(["--preset=live"]),
                                             seed=seed))
       print(json.dumps({"td3_live_seed": seed, **{
           k: v for k, v in td3.items() if k != "points"}}), flush=True)
+  if "qtopt" in which:
+    seeds = [int(s.split("=", 1)[1]) for s in which
+             if s.startswith("--qtopt-seed=")] or list(range(5))
+    qtopt_runs = []
+    for seed in seeds:
+      qtopt_runs.append(run_qtopt_bar(dataclasses.replace(
+          parse_td3_args(["--preset=live", "--agent=qtopt"]), seed=seed)))
+      print(json.dumps({"qtopt_live_seed": seed, **qtopt_runs[-1]}),
+            flush=True)
+    if len(qtopt_runs) == 5:
+      print(json.dumps({"qtopt_bar": qtopt_bar(qtopt_runs)}), flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)
