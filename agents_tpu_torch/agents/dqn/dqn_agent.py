@@ -17,11 +17,19 @@ Port of `DqnAgent`, `DdqnAgent`, `D3qnAgent` and `_ScheduledQPolicy` of
   - a periodic polyak target update that fires when
     ``train_step % period == 0`` after the increment.
 
+A recurrent Q network (one with a `state_spec`, `lstm_networks`) trains on
+``[B, T]`` sequences of `train_sequence_length` (`_sequence_loss`,
+:196-230): the online and the target network each unroll once from a zero
+carry with FIRST-step resets, TD pairs are the frames ``(t, t + 1)``,
+frames whose step is LAST are masked, and the loss sums over time, then
+averages over the batch. The next state's value is the masked max of the
+target unroll (`_seq_next_best_q`, :188-194); DDQN's is the target unroll
+at the argmax of the online one (:271-280).
+
 The train step is host-int driven: `DqnAgentState.train_step` is a Python
 int (the JAX package keeps a device int32), so the target-update branch
 needs no device `where` over every parameter and no sync. The parameters
-and optimizer moments are updated in place. Recurrent Q networks
-(`_sequence_loss`) are not ported yet.
+and optimizer moments are updated in place.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
                                                 EpsilonGreedyPolicy,
                                                 GreedyPolicy)
 from agents_tpu_torch.specs import array_spec
+from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.trajectories import trajectory as tj
 from agents_tpu_torch.utils import common, nest_utils
 from agents_tpu_torch.utils.common import LossInfo
@@ -154,7 +163,10 @@ class DqnAgent(Agent):
     return torch.max(q_next, dim=-1).values
 
   def _loss(self, q_network, agent_state, experience, weights=None):
-    """experience: Trajectory [B, T=n_step+1]."""
+    """experience: Trajectory [B, T=n_step+1], or [B, T] sequences for a
+    recurrent Q network."""
+    if self.q_network.state_spec:
+      return self._sequence_loss(q_network, agent_state, experience, weights)
     transition = tj.to_n_step_transition(experience, gamma=self.gamma)
     time_steps = transition.time_step
     actions = transition.action_step.action
@@ -177,6 +189,35 @@ class DqnAgent(Agent):
     td_loss = valid_mask * td_loss
 
     loss = common.aggregate_losses(per_example_loss=td_loss,
+                                   sample_weight=weights)
+    return loss, DqnLossExtra(td_loss=td_loss, td_error=td_error)
+
+  def _seq_next_best_q(self, q_all_online, target_all, action_mask):
+    """The next states' values from the ``[B, T, A]`` unrolls: the masked
+    max of the target network's."""
+    del q_all_online
+    if action_mask is not None:
+      target_all = torch.where(action_mask, target_all, -1e9)
+    return torch.max(target_all, dim=-1).values
+
+  def _sequence_loss(self, q_network, agent_state, experience, weights=None):
+    """TD over the adjacent frames of whole sequences (recurrent Q)."""
+    obs, action_mask = self._q_policy.split(experience.observation)
+    step_type = experience.step_type
+    q_all, _ = q_network(obs, step_type, None)                # [B, T, A]
+    q_taken = common.index_with_actions(q_all, experience.action)
+    with torch.no_grad():
+      target_all, _ = agent_state.target_q_network(obs, step_type, None)
+      next_q = self._seq_next_best_q(q_all.detach(), target_all, action_mask)
+      rewards = self.reward_scale_factor * experience.reward[:, :-1]
+      discounts = self.gamma * experience.discount[:, :-1]
+      td_targets = rewards + discounts * next_q[:, 1:]
+    td_error = td_targets - q_taken[:, :-1]
+    td_loss = self.td_errors_loss_fn(td_targets, q_taken[:, :-1])
+    valid = (step_type[:, :-1] != ts.StepType.LAST).to(torch.float32)
+    td_loss = td_loss * valid
+    td_error = td_error * valid
+    loss = common.aggregate_losses(per_example_loss=td_loss.sum(dim=1),
                                    sample_weight=weights)
     return loss, DqnLossExtra(td_loss=td_loss, td_error=td_error)
 
@@ -212,6 +253,14 @@ class DdqnAgent(DqnAgent):
     q_target, _ = agent_state.target_q_network(obs, next_time_steps.step_type,
                                                ())
     return common.index_with_actions(q_target, best)
+
+  def _seq_next_best_q(self, q_all_online, target_all, action_mask):
+    """The target unroll at the online unroll's (masked) argmax; the
+    online values come in detached."""
+    if action_mask is not None:
+      q_all_online = torch.where(action_mask, q_all_online, -1e9)
+    best = torch.argmax(q_all_online, dim=-1)
+    return common.index_with_actions(target_all, best)
 
 
 # D3QN is Double DQN with a dueling Q network: build the agent with

@@ -9,14 +9,20 @@ Port of `PPOAgent`, `PPOAgentState` and `PPOLossExtra` of
      value predictions, restarting the recursion at every episode-final
      transition (``next_step_type == LAST``);
   3. flattens the ``[:, :-1]`` window to ``B * (T - 1)`` frames, masks the
-     boundary frames, and normalizes the advantages;
-  4. runs `num_epochs` epochs, each a fresh permutation of the frames
-     (draw site "ppo_permutation") cut into `num_minibatches` minibatches,
+     boundary frames, and normalizes the advantages; with recurrent
+     networks (a `state_spec`, :123-124) the window stays ``[B, T - 1]``
+     sequences (:306-321), the mask ``[B, T - 1]``;
+  4. runs `num_epochs` epochs, each a fresh permutation of the frames, or
+     of the sequences when recurrent (draw site "ppo_permutation"), cut
+     into `num_minibatches` minibatches,
      one optimizer step per minibatch over the actor's, then the value
      network's parameters (optax's single optimizer over the tuple
      ``(actor, value)``), with optional global-norm gradient clipping;
   5. with an adaptive KL penalty, moves beta by 1.5x from the mean KL of
      the full batch under the final policy.
+
+Recurrent networks unroll each minibatch's sequences from a zero carry
+with FIRST-step resets, in the losses and in step 5's KL pass alike.
 
 The losses are the clipped surrogate (or the plain one without clipping),
 the value error (optionally clipped around the collect-time values), the
@@ -34,8 +40,7 @@ sync. Its permutations come from the `draws` passed in (the on-policy
 loop's), else from the agent state's ``Draws(31, device)``; the JAX agent
 draws them from `key` or ``fold_in(key(31), train_step)``.
 
-Not ported here: recurrent networks (`_recurrent`, :123-124, :306-307) and
-sharded minibatches (`num_minibatch_shards > 1`); both raise.
+Not ported here: sharded minibatches (`num_minibatch_shards > 1`) raise.
 """
 from __future__ import annotations
 
@@ -133,9 +138,6 @@ class PPOAgent(Agent):
     self.device = resolve_device(device)
     check_network_devices(self.device, actor_network=actor_network,
                           value_network=value_network)
-    if actor_network.state_spec or value_network.state_spec:
-      raise NotImplementedError(
-          "recurrent PPO (lstm_networks) is not ported yet (ROADMAP A10)")
     if num_minibatch_shards > 1:
       raise NotImplementedError(
           "num_minibatch_shards > 1 (sharded minibatches) is not ported "
@@ -166,6 +168,10 @@ class PPOAgent(Agent):
     self.kl_cutoff_coef = kl_cutoff_coef
     self.gradient_clipping = gradient_clipping
     self.train_sequence_length = None  # full [B, T] rollouts
+    # Recurrent networks train on whole sequences: minibatches partition
+    # the batch axis, time stays intact.
+    self._recurrent = bool(actor_network.state_spec) or bool(
+        value_network.state_spec)
 
     self.obs_normalizer = (
         StreamingTensorNormalizer(time_step_spec.observation)
@@ -330,22 +336,27 @@ class PPOAgent(Agent):
       returns, advantages = self.compute_return_and_advantage(
           agent_state, experience)
 
-      # 3) The window [:, :-1] as B * (T - 1) frames; boundary frames are
-      #    masked.
+      # 3) The window [:, :-1] as B * (T - 1) frames, or as B sequences of
+      #    T - 1 when recurrent; boundary frames are masked.
       b, t = experience.discount.shape
-      n_items = b * (t - 1)
-      window = lambda x: nest_utils.tree_map(  # noqa: E731
-          lambda v: v[:, :-1].reshape((n_items,) + tuple(v.shape[2:])), x)
+      if self._recurrent:
+        n_items = b
+        window = lambda x: nest_utils.tree_map(  # noqa: E731
+            lambda v: v[:, :-1], x)
+      else:
+        n_items = b * (t - 1)
+        window = lambda x: nest_utils.tree_map(  # noqa: E731
+            lambda v: v[:, :-1].reshape((n_items,) + tuple(v.shape[2:])), x)
       obs = window(experience.observation)
       step_type = window(experience.step_type)
       actions = window(experience.action)
       old_dist = window(experience.policy_info["dist"])
       old_values = window(experience.policy_info["value_prediction"])
-      returns = returns.reshape(n_items)
-      advantages = advantages.reshape(n_items)
+      returns = returns.reshape(step_type.shape)
+      advantages = advantages.reshape(step_type.shape)
       mask = (step_type != ts.StepType.LAST).float()
       if weights is not None:
-        mask = mask * weights[:, None].expand(b, t - 1).reshape(-1)
+        mask = mask * weights[:, None].expand(b, t - 1).reshape(mask.shape)
       old_log_prob = common.log_probability(old_dist, actions)
 
       if self.normalize_advantages:
@@ -356,8 +367,9 @@ class PPOAgent(Agent):
 
     n_mb = self.num_minibatches
     if n_items % n_mb:
-      raise ValueError(f"{n_items} frames do not split into {n_mb} "
-                       "minibatches")
+      raise ValueError(
+          f"{n_items} {'sequences' if self._recurrent else 'frames'} do not "
+          f"split into {n_mb} minibatches")
     size = n_items // n_mb
     flat_batch = (obs, step_type, actions, old_dist, old_values, returns,
                   advantages, old_log_prob, mask)

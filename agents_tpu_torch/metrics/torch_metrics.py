@@ -22,7 +22,9 @@ class DequeState:
   """Fixed-capacity ring of scalars with masked mean/max/min.
 
   `buffer` holds capacity + 1 slots: the last one absorbs the rows that a
-  push drops (torch's scatter has no ``mode="drop"``); `data` is the ring.
+  push drops (torch's scatter has no ``mode="drop"``), as zeros, so that
+  slot does not depend on the order in which the card writes them (a
+  checkpoint compares whole states); `data` is the ring.
   """
   buffer: torch.Tensor  # [capacity + 1]
   count: torch.Tensor   # int64 scalar: total pushes
@@ -54,7 +56,8 @@ class DequeState:
     total = mask_i.sum()
     keep = mask & (rank >= total - cap)
     pos = torch.where(keep, (self.count + rank) % cap, cap)
-    buffer = self.buffer.scatter(0, pos, values.to(self.buffer.dtype))
+    values = torch.where(keep, values.to(self.buffer.dtype), 0)
+    buffer = self.buffer.scatter(0, pos, values)
     return DequeState(buffer=buffer, count=self.count + total)
 
   def _valid(self):

@@ -3,6 +3,10 @@ from agents_tpu_torch.networks.actor_distribution_network import (
     make_actor_distribution_network, make_deterministic_actor_network,
     make_sac_actor_network)
 from agents_tpu_torch.networks.encoding_network import EncoderModule
+from agents_tpu_torch.networks.lstm_networks import (
+    ActorDistributionRnnModule, LSTMEncoder, QRnnModule, ValueRnnModule,
+    make_actor_distribution_rnn_network, make_q_rnn_network,
+    make_value_rnn_network)
 from agents_tpu_torch.networks.network import Network
 from agents_tpu_torch.networks.projection_networks import (
     CategoricalProjection, NormalProjection, TanhNormalProjection,
@@ -20,13 +24,17 @@ from agents_tpu_torch.networks.value_network import (CriticModule,
                                                      make_critic_network,
                                                      make_value_network)
 
-__all__ = ["ActorDistributionModule", "BiasLayer", "CategoricalProjection",
+__all__ = ["ActorDistributionModule", "ActorDistributionRnnModule",
+           "BiasLayer", "CategoricalProjection",
            "CategoricalQModule", "CriticModule", "DeterministicActorModule",
            "DuelingQModule",
-           "EncoderModule", "Network", "NormalProjection", "QModule",
+           "EncoderModule", "LSTMEncoder", "Network", "NormalProjection",
+           "QModule", "QRnnModule", "ValueRnnModule",
            "TanhNormalProjection", "ValueModule", "default_projection",
-           "make_actor_distribution_network", "make_categorical_q_network",
+           "make_actor_distribution_network",
+           "make_actor_distribution_rnn_network", "make_categorical_q_network",
            "make_critic_network", "make_deterministic_actor_network",
-           "make_q_network", "make_sac_actor_network",
-           "make_value_network", "NestMapModule", "SequentialModule",
-           "inner_reshape", "mask_splitter", "sequential"]
+           "make_q_network", "make_q_rnn_network", "make_sac_actor_network",
+           "make_value_network", "make_value_rnn_network", "NestMapModule",
+           "SequentialModule", "inner_reshape", "mask_splitter",
+           "sequential"]

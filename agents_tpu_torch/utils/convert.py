@@ -42,6 +42,24 @@ The deterministic (DDPG, TD3) actor's tree is
 
     {"params": {"EncoderModule_0": ..., "Dense_0": ...}}   # the action layer
 
+The recurrent networks' trees (`lstm_networks`) hold an
+`LSTMEncoderModule_0` where the others hold `EncoderModule_0`:
+
+    {"LSTMEncoderModule_0": {"Dense_0": ..., ...,       # input, then output
+                             "Scan_MaskedLSTMCell_0": {
+                                 "OptimizedLSTMCell_0": {
+                                     "ii", "if", "ig", "io": {"kernel"},
+                                     "hi", "hf", "hg", "ho": {"kernel",
+                                                              "bias"}}}}}
+
+Its Dense layers are numbered input layers first, then output layers, so
+the converters take the number of input layers. The four input kernels
+``[in, H]`` become the port's one ``[4H, in]`` `lstm_input` weight and the
+four recurrent kernels ``[H, H]`` and biases its `lstm_hidden` Linear,
+gate blocks in the order i, f, g, o. A recurrent DQN or PPO agent state
+crosses through `dqn_agent_state_to_torch` and `ppo_agent_state_to_torch`
+given these converters, and loads with the same `load_*` functions.
+
 Whole TD3, DDPG, QtOpt, CQL-SAC and behavioural-cloning agent states
 cross with their Adams' moments and counts (`td3_agent_state_to_torch`,
 `qtopt_agent_state_to_torch` and the others below, each with its
@@ -86,6 +104,70 @@ def _encoder(out, encoder: Mapping) -> None:
     out[f"encoder.convs.{i}.bias"] = _t(conv["bias"])
   for i, dense in enumerate(denses):
     _dense(out, f"encoder.layers.{i}", dense)
+
+
+_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_encoder(out, encoder: Mapping, num_input_layers: int) -> None:
+  """An `LSTMEncoderModule_0` subtree into `out` under ``encoder.``."""
+  denses = _layers(encoder, "Dense")
+  if (len(encoder) != len(denses) + 1 or not 0 <= num_input_layers
+      <= len(denses)):
+    raise ValueError(f"unexpected LSTM encoder entries: {sorted(encoder)} "
+                     f"with {num_input_layers} input layers")
+  cell = encoder["Scan_MaskedLSTMCell_0"]["OptimizedLSTMCell_0"]
+  if set(cell) != {f"{k}{g}" for k in "ih" for g in _GATES}:
+    raise ValueError(f"unexpected LSTM cell entries: {sorted(cell)}")
+  for i, dense in enumerate(denses[:num_input_layers]):
+    _dense(out, f"encoder.input_layers.{i}", dense)
+  gates = lambda kind, leaf: [np.asarray(cell[f"{kind}{g}"][leaf])  # noqa
+                              for g in _GATES]
+  out["encoder.lstm_input.weight"] = _t(
+      np.concatenate(gates("i", "kernel"), axis=1).T)
+  out["encoder.lstm_hidden.weight"] = _t(
+      np.concatenate(gates("h", "kernel"), axis=1).T)
+  out["encoder.lstm_hidden.bias"] = _t(np.concatenate(gates("h", "bias")))
+  for i, dense in enumerate(denses[num_input_layers:]):
+    _dense(out, f"encoder.output_layers.{i}", dense)
+
+
+def q_rnn_params_to_state_dict(params: Mapping, num_input_layers: int = 1
+                               ) -> "collections.OrderedDict":
+  """flax `QRnnModule` params (`make_q_rnn_network`) -> the port
+  `QRnnModule`'s `state_dict()`."""
+  tree = params["params"]
+  if set(tree) != {"LSTMEncoderModule_0", "Dense_0"}:
+    raise ValueError(f"unexpected Q RNN entries: {sorted(tree)}")
+  out = collections.OrderedDict()
+  _lstm_encoder(out, tree["LSTMEncoderModule_0"], num_input_layers)
+  _dense(out, "q_head", tree["Dense_0"])
+  return out
+
+
+def value_rnn_params_to_state_dict(params: Mapping, num_input_layers: int = 1
+                                   ) -> "collections.OrderedDict":
+  """flax `ValueRnnModule` params (`make_value_rnn_network`) -> the port
+  `ValueRnnModule`'s `state_dict()`."""
+  tree = params["params"]
+  if set(tree) != {"LSTMEncoderModule_0", "Dense_0"}:
+    raise ValueError(f"unexpected value RNN entries: {sorted(tree)}")
+  out = collections.OrderedDict()
+  _lstm_encoder(out, tree["LSTMEncoderModule_0"], num_input_layers)
+  _dense(out, "value_head", tree["Dense_0"])
+  return out
+
+
+def actor_rnn_params_to_state_dict(params: Mapping, num_input_layers: int = 1
+                                   ) -> "collections.OrderedDict":
+  """flax `ActorDistributionRnnModule` params
+  (`make_actor_distribution_rnn_network`) -> the port module's
+  `state_dict()`; its heads as in `actor_params_to_state_dict`."""
+  tree = params["params"]
+  out = collections.OrderedDict()
+  _lstm_encoder(out, tree["LSTMEncoderModule_0"], num_input_layers)
+  _actor_heads(out, tree, "LSTMEncoderModule_0")
+  return out
 
 
 def q_params_to_state_dict(params: Mapping) -> "collections.OrderedDict":
@@ -145,10 +227,17 @@ def actor_params_to_state_dict(params: Mapping
   tree = params["params"]
   out = collections.OrderedDict()
   _encoder(out, tree["EncoderModule_0"])
+  _actor_heads(out, tree, "EncoderModule_0")
+  return out
+
+
+def _actor_heads(out, tree: Mapping, encoder_key: str) -> None:
+  """The `CategoricalProjection_j` or `NormalProjection_j` heads of an
+  actor tree (all of one class) into `out` under ``projections.j``."""
   kinds = [k for k in ("CategoricalProjection", "NormalProjection")
            if f"{k}_0" in tree]
   heads = _layers(tree, kinds[0]) if len(kinds) == 1 else []
-  if len(tree) != 1 + len(heads) or not heads:
+  if len(tree) != 1 + len(heads) or encoder_key not in tree or not heads:
     raise ValueError(f"unexpected actor entries: {sorted(tree)}")
   for j, head in enumerate(heads):
     name = f"projections.{j}"
@@ -164,7 +253,6 @@ def actor_params_to_state_dict(params: Mapping
     _dense(out, f"{name}.means", head["Dense_0"])
     if "Dense_1" in head:
       _dense(out, f"{name}.stds", head["Dense_1"])
-  return out
 
 
 def value_params_to_state_dict(params: Mapping
@@ -200,23 +288,26 @@ def _t(x) -> torch.Tensor:
 
 def dqn_agent_state_to_torch(q_params: Mapping, target_q_params: Mapping,
                              adam_mu: Mapping, adam_nu: Mapping,
-                             adam_count, train_step) -> Dict:
+                             adam_count, train_step,
+                             params_to_state_dict=q_params_to_state_dict
+                             ) -> Dict:
   """A whole JAX `DqnAgentState` (optimizer ``optax.adam``) in port terms.
 
   Args:
     q_params, target_q_params: the online and target flax params.
     adam_mu, adam_nu, adam_count: optax's `ScaleByAdamState` fields.
     train_step: the agent's train step.
+    params_to_state_dict: the network's converter
+      (`q_rnn_params_to_state_dict` for a recurrent Q network).
 
   Returns a dict with "q" and "target_q" state dicts, "adam_state" (the
   "state" part of a `torch.optim.Adam` state dict, keyed by parameter
   index) and "train_step" (int); `load_dqn_agent_state` applies it.
   """
-  return {"q": q_params_to_state_dict(q_params),
-          "target_q": q_params_to_state_dict(target_q_params),
-          "adam_state": _adam_state(
-              adam_count, q_params_to_state_dict(adam_mu).values(),
-              q_params_to_state_dict(adam_nu).values()),
+  sd = params_to_state_dict
+  return {"q": sd(q_params), "target_q": sd(target_q_params),
+          "adam_state": _adam_state(adam_count, sd(adam_mu).values(),
+                                    sd(adam_nu).values()),
           "train_step": int(np.asarray(train_step))}
 
 
@@ -338,13 +429,18 @@ def _map(nest, fn):
   return fn(nest)
 
 
-def ppo_agent_state_to_torch(state) -> Dict:
+def ppo_agent_state_to_torch(
+    state, actor_to_state_dict=actor_params_to_state_dict,
+    value_to_state_dict=value_params_to_state_dict) -> Dict:
   """A whole JAX `PPOAgentState` in port terms.
 
   Args:
     state: the JAX state with numpy leaves (``jax.device_get`` of it on the
       caller's side); its optimizer ``optax.adam`` over ``(actor, value)``,
       with a constant or a scheduled learning rate.
+    actor_to_state_dict, value_to_state_dict: the networks' converters
+      (`actor_rnn_params_to_state_dict` and
+      `value_rnn_params_to_state_dict` for recurrent networks).
 
   Returns a dict with "actor_network" and "value_network" state dicts,
   "adam" (the "state" part of the `torch.optim.Adam` state dict over the
@@ -354,7 +450,7 @@ def ppo_agent_state_to_torch(state) -> Dict:
   ()), "kl_beta" (a 0-dim tensor) and "train_step" (int);
   `load_ppo_agent_state` applies it.
   """
-  sds = (actor_params_to_state_dict, value_params_to_state_dict)
+  sds = (actor_to_state_dict, value_to_state_dict)
   adam, schedule_count = _on_policy_adam(state.opt_state, sds)
   return {"actor_network": sds[0](state.actor_params),
           "value_network": sds[1](state.value_params),

@@ -8,6 +8,12 @@ iterations, then EvalAverageReturn) and ``config.json`` under `root_dir`
 (``runs/dqn_cartpole_torch`` in the repository unless set), and prints the
 same final JSON line as the JAX example.
 
+As the JAX example does through its `Learner` (learner.py:83-102), it
+checkpoints the whole loop state under ``root_dir/train/checkpoints``
+every `checkpoint_interval` iterations and once more at the end, and
+starts from the newest checkpoint there when one exists, appending to
+``train.jsonl``; a `checkpoint_interval` of 0 or less turns this off.
+
 Usage:
   python examples/dqn_cartpole_torch.py [--device cuda|cpu] [--smoke]
       [--cfg.num_iterations=20000] [--cfg.<field>=<value> ...]
@@ -37,8 +43,7 @@ class Config:
   target_update_period: int = 5
   fc_layer_params: tuple = (100, 50)
   log_interval: int = 2000
-  checkpoint_interval: int = 10000     # unread: kept equal to the JAX
-                                       # example's Config; no checkpoints yet
+  checkpoint_interval: int = 10000     # <= 0: no checkpoints
   num_eval_episodes: int = 30
   seed: int = 0
   device: str = "cuda"
@@ -84,34 +89,52 @@ def build_loop(cfg: Config):
 
 
 def train_eval(cfg, build=build_loop):
-  """Train `build(cfg)`'s loop, log to ``root_dir/train.jsonl``, evaluate
+  """Train `build(cfg)`'s loop from its newest checkpoint under `root_dir`
+  (or from the start), log to ``root_dir/train.jsonl``, evaluate
   greedily.
 
   Returns (last AverageReturn of the collect deque, greedy eval return).
   """
+  from agents_tpu_torch.train import Checkpointer
+
   loop = build(cfg)
   state = loop.init(cfg.seed, initial_collect_steps=cfg.initial_collect_steps)
   os.makedirs(cfg.root_dir, exist_ok=True)
   log_path = os.path.join(cfg.root_dir, "train.jsonl")
+  # The pixel and SAC examples' Configs, like their JAX twins', have no
+  # checkpoint interval: they do not checkpoint.
+  interval = getattr(cfg, "checkpoint_interval", 0)
+  step, checkpointer = 0, None
+  if interval > 0:
+    checkpointer = Checkpointer(
+        os.path.join(cfg.root_dir, "train", "checkpoints"))
+    state = checkpointer.initialize_or_restore(state)
+    step = checkpointer.latest_step() or 0
 
   def write(f, step, **values):
     for key, value in values.items():
       f.write(json.dumps({"step": step, key: value, "t": time.time()}) + "\n")
     f.flush()
 
-  with open(log_path, "w") as f:
-    step, t0 = 0, time.time()
-    avg_return = 0.0
+  with open(log_path, "a" if step else "w") as f:
+    start, t0 = step, time.time()
+    saved = step - step % max(interval, 1)
+    avg_return = float(loop.results(state)["AverageReturn"])
     while step < cfg.num_iterations:
       n = min(cfg.log_interval, cfg.num_iterations - step)
       state, losses = loop.run(state, n)
       step += n
       loss = float(losses[-1])
       avg_return = float(loop.results(state)["AverageReturn"])
-      sps = step * cfg.env_batch_size / (time.time() - t0)
+      sps = (step - start) * cfg.env_batch_size / (time.time() - t0)
       print(f"iter {step}: loss={loss:.4f} AverageReturn={avg_return:.1f} "
             f"({sps:.0f} env-steps/s on {loop.device})", flush=True)
       write(f, step, loss=loss, AverageReturn=avg_return, steps_per_sec=sps)
+      if checkpointer and step - saved >= interval:
+        checkpointer.save(step, state)
+        saved = step - step % interval
+    if checkpointer:
+      checkpointer.save(step, state)
     eval_out = loop.evaluate(state, cfg.seed + 101,
                              num_episodes=cfg.num_eval_episodes,
                              max_steps=2000)

@@ -17,6 +17,15 @@ actor and value nets, observation and reward normalizers on.
       action 1) stands in for HalfCheetah-v5 (obs 17, action 6), which
       needs MuJoCo; the 64-wide layers keep their width, only the first
       and last layers shrink.
+  --preset=rnn
+      the default config with the actor and value networks made recurrent:
+      `make_actor_distribution_rnn_network` and `make_value_rnn_network` at
+      their defaults (input (40,), LSTM 40, output (40,)). Minibatches then
+      take whole sequences: 8 minibatches of 4 of the 32 rows.
+  --preset=rnn_learn
+      ``tests/test_ppo_rnn.py``'s recurrent learning config (:87-107): B=8,
+      T=48, input (32,), LSTM 16, output (32,), 4 epochs x 2 minibatches,
+      entropy 0.01, Adam 1e-3, 30 iterations.
   --smoke
       a short run (20 iterations, T=65, 2 epochs x 4 minibatches, 4 eval
       episodes) of either, on the card or with --device cpu.
@@ -28,8 +37,8 @@ greedy policy over exactly `num_eval_episodes` episodes on `num_eval_envs`
 fresh env rows, and prints a final JSON line.
 
 Usage:
-  python examples/ppo_cartpole_torch.py [--preset=schulman17_pendulum]
-      [--device cuda|cpu] [--smoke] [--cfg.<field>=<value> ...]
+  python examples/ppo_cartpole_torch.py
+      [--preset=schulman17_pendulum|rnn|rnn_learn] [--device cuda|cpu] [--smoke] [--cfg.<field>=<value> ...]
 """
 import dataclasses
 import json
@@ -62,9 +71,11 @@ class Config:
   discount_factor: float = 0.99
   lambda_value: float = 0.95
   gradient_clipping: float = 0.0       # 0: none
-  actor_fc_layers: tuple = (64, 64)
+  actor_fc_layers: tuple = (64, 64)   # the input layers when recurrent
   value_fc_layers: tuple = (64, 64)
-  activation: str = "relu"             # or "tanh"
+  lstm_size: int = 0                   # > 0: LSTM actor and value networks
+  lstm_output_fc_layers: tuple = (40,)  # their layers after the LSTM
+  activation: str = "relu"             # or "tanh" (not when recurrent)
   initial_std: float = 0.0             # > 0: NormalProjection's std bias
                                        # log(exp(initial_std) - 1)
   return_buffer: int = 20              # episodes in the AverageReturn deque
@@ -85,7 +96,17 @@ SCHULMAN17_PENDULUM = dict(
 SMOKE = dict(num_iterations=20, log_interval=10, rollout_length=65,
              num_epochs=2, num_minibatches=4, num_eval_episodes=4)
 
-PRESETS = {"schulman17_pendulum": SCHULMAN17_PENDULUM}
+RNN = dict(lstm_size=40, actor_fc_layers=(40,), value_fc_layers=(40,),
+           lstm_output_fc_layers=(40,))
+
+RNN_LEARN = dict(
+    env_batch_size=8, rollout_length=48, num_iterations=30, num_epochs=4,
+    num_minibatches=2, learning_rate=1e-3, entropy_regularization=0.01,
+    lstm_size=16, actor_fc_layers=(32,), value_fc_layers=(32,),
+    lstm_output_fc_layers=(32,), log_interval=10)
+
+PRESETS = {"schulman17_pendulum": SCHULMAN17_PENDULUM, "rnn": RNN,
+           "rnn_learn": RNN_LEARN}
 
 
 def build_env(cfg: Config, batch_size: int):
@@ -110,9 +131,10 @@ def build_loop(cfg: Config):
 
   from agents_tpu_torch import metrics
   from agents_tpu_torch.agents.ppo import PPOClipAgent
-  from agents_tpu_torch.networks import (NormalProjection,
-                                         make_actor_distribution_network,
-                                         make_value_network)
+  from agents_tpu_torch.networks import (
+      NormalProjection, make_actor_distribution_network,
+      make_actor_distribution_rnn_network, make_value_network,
+      make_value_rnn_network)
   from agents_tpu_torch.train import OnPolicyTrainLoop
   from agents_tpu_torch.utils.device import resolve_device
 
@@ -127,14 +149,26 @@ def build_loop(cfg: Config):
         std_bias_initializer_value=math.log(math.exp(cfg.initial_std) - 1.0))
   generator = torch.Generator(device=device)
   generator.manual_seed(cfg.seed)
-  actor = make_actor_distribution_network(
-      tss.observation, asp, fc_layer_params=cfg.actor_fc_layers,
-      activation=activation, continuous_projection=projection, device=device,
-      generator=generator)
-  value = make_value_network(tss.observation,
-                             fc_layer_params=cfg.value_fc_layers,
-                             activation=activation, device=device,
-                             generator=generator)
+  if cfg.lstm_size:
+    if cfg.activation != "relu":
+      raise ValueError("the recurrent networks' layers are ReLU")
+    rnn = dict(lstm_size=cfg.lstm_size,
+               output_fc_layer_params=cfg.lstm_output_fc_layers,
+               device=device, generator=generator)
+    actor = make_actor_distribution_rnn_network(
+        tss.observation, asp, input_fc_layer_params=cfg.actor_fc_layers,
+        continuous_projection=projection, **rnn)
+    value = make_value_rnn_network(
+        tss.observation, input_fc_layer_params=cfg.value_fc_layers, **rnn)
+  else:
+    actor = make_actor_distribution_network(
+        tss.observation, asp, fc_layer_params=cfg.actor_fc_layers,
+        activation=activation, continuous_projection=projection,
+        device=device, generator=generator)
+    value = make_value_network(tss.observation,
+                               fc_layer_params=cfg.value_fc_layers,
+                               activation=activation, device=device,
+                               generator=generator)
   lr, eps = cfg.learning_rate, cfg.adam_eps
   lr_schedule = None
   if cfg.lr_decay:
@@ -202,7 +236,7 @@ def train_eval(cfg: Config):
 
 
 def parse_ppo_args(argv) -> Config:
-  """--preset=schulman17_pendulum first, then `parse_args`'s --smoke,
+  """--preset=NAME (`PRESETS`) first, then `parse_args`'s --smoke,
   --device and --cfg.<field>=<value>."""
   cfg, rest = Config(), []
   for arg in argv:

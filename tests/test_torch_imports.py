@@ -58,7 +58,8 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "policies.cem_samplers", "networks.sequential",
                "environments.classic.acrobot",
                "environments.classic.mountain_car",
-               "environments.torch_wrappers"):
+               "environments.torch_wrappers", "networks.lstm_networks",
+               "train.checkpointer"):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -121,9 +122,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                          make_categorical_q_network,
                                          make_critic_network,
                                          make_deterministic_actor_network,
-                                         make_q_network,
+                                         make_q_network, make_q_rnn_network,
                                          make_sac_actor_network,
-                                         make_value_network)
+                                         make_value_network,
+                                         make_value_rnn_network)
+  from agents_tpu_torch.networks import \
+      make_actor_distribution_rnn_network as make_actor_rnn
   from agents_tpu_torch.replay_buffers import UniformReplay
   from agents_tpu_torch.train import FusedTrainLoop, OnPolicyTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
@@ -150,6 +154,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   ppo = PPOAgent(tss, asp, torch.optim.Adam, ppo_actor, ppo_value,
                  device="cpu")
   det_actor = make_deterministic_actor_network(sobs, sact, (8,), device="cpu")
+  rnn = dict(input_fc_layer_params=(4,), lstm_size=4)
+  qrnn = make_q_rnn_network(tss.observation, asp, **rnn, device="cpu")
+  actor_rnn = make_actor_rnn(tss.observation, asp, **rnn, device="cpu")
+  value_rnn = make_value_rnn_network(tss.observation, **rnn, device="cpu")
 
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   for build in (lambda: BatchedTorchEnv(CartPole(), 4),
@@ -191,7 +199,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                 lambda: BatchedTorchEnv(Acrobot(), 4),
                 lambda: BatchedTorchEnv(MountainCar(), 4),
                 lambda: BatchedTorchEnv(ContinuousMountainCar(), 4),
-                lambda: BiasLayer(4)):
+                lambda: BiasLayer(4),
+                lambda: make_q_rnn_network(tss.observation, asp),
+                lambda: make_value_rnn_network(tss.observation),
+                lambda: make_actor_rnn(tss.observation, asp),
+                lambda: DqnAgent(tss, asp, qrnn, torch.optim.Adam,
+                                 train_sequence_length=4),
+                lambda: PPOAgent(tss, asp, torch.optim.Adam, actor_rnn,
+                                 value_rnn)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 

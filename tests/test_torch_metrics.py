@@ -28,6 +28,15 @@ def test_deque_push_batch_overflow_keeps_most_recent():
   assert_equal(dq.data, jdq.data)
 
 
+def test_deque_drop_slot_holds_zeros():
+  """Rows a push drops land in the spare slot as zeros, whatever their
+  values: the slot is the same whichever write the card keeps."""
+  state = torch_metrics.DequeState.create(2)
+  mask = torch.tensor([True, False, True, True, False])
+  state = state.push_batch(mask, torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0]))
+  assert_equal(state.buffer, np.array([4.0, 3.0, 0.0], np.float32))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_deque_push_batch_matches_jax(seed):
   """Random masks over several pushes, partial and overflowing."""

@@ -18,6 +18,13 @@ by the port:
           checked every 250: the first check at -250 or more, and the
           last-20 return at the end. `qtopt_bar` turns the five seeds'
           runs into the bar.
+  ppo_rnn `agents_tpu`'s `PPOAgent` with LSTM actor and value networks in
+          its `OnPolicyTrainLoop` at `examples/ppo_cartpole_torch.py
+          --preset=rnn_learn` (the config of `tests/test_ppo_rnn.py:87-107`:
+          B=8, T=48, input (32,), LSTM 16, output (32,), 4 epochs x 2
+          minibatches, entropy 0.01, Adam 1e-3) for its 30 iterations: the
+          last-20 return at the end. `ppo_rnn_bar` turns the five seeds'
+          returns into the bar.
   offline the pipeline of `examples/cql_sac_offline_torch.py` (the device
           Pendulum pipeline of `tests/test_cql_offline_e2e.py`): a brief
           SAC behaviour run, a 2,048 x 8 frame collect by
@@ -35,7 +42,9 @@ about 3 minutes on one core; ``--qtopt-seed=N``, repeated, runs only those
 seeds, so five processes can run them side by side):
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
-        [offline] [qtopt [--qtopt-seed=N ...]]
+        [offline] [qtopt [--qtopt-seed=N ...]] [ppo_rnn]
+
+(`ppo_rnn` takes about a minute a seed on one core.)
 
 The tests below check that these runs are built from the port examples'
 configurations, so the bars are of the same configuration.
@@ -200,6 +209,65 @@ def qtopt_bar(runs):
     return LEARN_GATE
   finals = [r["last20_average_return"] for r in runs]
   return min(finals) - (max(finals) - min(finals)) / 3.0
+
+
+PPO_RNN_GATE = 35.0
+
+
+def jax_ppo_rnn_loop(cfg):
+  """The JAX `OnPolicyTrainLoop` of the example's `--preset=rnn_learn`."""
+  from agents_tpu import metrics, networks
+  from agents_tpu.agents.ppo import PPOAgent
+  from agents_tpu.environments.classic.cartpole import CartPole
+  from agents_tpu.environments.jax_environment import BatchedJaxEnv
+  from agents_tpu.train import OnPolicyTrainLoop
+
+  env = BatchedJaxEnv(CartPole(cfg.max_episode_steps),
+                      batch_size=cfg.env_batch_size)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  rnn = dict(lstm_size=cfg.lstm_size,
+             output_fc_layer_params=cfg.lstm_output_fc_layers)
+  agent = PPOAgent(
+      tss, asp, _adam(cfg.learning_rate),
+      networks.make_actor_distribution_rnn_network(
+          tss.observation, asp, input_fc_layer_params=cfg.actor_fc_layers,
+          **rnn),
+      networks.make_value_rnn_network(
+          tss.observation, input_fc_layer_params=cfg.value_fc_layers, **rnn),
+      importance_ratio_clipping=cfg.importance_ratio_clipping,
+      discount_factor=cfg.discount_factor, lambda_value=cfg.lambda_value,
+      num_epochs=cfg.num_epochs, num_minibatches=cfg.num_minibatches,
+      entropy_regularization=cfg.entropy_regularization)
+  return OnPolicyTrainLoop(env, agent,
+                           metrics.standard_collect_metrics(cfg.return_buffer),
+                           rollout_length=cfg.rollout_length)
+
+
+def run_ppo_rnn_bar(cfg):
+  """The whole `cfg.num_iterations`, the last-20 return every 5."""
+  import jax
+  import numpy as np
+
+  loop = jax_ppo_rnn_loop(cfg)
+  state = jax.jit(loop.init)(jax.random.key(cfg.seed))
+  run = jax.jit(lambda s: loop.run(s, 5))
+  points, t0 = [], time.time()
+  for iterations in range(5, cfg.num_iterations + 1, 5):
+    state, _ = run(state)
+    points.append([iterations, float(np.asarray(
+        loop.results(state)["AverageReturn"]))])
+  return {"last20_average_return": points[-1][1], "points": points,
+          "seconds": time.time() - t0}
+
+
+def ppo_rnn_bar(runs):
+  """The `ppo_rnn_learn` bar from the JAX runs over seeds 0-4: the JAX
+  test's 35 unless all five clear it; then the worst seed's return less a
+  third of the spread across seeds, and never under 35."""
+  finals = [r["last20_average_return"] for r in runs]
+  if min(finals) <= PPO_RNN_GATE:
+    return PPO_RNN_GATE
+  return max(PPO_RNN_GATE, min(finals) - (max(finals) - min(finals)) / 3.0)
 
 
 def normalized_score(ret, behavior_return, random_return):
@@ -441,6 +509,41 @@ def test_qtopt_bar_rule():
   assert qtopt_bar(runs) == -500.0 - (500.0 - 180.0) / 3.0
 
 
+def test_ppo_rnn_bar_runs_the_rnn_learn_preset():
+  """The JAX loop of the port's `--preset=rnn_learn`: its batch, rollout,
+  widths and PPO settings, and one iteration with a finite loss."""
+  import jax
+  import numpy as np
+
+  from examples.ppo_cartpole_torch import parse_ppo_args
+
+  cfg = parse_ppo_args(["--preset=rnn_learn"])
+  loop = jax_ppo_rnn_loop(cfg)
+  agent = loop.agent
+  assert (loop.env.batch_size, loop.rollout_length, cfg.num_iterations) == (
+      8, 48, 30)
+  assert (agent.num_epochs, agent.num_minibatches,
+          agent.entropy_regularization, agent._recurrent) == (4, 2, 0.01,
+                                                               True)
+  params = agent.actor_network.init_params(jax.random.key(0))["params"]
+  encoder = params["LSTMEncoderModule_0"]
+  assert encoder["Dense_0"]["kernel"].shape == (4, 32)
+  assert encoder["Dense_1"]["kernel"].shape == (16, 32)
+  state = loop.init(jax.random.key(0))
+  state, losses = loop.run(state, 1)
+  assert np.isfinite(np.asarray(losses)).all()
+
+
+def test_ppo_rnn_bar_rule():
+  runs = [{"last20_average_return": r} for r in (60.0, 90.0, 75.0, 48.0,
+                                                 120.0)]
+  assert ppo_rnn_bar(runs) == PPO_RNN_GATE
+  runs[3]["last20_average_return"] = 84.0
+  assert ppo_rnn_bar(runs) == 60.0 - (120.0 - 60.0) / 3.0
+  runs[0]["last20_average_return"] = 30.0
+  assert ppo_rnn_bar(runs) == PPO_RNN_GATE
+
+
 def test_offline_bars_run_the_example_defaults():
   """The offline pipeline's config is `tests/test_cql_offline_e2e.py`'s:
   B=8, (64, 64), ring 4096 and 2 train steps of 128 for the behaviour run,
@@ -468,7 +571,7 @@ if __name__ == "__main__":
   from examples.cql_sac_offline_torch import Config as OfflineConfig
   from examples.td3_pendulum_torch import parse_td3_args
 
-  which = sys.argv[1:] or ["td3", "offline", "qtopt"]
+  which = sys.argv[1:] or ["td3", "offline", "qtopt", "ppo_rnn"]
   if "td3" in which:
     for seed in range(5):
       td3 = run_td3_bar(dataclasses.replace(parse_td3_args(["--preset=live"]),
@@ -486,6 +589,15 @@ if __name__ == "__main__":
             flush=True)
     if len(qtopt_runs) == 5:
       print(json.dumps({"qtopt_bar": qtopt_bar(qtopt_runs)}), flush=True)
+  if "ppo_rnn" in which:
+    from examples.ppo_cartpole_torch import parse_ppo_args
+    ppo_rnn_runs = []
+    for seed in range(5):
+      ppo_rnn_runs.append(run_ppo_rnn_bar(dataclasses.replace(
+          parse_ppo_args(["--preset=rnn_learn"]), seed=seed)))
+      print(json.dumps({"ppo_rnn_seed": seed, **ppo_rnn_runs[-1]}),
+            flush=True)
+    print(json.dumps({"ppo_rnn_bar": ppo_rnn_bar(ppo_rnn_runs)}), flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)
