@@ -17,41 +17,22 @@ sampler copies nothing to the card after its first call.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
 from agents_tpu_torch import distributions as dist_lib
 from agents_tpu_torch.specs import array_spec
+from agents_tpu_torch.utils import nest_utils
 
 CEM_NORMAL_SITE = "cem_normal"
 CEM_CATEGORICAL_SITE = "cem_categorical"
 
 
-def sorted_leaves(nest) -> List:
-  """The leaves of a spec (or value) nest, dict keys sorted."""
-  if isinstance(nest, dict):
-    return [leaf for k in sorted(nest) for leaf in sorted_leaves(nest[k])]
-  if isinstance(nest, (tuple, list)):
-    return [leaf for child in nest for leaf in sorted_leaves(child)]
-  return [nest]
-
-
-def unflatten_sorted(spec, leaves):
-  """The nest of `spec`'s structure holding `leaves` (in sorted-key order)."""
-  it = iter(leaves)
-
-  def build(s):
-    if isinstance(s, dict):
-      values = {k: build(s[k]) for k in sorted(s)}
-      return {k: values[k] for k in s}
-    if isinstance(s, (tuple, list)):
-      children = [build(c) for c in s]
-      return type(s)(*children) if hasattr(s, "_fields") else type(s)(children)
-    return next(it)
-
-  return build(spec)
+# The leaves of a spec (or value) nest with dict keys sorted, and back.
+sorted_leaves = nest_utils.flatten_sorted
+unflatten_sorted = nest_utils.unflatten_sorted
 
 
 def _gather_elites(samples: torch.Tensor, elite_idx: torch.Tensor,
@@ -108,7 +89,7 @@ class ActionsSampler:
     samples = mean[None] + torch.sqrt(var)[None] * eps
     return torch.clamp(samples, bounds[0], bounds[1])
 
-  def init(self, batch_size: int, initial_std: float = 0.33, device="cpu"):
+  def init(self, batch_size: int, initial_std: float = 0.33, *, device):
     raise NotImplementedError
 
   def sample_batch_and_clip(self, draws, num_samples, dist_params):
@@ -137,7 +118,7 @@ class GaussianContinuousSampler(ActionsSampler):
       if not array_spec.is_continuous(s):
         raise ValueError("continuous sampler requires continuous leaves")
 
-  def init(self, batch_size, initial_std=0.33, device="cpu"):
+  def init(self, batch_size, initial_std=0.33, *, device):
     params = [self._gaussian_init(s, b, batch_size, initial_std)
               for s, b in zip(self.specs, self._bounds(device))]
     return tuple(m for m, _ in params), tuple(v for _, v in params)
@@ -215,7 +196,7 @@ class GaussianOneHotSampler(ActionsSampler):
             f"(rank-1, 0/1 bounds); got discrete spec {s}. Use "
             "GaussianHybridSampler for integer-index action leaves.")
 
-  def init(self, batch_size, initial_std=0.33, device="cpu"):
+  def init(self, batch_size, initial_std=0.33, *, device):
     means, variances = [], []
     for s, b in zip(self.specs, self._bounds(device)):
       if self._is_one_hot(s):

@@ -1,13 +1,16 @@
 """Array specs: shape/dtype(/bounds) descriptors for nest leaves.
 
 Port of ``agents_tpu/specs/array_spec.py`` (`ArraySpec`, `BoundedArraySpec`,
-`zero_spec_nest`, `sample_spec_nest`, `is_discrete`, `is_continuous`).
+`zero_spec_nest`, `sample_spec_nest`, `is_discrete`, `is_continuous`, and
+the host helpers `np_sample_spec_nest`, `check_arrays_nest`,
+`add_outer_dims_nest`, `remove_outer_dims_nest`, `spec_from_array_nest`).
 Dtypes stay numpy dtypes, as in the JAX package; `torch_dtype` maps them
 for tensor creation. Sampling takes a draw source
 (`agents_tpu_torch.utils.draws`) in place of a PRNG key.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -234,3 +237,106 @@ def zero_spec_nest(specs, outer_dims: Sequence[int] = (), device=None):
   return map_spec_nest(
       lambda s: torch.zeros(outer + s.shape, dtype=torch_dtype(s.dtype),
                             device=device), specs)
+
+
+def np_sample_spec_nest(specs, rng, outer_dims: Sequence[int] = ()):
+  """A numpy nest conforming to `specs`, drawn from the
+  `np.random.RandomState` `rng` leaf by leaf in the JAX package's order
+  (dict keys sorted), with its calls, so that a host random action equals
+  the JAX package's from the same state bit for bit.
+
+  Integer bounded specs are uniform over the INCLUSIVE range [minimum,
+  maximum]; bool specs fair coins; dtype-extreme (unbounded) float specs
+  standard normal, bounded ones uniform within bounds clipped to +-1e6."""
+  outer = tuple(outer_dims)
+
+  def _one(s):
+    shape = outer + tuple(s.shape)
+    if isinstance(s, BoundedArraySpec):
+      lo = np.broadcast_to(s.minimum, s.shape)
+      hi = np.broadcast_to(s.maximum, s.shape)
+      if np.issubdtype(s.dtype, np.integer):
+        return rng.randint(np.broadcast_to(lo, shape),
+                           np.broadcast_to(hi, shape).astype(np.int64) + 1
+                           ).astype(s.dtype)
+      if s.dtype == np.bool_:
+        return rng.rand(*shape) < 0.5
+      finfo = np.finfo(s.dtype)
+      lo_f, hi_f = lo.astype(np.float64), hi.astype(np.float64)
+      if np.all(lo_f <= float(finfo.min) / 2) and \
+          np.all(hi_f >= float(finfo.max) / 2):
+        return rng.standard_normal(shape).astype(s.dtype)
+      lo_c = np.maximum(lo_f, -1e6)
+      hi_c = np.minimum(hi_f, 1e6)
+      return rng.uniform(np.broadcast_to(lo_c, shape),
+                         np.broadcast_to(hi_c, shape)).astype(s.dtype)
+    if np.issubdtype(s.dtype, np.integer):
+      return rng.randint(-(2**28), 2**28, size=shape).astype(s.dtype)
+    if s.dtype == np.bool_:
+      return rng.rand(*shape) < 0.5
+    return rng.standard_normal(shape).astype(s.dtype)
+
+  return map_spec_nest_sorted(_one, specs)
+
+
+def map_spec_nest_sorted(fn, *nests):
+  """`map_spec_nest` calling `fn` in the JAX package's leaf order."""
+  return nest_utils.tree_map_sorted(fn, *nests, is_leaf=_is_spec)
+
+
+def _structure(nest, is_leaf):
+  """A comparable description of `nest`'s containers (leaves as "*")."""
+  if is_leaf(nest):
+    return "*"
+  if nest is None:
+    return None
+  if dataclasses.is_dataclass(nest) and not isinstance(nest, type):
+    return (type(nest).__name__, tuple(
+        (f.name, _structure(getattr(nest, f.name), is_leaf))
+        for f in dataclasses.fields(nest)))
+  if isinstance(nest, (tuple, list)):
+    return (type(nest).__name__, tuple(_structure(c, is_leaf) for c in nest))
+  if isinstance(nest, dict):
+    return ("dict", tuple((k, _structure(nest[k], is_leaf))
+                          for k in sorted(nest)))
+  return "*"
+
+
+def check_arrays_nest(arrays, specs) -> bool:
+  """True iff `arrays` has `specs`' structure and every leaf conforms to
+  its spec (shape, dtype and, for a bounded spec, bounds)."""
+  is_array = lambda x: isinstance(x, (np.ndarray, torch.Tensor))  # noqa
+  if _structure(arrays, is_array) != _structure(specs, _is_spec):
+    return False
+  return all(s.check_array(a) for s, a in zip(
+      nest_utils.flatten_sorted(specs, is_leaf=_is_spec),
+      nest_utils.flatten_sorted(arrays)))
+
+
+def add_outer_dims_nest(specs, outer_dims: Sequence[int]):
+  """Every spec's shape prefixed with `outer_dims`."""
+  outer = tuple(outer_dims)
+  return map_spec_nest(lambda s: s.replace(shape=outer + s.shape), specs)
+
+
+def remove_outer_dims_nest(specs, num_outer_dims: int):
+  """Every spec's shape without its `num_outer_dims` leading dims."""
+
+  def _rm(s):
+    if len(s.shape) < num_outer_dims:
+      raise ValueError(f"Spec {s} has fewer than {num_outer_dims} outer dims")
+    return s.replace(shape=s.shape[num_outer_dims:])
+
+  return map_spec_nest(_rm, specs)
+
+
+def spec_from_array_nest(arrays, num_outer_dims: int = 0):
+  """An `ArraySpec` nest of `arrays` (numpy arrays or tensors) without
+  their `num_outer_dims` leading dims."""
+
+  def _leaf(a):
+    dtype = (np.dtype(str(a.dtype).replace("torch.", ""))
+             if isinstance(a, torch.Tensor) else a.dtype)
+    return ArraySpec(tuple(a.shape)[num_outer_dims:], dtype)
+
+  return nest_utils.tree_map(_leaf, arrays)

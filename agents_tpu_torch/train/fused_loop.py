@@ -26,7 +26,7 @@ from agents_tpu_torch.metrics import torch_metrics
 from agents_tpu_torch.replay_buffers.uniform_replay import UniformReplay
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.common import LossInfo
-from agents_tpu_torch.utils.device import resolve_device
+from agents_tpu_torch.utils.device import check_devices, resolve_device
 from agents_tpu_torch.utils.draws import as_draws
 
 
@@ -59,10 +59,7 @@ class FusedTrainLoop:
                sample_batch_size: int = 64,
                train_steps_per_iteration: int = 1, device="cuda"):
     self.device = resolve_device(device)
-    for name, part in (("env", env), ("agent", agent), ("replay", replay)):
-      if part.device.type != self.device.type:
-        raise ValueError(
-            f"{name} lives on {part.device}, the loop on {self.device}")
+    check_devices(self.device, env=env, agent=agent, replay=replay)
     self.env = env
     self.agent = agent
     self.replay = replay

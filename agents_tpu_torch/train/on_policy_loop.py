@@ -18,7 +18,7 @@ from typing import Any, Tuple
 from agents_tpu_torch.drivers.torch_driver import DriverState, TorchDriver
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.common import LossInfo
-from agents_tpu_torch.utils.device import resolve_device
+from agents_tpu_torch.utils.device import check_devices, resolve_device
 from agents_tpu_torch.utils.draws import as_draws
 
 
@@ -45,10 +45,7 @@ class OnPolicyTrainLoop:
   def __init__(self, env, agent, metrics=(), rollout_length: int = 128,
                device="cuda"):
     self.device = resolve_device(device)
-    for name, part in (("env", env), ("agent", agent)):
-      if part.device.type != self.device.type:
-        raise ValueError(
-            f"{name} lives on {part.device}, the loop on {self.device}")
+    check_devices(self.device, env=env, agent=agent)
     self.env = env
     self.agent = agent
     self.metrics = tuple(metrics)

@@ -1,9 +1,12 @@
 """Trajectory / Transition and the conversions the main path uses.
 
 Port of ``agents_tpu/trajectories/trajectory.py``: `Trajectory`,
-`Transition`, `from_transition` (:152), `to_transition` (:166),
-`to_n_step_transition` (:194), `trajectory_spec` (:248) and
-`check_adjacent_transition_sequence` (:262).
+`Transition`, the factories `first`, `mid`, `last`, `boundary`,
+`single_step` and `from_episode` (:72-149), `from_transition` (:152),
+`to_transition` (:166), `to_n_step_transition` (:194), `trajectory_spec`
+(:248), `check_adjacent_transition_sequence` (:262) and
+`to_transition_spec` (:278). `from_transition` takes numpy or tensor
+leaves alike.
 """
 from __future__ import annotations
 
@@ -51,6 +54,74 @@ class Transition:
   time_step: ts.TimeStep
   action_step: ps.PolicyStep
   next_time_step: ts.TimeStep
+
+
+def _create_trajectory(observation, action, policy_info, reward, discount,
+                       step_type, next_step_type) -> Trajectory:
+  discount = torch.as_tensor(discount, dtype=torch.float32)
+  as_tensors = lambda nest: nest_utils.tree_map(torch.as_tensor, nest)  # noqa
+  full = lambda v: torch.full(tuple(discount.shape), v, dtype=torch.int32,  # noqa
+                              device=discount.device)
+  return Trajectory(
+      step_type=full(step_type), observation=as_tensors(observation),
+      action=as_tensors(action), policy_info=as_tensors(policy_info),
+      next_step_type=full(next_step_type), reward=as_tensors(reward),
+      discount=discount)
+
+
+def first(observation, action, policy_info, reward, discount) -> Trajectory:
+  """FIRST -> MID frame."""
+  return _create_trajectory(observation, action, policy_info, reward, discount,
+                            ts.StepType.FIRST, ts.StepType.MID)
+
+
+def mid(observation, action, policy_info, reward, discount) -> Trajectory:
+  """MID -> MID frame."""
+  return _create_trajectory(observation, action, policy_info, reward, discount,
+                            ts.StepType.MID, ts.StepType.MID)
+
+
+def last(observation, action, policy_info, reward, discount) -> Trajectory:
+  """MID -> LAST frame."""
+  return _create_trajectory(observation, action, policy_info, reward, discount,
+                            ts.StepType.MID, ts.StepType.LAST)
+
+
+def boundary(observation, action, policy_info, reward, discount
+             ) -> Trajectory:
+  """LAST -> FIRST frame: the episode boundary."""
+  return _create_trajectory(observation, action, policy_info, reward, discount,
+                            ts.StepType.LAST, ts.StepType.FIRST)
+
+
+def single_step(observation, action, policy_info, reward, discount
+                ) -> Trajectory:
+  """FIRST -> LAST frame (a length-1 episode)."""
+  return _create_trajectory(observation, action, policy_info, reward, discount,
+                            ts.StepType.FIRST, ts.StepType.LAST)
+
+
+def from_episode(observation, action, policy_info, reward, discount=None
+                 ) -> Trajectory:
+  """A time-major Trajectory of one whole episode, every input ``[T,
+  ...]``: step types FIRST then MID, next step types MID then LAST at the
+  final frame; the discount is ones when None."""
+  reward = nest_utils.tree_map(torch.as_tensor, reward)
+  r0 = nest_utils.flatten(reward)[0]
+  num_frames = r0.shape[0]
+  discount = (torch.ones((num_frames,), dtype=torch.float32, device=r0.device)
+              if discount is None
+              else torch.as_tensor(discount, dtype=torch.float32))
+  time_ix = torch.arange(num_frames, device=r0.device)
+  as_tensors = lambda nest: nest_utils.tree_map(torch.as_tensor, nest)  # noqa
+  return Trajectory(
+      step_type=torch.where(time_ix == 0, ts.StepType.FIRST,
+                            ts.StepType.MID).to(torch.int32),
+      observation=as_tensors(observation), action=as_tensors(action),
+      policy_info=as_tensors(policy_info),
+      next_step_type=torch.where(time_ix == num_frames - 1, ts.StepType.LAST,
+                                 ts.StepType.MID).to(torch.int32),
+      reward=reward, discount=discount)
 
 
 def from_transition(time_step: ts.TimeStep, action_step: ps.PolicyStep,
@@ -166,3 +237,15 @@ def check_adjacent_transition_sequence(experience: Trajectory,
         f"{agent_name} trains on adjacent-frame transitions "
         f"(train_sequence_length=2); got experience with step_type shape "
         f"{shape}. Sample replay with num_steps=2.")
+
+
+def to_transition_spec(traj_spec: Trajectory) -> Transition:
+  """The Transition spec of a trajectory spec."""
+  time_step_spec = ts.TimeStep(
+      step_type=traj_spec.step_type, reward=traj_spec.reward,
+      discount=traj_spec.discount, observation=traj_spec.observation)
+  return Transition(
+      time_step=time_step_spec,
+      action_step=ps.PolicyStep(action=traj_spec.action, state=(),
+                                info=traj_spec.policy_info),
+      next_time_step=time_step_spec)

@@ -3,9 +3,10 @@
 Port of the main path's part of ``agents_tpu/utils/common.py``:
 `LossInfo`, `soft_variables_update`, `periodic_soft_update`,
 `index_with_actions`, the element-wise losses, `aggregate_losses`,
-`clip_gradient_norms`, and `log_probability` and `entropy` over nests of
-distributions (:101-122). Target updates and gradient clipping act on the
-tensors in place.
+`clip_gradient_norms`, `log_probability` and `entropy` over nests of
+distributions (:101-122), `discounted_future_sum` (:125), `compute_returns`
+(:141) and `OUProcess` (:150). Target updates and gradient clipping act on
+the tensors in place.
 """
 from __future__ import annotations
 
@@ -128,3 +129,48 @@ def aggregate_losses(per_example_loss: Optional[torch.Tensor] = None,
   if regularization_loss is not None:
     total = total + torch.sum(regularization_loss)
   return total
+
+
+def discounted_future_sum(values: torch.Tensor, gamma: float,
+                          num_steps: int) -> torch.Tensor:
+  """Windowed discounted sums over ``[B, T]`` values, zero-padded:
+  ``out[:, t] = sum_{n < num_steps} gamma^n * values[:, t + n]``."""
+  t = values.shape[1]
+  padded = torch.nn.functional.pad(values, (0, num_steps - 1))
+  powers = float(gamma) ** torch.arange(num_steps, dtype=values.dtype,
+                                        device=values.device)
+  idx = (torch.arange(t, device=values.device)[:, None]
+         + torch.arange(num_steps, device=values.device)[None, :])
+  return torch.sum(padded[:, idx] * powers, dim=-1)
+
+
+def compute_returns(rewards: torch.Tensor, discounts: torch.Tensor,
+                    time_major: bool = False) -> torch.Tensor:
+  """Return-to-go per step of ``[T]``, ``[T, B]`` (time-major) or ``[B,
+  T]`` rewards; `discounts` already include gamma."""
+  from agents_tpu_torch.utils import value_ops
+  if not time_major and rewards.dim() > 1:
+    return value_ops.discounted_return(rewards, discounts, time_major=False)
+  return value_ops.discounted_return(rewards, discounts, time_major=True)
+
+
+class OUProcess:
+  """Ornstein-Uhlenbeck noise as a function of (state, draws): each step
+  draws a normal of the state's shape at `site`."""
+
+  def __init__(self, spec_shape, damping: float = 0.15, stddev: float = 0.2,
+               dtype=torch.float32):
+    self.shape = tuple(spec_shape)
+    self.damping = damping
+    self.stddev = stddev
+    self.dtype = dtype
+
+  def init_state(self, batch_shape=(), device=None) -> torch.Tensor:
+    return torch.zeros(tuple(batch_shape) + self.shape, dtype=self.dtype,
+                       device=device)
+
+  def step(self, state: torch.Tensor, draws, site: str = "ou_noise"):
+    """(new state, noise): both ``(1 - damping) * state + stddev * eps``."""
+    noise = draws.normal(site, tuple(state.shape), dtype=self.dtype)
+    new_state = (1.0 - self.damping) * state + noise * self.stddev
+    return new_state, new_state

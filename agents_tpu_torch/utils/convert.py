@@ -64,6 +64,11 @@ Whole TD3, DDPG, QtOpt, CQL-SAC and behavioural-cloning agent states
 cross with their Adams' moments and counts (`td3_agent_state_to_torch`,
 `qtopt_agent_state_to_torch` and the others below, each with its
 `load_*`). QtOpt's critic and its three targets are critic trees.
+
+The host loops' state beyond the agent crosses too: a `UniformReplay`
+state (`uniform_replay_state_to_torch`, `load_uniform_replay_state`; the
+JAX storage unpacked, as small rows are) and the py-metric states of the
+JAX async loop's checkpoint (`py_metric_states_to_torch`).
 """
 from __future__ import annotations
 
@@ -678,3 +683,43 @@ def load_bc_agent_state(agent_state, converted: Dict):
   _load_optimizer(agent_state.optimizer, converted["adam"])
   return dataclasses.replace(agent_state,
                              train_step=converted["train_step"])
+
+
+_TRAJECTORY_FIELDS = ("step_type", "observation", "action", "policy_info",
+                      "next_step_type", "reward", "discount")
+
+
+def uniform_replay_state_to_torch(state) -> Dict:
+  """A JAX `ReplayState` of Trajectory frames (numpy leaves, rows not
+  packed) in port terms: "storage" ({field: nest of CPU tensors, dtypes
+  kept}) and "count" (int); `load_uniform_replay_state` applies it."""
+  storage = {f: _map(getattr(state.storage, f),
+                     lambda x: torch.from_numpy(np.array(x)))
+             for f in _TRAJECTORY_FIELDS}
+  return {"storage": storage, "count": int(np.asarray(state.count))}
+
+
+def load_uniform_replay_state(replay_state, converted: Dict):
+  """Copy `uniform_replay_state_to_torch`'s output into a port
+  `ReplayState`'s storage (in place) and return it with the count."""
+  from agents_tpu_torch.utils import nest_utils
+
+  for f in _TRAJECTORY_FIELDS:
+    nest_utils.tree_map(lambda dst, src: dst.copy_(src),
+                        getattr(replay_state.storage, f),
+                        converted["storage"][f])
+  return dataclasses.replace(replay_state, count=converted["count"])
+
+
+def py_metric_states_to_torch(saved) -> list:
+  """The "metrics" entry of the JAX async loop's checkpoint (per metric a
+  deque padded to its maxlen with its length, or a count) as the
+  `set_state` dicts of the port's py metrics."""
+  out = []
+  for st in saved:
+    if "buffer" in st:
+      n = int(np.asarray(st["n"]))
+      out.append({"buffer": [float(v) for v in np.asarray(st["buffer"])[:n]]})
+    else:
+      out.append({"count": int(np.asarray(st["count"]))})
+  return out

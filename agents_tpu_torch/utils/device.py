@@ -16,3 +16,11 @@ def resolve_device(device="cuda") -> torch.device:
         f"device={str(device)!r} requested but torch.cuda.is_available() is "
         "False; pass device='cpu' to run on the CPU")
   return device
+
+
+def check_devices(device: torch.device, **parts) -> None:
+  """Raise unless every named part (its `.device`) lives on `device`'s
+  type of device."""
+  for name, part in parts.items():
+    if part.device.type != device.type:
+      raise ValueError(f"{name} lives on {part.device}, the loop on {device}")

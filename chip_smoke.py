@@ -6,7 +6,8 @@ card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line
 with its wall time since the line before (`phase_seconds`); any failed
 phase exits non-zero before the last line. The phases run in the order
-below, except the five long learning runs: `sac_learn` runs last, while
+below, except the five long learning runs: `sac_learn` runs last (after
+the host phases 34-39), while
 `td3_learn`, `cql_offline` with `bc`, `qtopt_learn` and `ppo_rnn_learn`
 run beside it in four child processes of this script (``chip_smoke.py
 --child NAME``) on the same card, after every timed phase.
@@ -230,9 +231,51 @@ run beside it in four child processes of this script (``chip_smoke.py
                   tightened to the JAX package's own runs over five seeds,
                   `tests/test_torch_reference_bars.py`), then greedy eval
                   over exactly 30 episodes; a fourth child process.
- 34. kernels      the port's hand-written kernels on these paths (none: the
+ 34. host_parity  `HostDeviceTrainLoop` with SAC at (256, 256) over a
+                  `BatchedPyEnvironment` of 8 seeded `RandomPyEnvironment`s
+                  with HalfCheetah-v5's specs (observation (17,), action
+                  (6,) in [-1, 1]), ring 64, sample 32, 2 train steps per
+                  tick: 4 random ticks then 3 ticks on "cpu" and "cuda" from
+                  numpy-made params and one replayed stream of draws (TF32
+                  off): the loss, the five networks, log alpha, the Adams'
+                  moments, the replay storage, the actions and time steps
+                  agree (rtol 1e-5 / atol 1e-5); py-metric results and step
+                  types equal.
+ 35. host_sac_main  the sync host loop at `bench.py:sac_live_probe`'s point
+                  (`examples/sac_halfcheetah_torch.py`'s agent and replay:
+                  B=32 random HalfCheetahs on a thread pool, ring 4096,
+                  sample 256, 32 train steps per tick, (256, 256), reward
+                  scale 0.1; 64 random ticks): 5 windows of 2 ticks (ms per
+                  tick, env-steps/s, train-steps/s, the tick's split into
+                  device dispatch, action read and env step), host syncs
+                  per tick under ``set_sync_debug_mode("warn")`` (expected:
+                  1, the action read), a 2-tick profile.
+ 36. async_sac_main  `AsyncHostDeviceTrainLoop` at that point (UTD 1.0,
+                  `min_replay_frames` 64 B, 32 train steps per call): a ramp
+                  run of 256 ticks, then 1,200 timed ticks (the probe's
+                  minimum): env-steps/s, train-steps/s, the realized UTD over
+                  the trainable window (``bench.py:102-106``), the collector's
+                  median tick with and without a train call in flight; gates
+                  on the trainer's drain, exact env steps and train steps <=
+                  UTD x env steps + 32, not on the UTD itself.
+ 37. host_ppo_main  `HostOnPolicyTrainLoop` at `examples/ppo_halfcheetah.py`'s
+                  schulman17 config (B=1, T=2049, (64, 64) tanh, 10 x 32
+                  minibatches, clip 0.2, gradient clipping 0.5) over a random
+                  HalfCheetah: 1 warm-up and 2 timed iterations, each split
+                  into collect, stacking and copy, and train; host syncs per
+                  env step.
+ 38. parallel_env `ParallelPyEnvironment` of 4 random HalfCheetah workers
+                  started after CUDA is initialized (so by spawn), overlapped
+                  and blocking: 50 steps equal a `BatchedPyEnvironment` of
+                  the same seeds exactly; no worker outlives `close`.
+ 39. async_resume the async loop (B=8, ring 256, 4 train steps per call) for
+                  60 ticks with checkpoints every 25 and at the end, then a
+                  fresh loop object resumed toward 90: the restored state
+                  `torch.equal` to the saved one, counters and metrics
+                  continued.
+ 40. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 35. total        the script's wall time; then {"kernels": []}, and as the
+ 41. total        the script's wall time; then {"kernels": []}, and as the
                   last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -3326,6 +3369,522 @@ def phase_checkpoint_resume(card):
          "a break")
 
 
+# -- host environments and the host-device loops -------------------------------
+
+HALFCHEETAH_OBS, HALFCHEETAH_ACT = 17, 6
+HOST_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
+                   train_steps_per_call=2)
+HOST_PARITY_RANDOM, HOST_PARITY_TICKS = 4, 3
+# The per-tensor bound of the PPO, CQL and QtOpt parity phases, for the
+# networks and Adam moments (PERF.md §6).
+HOST_PARITY_TENSOR_RTOL = 1e-4
+HOST_SAC = dict(env_batch_size=32, replay_capacity=4096,
+                sample_batch_size=256, train_steps_per_call=32,
+                utd_ratio=1.0, initial_collect_ticks=64)
+HOST_SAC_WARMUP, HOST_SAC_WINDOWS, HOST_SAC_WINDOW, HOST_SAC_PROFILED = (
+    2, 5, 2, 2)
+ASYNC_RAMP_TICKS, ASYNC_TIMED_TICKS, ASYNC_RANDOM_TICKS = 256, 1200, 32
+HOST_PPO_WARMUP, HOST_PPO_TIMED = 1, 2
+PARALLEL_WORKERS, PARALLEL_STEPS = 4, 50
+ASYNC_RESUME = dict(env_batch_size=8, replay_capacity=256,
+                    sample_batch_size=32, train_steps_per_call=4,
+                    utd_ratio=1.0, initial_collect_ticks=4)
+ASYNC_RESUME_TICKS, ASYNC_RESUME_MORE, ASYNC_RESUME_EVERY = 60, 90, 25
+
+
+def halfcheetah_specs():
+  """HalfCheetah-v5's specs: observation (17,) float32 (unbounded),
+  action (6,) float32 in [-1, 1]."""
+  import numpy as np
+
+  from agents_tpu_torch.specs import array_spec
+
+  return (array_spec.ArraySpec((HALFCHEETAH_OBS,), np.float32, "observation"),
+          array_spec.BoundedArraySpec((HALFCHEETAH_ACT,), np.float32, -1.0,
+                                      1.0, "action"))
+
+
+def random_halfcheetah(seed=0, **kwargs):
+  """A seeded `RandomPyEnvironment` with HalfCheetah-v5's specs; by default
+  1,000-step episodes, as HalfCheetah's time limit gives."""
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+
+  kwargs = {"episode_end_probability": 0.0, "max_duration": 1000, **kwargs}
+  return RandomPyEnvironment(*halfcheetah_specs(), seed=seed, **kwargs)
+
+
+def halfcheetah_factory(**kwargs):
+  """A `make_env` for the examples: each call a new seed."""
+  seeds = iter(range(10**6))
+  return lambda: random_halfcheetah(next(seeds), **kwargs)
+
+
+def sac_config(**fields):
+  from examples.sac_halfcheetah_torch import Config
+  return Config(**fields)
+
+
+def sync_sac_loop(cfg, device, env_kwargs=None):
+  """`HostDeviceTrainLoop` over `cfg.env_batch_size` random HalfCheetahs
+  with the SAC agent and replay of `examples/sac_halfcheetah_torch.py`."""
+  from agents_tpu_torch.environments.batched_py_environment import \
+      BatchedPyEnvironment
+  from agents_tpu_torch.metrics import py_metrics
+  from agents_tpu_torch.train import HostDeviceTrainLoop
+  from examples.sac_halfcheetah_torch import build_agent
+
+  env = BatchedPyEnvironment([random_halfcheetah(i, **(env_kwargs or {}))
+                              for i in range(cfg.env_batch_size)])
+  agent, replay = build_agent(cfg, env, device)
+  return HostDeviceTrainLoop(
+      env, agent, replay, train_steps_per_tick=cfg.train_steps_per_call,
+      sample_batch_size=cfg.sample_batch_size,
+      py_metrics=[py_metrics.AverageReturnMetric(20),
+                  py_metrics.EnvironmentSteps(),
+                  py_metrics.NumberOfEpisodes()], device=device)
+
+
+SYNC_SITES = {}
+
+
+def count_syncs(fn):
+  """`fn()` under ``set_sync_debug_mode("warn")``: (its result, the number
+  of synchronizing CUDA operations it made). Each one's Python site
+  (file:line) is tallied in `SYNC_SITES`."""
+  import warnings
+
+  import torch
+
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      result = fn()
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  syncs = [w for w in caught if "synchroniz" in str(w.message)]
+  for w in syncs:
+    site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+    SYNC_SITES[site] = SYNC_SITES.get(site, 0) + 1
+  return result, len(syncs)
+
+
+def phase_host_parity(card):
+  """`HostDeviceTrainLoop` SAC at (256, 256) on the CPU and on the card from
+  numpy-made params and one replayed stream of draws (TF32 off)."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.utils import convert, nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  t0 = time.perf_counter()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = sac_config(**HOST_PARITY)
+  actor, critic1, critic2 = numpy_sac_params(
+      np.random.RandomState(5), cfg.actor_fc_layers,
+      cfg.critic_joint_fc_layers, HALFCHEETAH_OBS, HALFCHEETAH_ACT)
+  runs, records = {}, None
+  for device in ("cpu", "cuda"):
+    loop = sync_sac_loop(cfg, device, {"episode_end_probability": 0.3})
+    agent = loop.agent
+    agent.actor_network.load_state_dict(
+        convert.sac_actor_params_to_state_dict(actor))
+    agent.critic_network.load_state_dict(
+        convert.sac_critic_params_to_state_dict(critic1))
+    agent.critic_network_2.load_state_dict(
+        convert.sac_critic_params_to_state_dict(critic2))
+    draws = (RecordingDraws(Draws(0, "cpu")) if device == "cpu"
+             else ReplayDraws(records, device))
+    dev, time_step = loop.init(draws=draws)
+    dev = dataclasses.replace(dev, agent_state=dataclasses.replace(
+        dev.agent_state, draws=draws))
+    dev, time_step, prev, action = loop.collect(
+        dev, time_step, HOST_PARITY_RANDOM, seed=3)
+    dev, time_step, prev, action, loss = loop.run(
+        dev, time_step, prev, action, HOST_PARITY_TICKS)
+    if device == "cpu":
+      records = draws.records
+    runs[device] = (loop, dev, time_step, action, loss)
+  (cloop, cdev, cts, caction, closs), (gloop, gdev, gts, gaction, gloss) = (
+      runs["cpu"], runs["cuda"])
+  diffs, mismatched, beyond_elementwise = {}, [], []
+
+  def compare(name, a, b, per_tensor=False):
+    """Elementwise within SAC's rtol / atol; with `per_tensor` (networks
+    and Adam moments, where Adam turns rounding in a near-cancelling
+    gradient into a step of up to the learning rate) max|card - cpu| <=
+    atol + HOST_PARITY_TENSOR_RTOL * max|cpu|."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if not a.dtype.is_floating_point:
+      if not torch.equal(a, b):
+        mismatched.append(name)
+      return
+    diffs[name] = max_diff(a, b)
+    if torch.allclose(a, b, rtol=SAC_RTOL, atol=SAC_ATOL):
+      return
+    beyond_elementwise.append(name)
+    bound = SAC_ATOL + HOST_PARITY_TENSOR_RTOL * float(a.abs().max())
+    if not per_tensor or diffs[name] > bound:
+      mismatched.append(name)
+
+  compare("loss", torch.tensor(closs), torch.tensor(gloss))
+  ctensors, gtensors = (state_tensors(cdev.agent_state),
+                        state_tensors(gdev.agent_state))
+  for k in ctensors:
+    compare(k, ctensors[k], gtensors[k], per_tensor=k not in ("log_alpha",))
+  names = ["step_type", "observation", "action", "next_step_type", "reward",
+           "discount"]
+  for name, a, b in zip(names, nest_utils.flatten(cdev.replay_state.storage),
+                        nest_utils.flatten(gdev.replay_state.storage)):
+    compare(f"replay.{name}", a, b)
+  compare("last_action", caction, gaction)
+  for a, b in zip(nest_utils.flatten(cts), nest_utils.flatten(gts)):
+    compare("time_step", a, b)
+  cres, gres = cloop.metric_results(), gloop.metric_results()
+  if cres != gres:
+    mismatched.append("py_metrics")
+  if cdev.replay_state.count != gdev.replay_state.count:
+    mismatched.append("replay.count")
+  worst = max(diffs, key=diffs.get)
+  ok = (not mismatched and sum(draws.remaining().values()) == 0
+        and gdev.agent_state.train_step
+        == HOST_PARITY_TICKS * cfg.train_steps_per_call)
+  emit("host_parity", card=card, env="RandomPyEnvironment x "
+       f"{cfg.env_batch_size} (HalfCheetah-v5 specs)",
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       ring=cfg.replay_capacity, sample=cfg.sample_batch_size,
+       train_steps_per_tick=cfg.train_steps_per_call,
+       random_ticks=HOST_PARITY_RANDOM, ticks=HOST_PARITY_TICKS,
+       rtol=SAC_RTOL, atol=SAC_ATOL,
+       per_tensor_rtol=HOST_PARITY_TENSOR_RTOL,
+       largest_float_diff={"name": worst, "abs": diffs[worst]},
+       beyond_elementwise=beyond_elementwise,
+       loss=[closs, gloss], compared=len(diffs), py_metrics=gres,
+       draws_left=sum(draws.remaining().values()), mismatched=mismatched,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("host_parity", f"card and CPU disagree on {mismatched}")
+
+
+def phase_host_sac_main(card):
+  """The sync host loop at `bench.py:sac_live_probe`'s point."""
+  import torch
+
+  from agents_tpu_torch.utils import nest_utils
+
+  t_phase = time.perf_counter()
+  cfg = sac_config(**HOST_SAC)
+  loop = sync_sac_loop(cfg, "cuda")
+  B, K = cfg.env_batch_size, cfg.train_steps_per_call
+  dev, time_step = loop.init(seed=cfg.seed)
+  dev, time_step, prev, action = loop.collect(
+      dev, time_step, cfg.initial_collect_ticks, seed=cfg.seed)
+  dev, time_step, prev, action, loss = loop.run(dev, time_step, prev, action,
+                                                HOST_SAC_WARMUP)
+  torch.cuda.synchronize()
+  loop.split = dict.fromkeys(loop.split, 0.0)
+  window_ms, window_syncs = [], []
+  SYNC_SITES.clear()
+  for _ in range(HOST_SAC_WINDOWS):
+    t0 = time.perf_counter()
+    (dev, time_step, prev, action, loss), n = count_syncs(
+        lambda: loop.run(dev, time_step, prev, action, HOST_SAC_WINDOW))
+    torch.cuda.synchronize()
+    window_ms.append((time.perf_counter() - t0) * 1e3 / HOST_SAC_WINDOW)
+    window_syncs.append(n)
+  syncs, sync_sites = sum(window_syncs), dict(SYNC_SITES)
+  timed = HOST_SAC_WINDOWS * HOST_SAC_WINDOW
+  split_ms = {k[:-2] + "_ms": v * 1e3 / timed
+              for k, v in loop.split.items()}
+  ms = sum(window_ms) / len(window_ms)
+  (dev, time_step, prev, action, loss), prof = profile_call(
+      lambda: loop.run(dev, time_step, prev, action, HOST_SAC_PROFILED),
+      HOST_SAC_PROFILED, "tick", "host_sac_trace.json")
+  ticks = HOST_SAC_WARMUP + timed + HOST_SAC_PROFILED
+  expected_count = cfg.initial_collect_ticks - 1 + ticks
+  off_card = [name for name, t in state_tensors(dev.agent_state).items()
+              if t.device.type != "cuda" and name != "train_step"
+              and not name.endswith(".step")]
+  off_card += [str(tuple(t.shape)) for t in nest_utils.flatten(
+      dev.replay_state.storage) if t.device.type != "cuda"]
+  log_alpha = float(dev.agent_state.log_alpha.detach())
+  # The port's syncs: one action read per tick and one loss read per
+  # `run`; a sync inside torch's own CUDA module (seen once, in the first
+  # window) is the debug mode's, not the loop's.
+  port_syncs = sum(n for site, n in sync_sites.items()
+                   if site.startswith("agents_tpu_torch"))
+  syncs_per_tick = (port_syncs - HOST_SAC_WINDOWS) / timed
+  ok = (math.isfinite(loss) and math.isfinite(log_alpha) and not off_card
+        and syncs_per_tick == 1.0
+        and dev.replay_state.count == expected_count
+        and dev.agent_state.train_step == ticks * K
+        and loop.metric_results()["EnvironmentSteps"]
+        == (cfg.initial_collect_ticks + ticks) * B)
+  emit("host_sac_main", card=card, env=f"RandomPyEnvironment x {B} "
+       "(HalfCheetah-v5 specs, thread pool)", batch_size=B,
+       ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
+       actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
+       train_steps_per_tick=K, reward_scale=cfg.reward_scale_factor,
+       timed_ticks=timed, ms_per_tick=ms, window_ms_per_tick=window_ms,
+       env_steps_per_s=B * 1e3 / ms, train_steps_per_s=K * 1e3 / ms,
+       split_ms_per_tick=split_ms, host_syncs=syncs,
+       host_syncs_per_window=window_syncs, host_sync_sites=sync_sites,
+       host_syncs_per_tick=syncs_per_tick,
+       sync_note="sync debug mode 'warn'; the port's sites, less one loss "
+                 "read per run()",
+       operator_records_per_train_step=prof["trace_events_per_tick"].get(
+           "cpu_op", 0.0) / K, profile=prof, last_loss=loss,
+       log_alpha=log_alpha, replay_count=dev.replay_state.count,
+       expected_replay_count=expected_count,
+       train_step=dev.agent_state.train_step, tensors_off_card=off_card,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  loop.env.close()
+  if not ok:
+    fail("host_sac_main", "host SAC point checks failed")
+
+
+def phase_async_sac_main(card):
+  """`AsyncHostDeviceTrainLoop` at the probe's point: one ramp run, then
+  the timed run; rates, realized UTD and the collector's tick with and
+  without the trainer."""
+  from examples.sac_halfcheetah_torch import build_loop as sac_loop
+
+  t_phase = time.perf_counter()
+  cfg = sac_config(**HOST_SAC)
+  loop, eval_env = sac_loop(cfg, halfcheetah_factory())
+  eval_env.close()
+  B, K = cfg.env_batch_size, cfg.train_steps_per_call
+  min_frames = cfg.initial_collect_ticks * B
+
+  def utd_of(out, ticks):
+    return out["train_steps"] / max(ticks * B - min_frames, 1)
+
+  ramp = loop.run(total_env_batch_steps=ASYNC_RAMP_TICKS, seed=0,
+                  initial_random_steps=ASYNC_RANDOM_TICKS)
+  t0 = time.perf_counter()
+  out = loop.run(total_env_batch_steps=ASYNC_TIMED_TICKS, seed=0,
+                 initial_random_steps=ASYNC_RANDOM_TICKS)
+  dt = time.perf_counter() - t0
+  checks = {
+      "trainer_drained": out["trainer_drained"] and ramp["trainer_drained"],
+      "env_steps_exact": out["env_steps"] == ASYNC_TIMED_TICKS * B,
+      "train_steps_within_utd": out["train_steps"]
+                                <= cfg.utd_ratio * out["env_steps"] + K,
+      "trainer_trained": out["train_steps"] > 0 and ramp["train_steps"] > 0,
+      "loss_finite": math.isfinite(out["last_loss"])}
+  ok = all(checks.values())
+  emit("async_sac_main", card=card, env=f"RandomPyEnvironment x {B} "
+       "(HalfCheetah-v5 specs)", batch_size=B, ring=cfg.replay_capacity,
+       sample_batch_size=cfg.sample_batch_size,
+       train_steps_per_call=K, utd_ratio=cfg.utd_ratio,
+       min_replay_frames=min_frames, ramp_ticks=ASYNC_RAMP_TICKS,
+       ramp_utd=utd_of(ramp, ASYNC_RAMP_TICKS),
+       timed_ticks=ASYNC_TIMED_TICKS,
+       cut="timed run 1,200 ticks, the probe's minimum (bench.py:120)",
+       window_s=dt, env_steps_per_s=ASYNC_TIMED_TICKS * B / dt,
+       train_steps_per_s=out["train_steps"] / dt,
+       utd_realized=utd_of(out, ASYNC_TIMED_TICKS),
+       probe_guard_utd=0.8, env_steps=out["env_steps"],
+       train_steps=out["train_steps"],
+       tick_ms_trainer_idle=out["tick_ms_trainer_idle"],
+       tick_ms_trainer_busy=out["tick_ms_trainer_busy"],
+       ticks_trainer_idle=out["ticks_trainer_idle"],
+       ticks_trainer_busy=out["ticks_trainer_busy"],
+       last_loss=out["last_loss"], checks=checks,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  loop.env.close()
+  if not ok:
+    fail("async_sac_main", f"async loop checks failed: {checks}")
+
+
+def phase_host_ppo_main(card):
+  """`HostOnPolicyTrainLoop` at `examples/ppo_halfcheetah.py`'s schulman17
+  config over a random HalfCheetah."""
+  import torch
+
+  from agents_tpu_torch.utils.draws import Draws
+  from examples.ppo_halfcheetah_torch import Config
+  from examples.ppo_halfcheetah_torch import build_loop as ppo_loop
+
+  t_phase = time.perf_counter()
+  cfg = Config()
+  loop, eval_env = ppo_loop(cfg, halfcheetah_factory())
+  eval_env.close()
+  agent_state, time_step = loop.init(cfg.seed)
+  draws = Draws(cfg.seed + 1, "cuda")
+  for _ in range(HOST_PPO_WARMUP):
+    agent_state, time_step, draws, info = loop.run_iteration(
+        agent_state, time_step, draws)
+  torch.cuda.synchronize()
+  iteration_ms, splits, syncs, losses = [], [], [], []
+  for _ in range(HOST_PPO_TIMED):
+    t0 = time.perf_counter()
+    SYNC_SITES.clear()
+    (time_step, experience), n = count_syncs(
+        lambda: loop.collect(agent_state, time_step, draws))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    agent_state, info = loop.agent.train(agent_state, experience,
+                                         draws=draws)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    iteration_ms.append((t2 - t0) * 1e3)
+    splits.append({"collect_ms": loop.split["collect_s"] * 1e3,
+                   "stack_copy_ms": loop.split["stack_copy_s"] * 1e3,
+                   "train_ms": (t2 - t1) * 1e3})
+    syncs.append(n)
+    losses.append(float(info.loss))
+  ms = sum(iteration_ms) / len(iteration_ms)
+  frames = cfg.env_batch_size * cfg.rollout_length
+  mb_steps = cfg.num_epochs * cfg.num_minibatches
+  ok = (all(math.isfinite(x) for x in losses)
+        and agent_state.train_step == HOST_PPO_WARMUP + HOST_PPO_TIMED
+        and tuple(experience.step_type.shape) == (1, cfg.rollout_length)
+        and experience.observation.device.type == "cuda")
+  emit("host_ppo_main", card=card, env="RandomPyEnvironment x 1 "
+       "(HalfCheetah-v5 specs)", batch_size=cfg.env_batch_size,
+       rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
+       minibatches=cfg.num_minibatches, fc=list(cfg.actor_fc_layers),
+       timed_iterations=HOST_PPO_TIMED, ms_per_iteration=ms,
+       iteration_ms=iteration_ms, env_steps_per_s=frames * 1e3 / ms,
+       minibatch_steps_per_s=mb_steps * 1e3 / ms, split=splits,
+       host_syncs_per_collect=syncs, host_sync_sites=dict(SYNC_SITES),
+       host_syncs_per_env_step=[n / cfg.rollout_length for n in syncs],
+       losses=losses, train_step=agent_state.train_step,
+       seconds=time.perf_counter() - t_phase, ok=ok)
+  loop.env.close()
+  if not ok:
+    fail("host_ppo_main", "host PPO checks failed")
+
+
+def phase_parallel_env(card):
+  """`ParallelPyEnvironment` of 4 workers started after CUDA is up: spawn,
+  the same steps as a `BatchedPyEnvironment` of the same seeds, a clean
+  close."""
+  import functools
+
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.environments.batched_py_environment import \
+      BatchedPyEnvironment
+  from agents_tpu_torch.environments.parallel_py_environment import \
+      ParallelPyEnvironment
+  from agents_tpu_torch.utils import nest_utils
+
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+
+  t0 = time.perf_counter()
+  cuda_up = torch.cuda.is_initialized()
+  ctors = [functools.partial(RandomPyEnvironment, *halfcheetah_specs(),
+                             episode_end_probability=0.05, seed=seed)
+           for seed in range(PARALLEL_WORKERS)]
+  results = {}
+  for blocking in (False, True):
+    penv = ParallelPyEnvironment(ctors, blocking=blocking)
+    benv = BatchedPyEnvironment([c() for c in ctors])
+    rng, equal, steps_s = np.random.RandomState(0), True, 0.0
+    try:
+      pairs = [(penv.reset(), benv.reset())]
+      for _ in range(PARALLEL_STEPS):
+        action = rng.uniform(-1, 1, (PARALLEL_WORKERS, HALFCHEETAH_ACT)
+                             ).astype(np.float32)
+        t_step = time.perf_counter()
+        p = penv.step(action)
+        steps_s += time.perf_counter() - t_step
+        pairs.append((p, benv.step(action)))
+      for p, b in pairs:
+        equal &= all(np.array_equal(x, y) for x, y in zip(
+            nest_utils.flatten(p), nest_utils.flatten(b)))
+      methods = penv.start_methods
+    finally:
+      penv.close()
+      benv.close()
+    results["blocking" if blocking else "overlapped"] = {
+        "start_methods": methods, "steps_equal": bool(equal),
+        "ms_per_step": steps_s * 1e3 / PARALLEL_STEPS,
+        "workers_alive_after_close": penv.workers_alive}
+  ok = cuda_up and all(r["start_methods"] == ["spawn"] * PARALLEL_WORKERS
+                       and r["steps_equal"]
+                       and r["workers_alive_after_close"] == 0
+                       for r in results.values())
+  emit("parallel_env", card=card, workers=PARALLEL_WORKERS,
+       steps=PARALLEL_STEPS, cuda_initialized=cuda_up, **results,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("parallel_env", f"parallel env checks failed: {results}")
+
+
+def phase_async_resume(card):
+  """The async loop with periodic and final checkpoints, then a fresh loop
+  resumed toward a higher target (`tests/test_checkpoint_resume.py:
+  100-160`): the restored state `torch.equal` to the saved one."""
+  from agents_tpu_torch.train import Checkpointer
+  from agents_tpu_torch.train.checkpointer import capture
+  from examples.sac_halfcheetah_torch import build_loop as sac_loop
+
+  t0 = time.perf_counter()
+  cfg = sac_config(**ASYNC_RESUME)
+  B = cfg.env_batch_size
+  with tempfile.TemporaryDirectory() as tmp:
+    ckpt = Checkpointer(tmp, max_to_keep=2)
+    loop, eval_env = sac_loop(cfg, halfcheetah_factory(
+        episode_end_probability=0.05))
+    eval_env.close()
+    kw = dict(seed=0, initial_random_steps=cfg.initial_collect_ticks,
+              checkpointer=ckpt, checkpoint_interval_ticks=ASYNC_RESUME_EVERY)
+    first = loop.run(total_env_batch_steps=ASYNC_RESUME_TICKS, **kw)
+    saved = capture(loop._checkpoint_state(ASYNC_RESUME_TICKS))
+    steps = ckpt.all_steps()
+    loop.env.close()
+    loop2, eval_env = sac_loop(cfg, halfcheetah_factory(
+        episode_end_probability=0.05))
+    eval_env.close()
+    restored = capture(ckpt.restore(loop2.template_state(seed=7)))
+    mismatched = nest_mismatches(saved, restored)
+    second = loop2.run(total_env_batch_steps=ASYNC_RESUME_MORE, resume=True,
+                       **kw)
+    loop2.env.close()
+  checks = {
+      "checkpoints_kept": steps == [50, ASYNC_RESUME_TICKS],
+      "restored_equal": not mismatched,
+      "first_env_steps": first["env_steps"] == ASYNC_RESUME_TICKS * B,
+      "resumed_env_steps": second["env_steps"] == ASYNC_RESUME_MORE * B,
+      "train_steps_carried": second["train_steps"] >= first["train_steps"]
+                             > 0,
+      # More non-boundary frames than the resumed session alone steps.
+      "metrics_carried": second["metrics"]["EnvironmentSteps"]
+                         > max(first["metrics"]["EnvironmentSteps"],
+                               (ASYNC_RESUME_MORE - ASYNC_RESUME_TICKS) * B),
+      "drained": first["trainer_drained"] and second["trainer_drained"]}
+  ok = all(checks.values())
+  emit("async_resume", card=card, batch_size=B,
+       ticks=[ASYNC_RESUME_TICKS, ASYNC_RESUME_MORE],
+       checkpoint_interval_ticks=ASYNC_RESUME_EVERY, checkpoints=steps,
+       criterion="torch.equal of every tensor, number and generator state",
+       state_mismatched=mismatched[:10], train_steps=[
+           first["train_steps"], second["train_steps"]],
+       env_steps=[first["env_steps"], second["env_steps"]], checks=checks,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("async_resume", f"async resume checks failed: {checks}")
+
+
+def host_phases(card):
+  """The host environments and the three host-device loops."""
+  phase_host_parity(card)
+  phase_host_sac_main(card)
+  free_card()
+  phase_async_sac_main(card)
+  free_card()
+  phase_host_ppo_main(card)
+  phase_parallel_env(card)
+  phase_async_resume(card)
+  free_card()
+
+
 # The learning runs, each in a process of its own (see `learning_phases`).
 CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline,
                 "qtopt_learn": phase_qtopt_learn,
@@ -3416,6 +3975,7 @@ def main(argv=()):
   phase_ppo_rnn_main(card)
   phase_checkpoint_resume(card)
   free_card()
+  host_phases(card)
   learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")

@@ -17,7 +17,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
 EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
             "sac_pendulum_torch.py", "ppo_cartpole_torch.py",
-            "td3_pendulum_torch.py", "cql_sac_offline_torch.py")
+            "td3_pendulum_torch.py", "cql_sac_offline_torch.py",
+            "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py")
+HOST_MODULES = (
+    "environments.py_environment", "environments.test_envs",
+    "environments.utils", "environments.wrappers",
+    "environments.gym_wrapper", "environments.suite_gym",
+    "environments.batched_py_environment",
+    "environments.parallel_py_environment", "metrics.py_metrics",
+    "policies.jitted_py_policy", "drivers.py_driver", "eval.metric_utils",
+    "train.host_device_loop", "train.host_on_policy_loop",
+    "train.async_host_device_loop")
 
 
 def _port_modules():
@@ -59,7 +69,7 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "environments.classic.acrobot",
                "environments.classic.mountain_car",
                "environments.torch_wrappers", "networks.lstm_networks",
-               "train.checkpointer"):
+               "train.checkpointer") + HOST_MODULES:
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -90,7 +100,7 @@ def _imported_names(path):
 
 def test_port_sources_name_no_forbidden_import():
   sources = _port_sources()
-  assert len(sources) > 55
+  assert len(sources) > 70
   offending = {os.path.relpath(p, ROOT): bad for p in sources
                if (bad := [n for n in _imported_names(p) if _forbidden(n)])}
   assert offending == {}
@@ -225,3 +235,67 @@ def test_example_raises_without_a_card():
     assert out.returncode != 0, example
     assert "torch.cuda.is_available() is False" in out.stderr, example
 
+
+
+def test_host_modules_import_without_gymnasium():
+  """The host modules and the HalfCheetah examples import where gymnasium
+  cannot be imported (it is imported inside `suite_gym.load` and
+  `spec_from_gym_space` only)."""
+  names = [f"agents_tpu_torch.{m}" for m in HOST_MODULES] + [
+      "examples.sac_halfcheetah_torch", "examples.ppo_halfcheetah_torch"]
+  code = ("import importlib, json, sys\n"
+          "sys.modules['gymnasium'] = None\n"
+          f"for m in {names!r}: importlib.import_module(m)\n"
+          "print(json.dumps(sorted(sys.modules)))")
+  out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": ROOT})
+  assert out.returncode == 0, out.stderr
+  loaded = json.loads(out.stdout)
+  assert [m for m in loaded if _forbidden(m)] == []
+  assert "mujoco" not in loaded
+
+
+def test_host_entry_points_raise_without_a_card(monkeypatch):
+  """The host loops and `JittedPyPolicy` default to "cuda" and raise
+  without a card unless given "cpu"."""
+  import numpy as np
+
+  from agents_tpu_torch.agents.sac import SacAgent
+  from agents_tpu_torch.environments.batched_py_environment import \
+      BatchedPyEnvironment
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from agents_tpu_torch.networks import (make_critic_network,
+                                         make_sac_actor_network)
+  from agents_tpu_torch.policies.jitted_py_policy import JittedPyPolicy
+  from agents_tpu_torch.replay_buffers import UniformReplay
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.train import (AsyncHostDeviceTrainLoop,
+                                      HostDeviceTrainLoop,
+                                      HostOnPolicyTrainLoop)
+  from agents_tpu_torch.trajectories import trajectory as tj
+
+  obs = array_spec.ArraySpec((3,), np.float32)
+  act = array_spec.BoundedArraySpec((1,), np.float32, -1, 1)
+  env = BatchedPyEnvironment([RandomPyEnvironment(obs, act)], False)
+  tss = env.time_step_spec()
+  agent = SacAgent(tss, act,
+                   make_critic_network(obs, act, joint_fc_layer_params=(4,),
+                                       device="cpu"),
+                   make_sac_actor_network(obs, act, (4,), device="cpu"),
+                   torch.optim.Adam, torch.optim.Adam, torch.optim.Adam,
+                   device="cpu")
+  replay = UniformReplay(tj.trajectory_spec(tss, act), 1, 8, device="cpu")
+  for build in (lambda d: HostDeviceTrainLoop(env, agent, replay, device=d),
+                lambda d: AsyncHostDeviceTrainLoop(env, agent, replay,
+                                                   device=d),
+                lambda d: HostOnPolicyTrainLoop(env, agent, device=d),
+                lambda d: JittedPyPolicy(agent.policy, device=d)):
+    assert build("cpu").device.type == "cpu"
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  for build in (lambda: HostDeviceTrainLoop(env, agent, replay),
+                lambda: AsyncHostDeviceTrainLoop(env, agent, replay),
+                lambda: HostOnPolicyTrainLoop(env, agent),
+                lambda: JittedPyPolicy(agent.policy)):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      build()

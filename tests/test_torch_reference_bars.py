@@ -25,6 +25,14 @@ by the port:
           minibatches, entropy 0.01, Adam 1e-3) for its 30 iterations: the
           last-20 return at the end. `ppo_rnn_bar` turns the five seeds'
           returns into the bar.
+  host_sac `agents_tpu`'s `SacAgent` in its `HostDeviceTrainLoop` over a
+          `BatchedPyEnvironment` of 8 gymnasium `Pendulum-v1`s (`HOST_SAC`:
+          4 train steps per tick, (64, 64) actor and critic, ring 8192 per
+          row, sample 256, 128 random ticks, Adam 3e-4, reward scale 1.0),
+          checked every 250 ticks up to 8,000: the first tick whose last-20
+          return reaches -250. `host_sac_bar` turns the five seeds' runs
+          into the bar; `run_host_sac(..., port=True)` runs the port's
+          `HostDeviceTrainLoop` at the same config.
   offline the pipeline of `examples/cql_sac_offline_torch.py` (the device
           Pendulum pipeline of `tests/test_cql_offline_e2e.py`): a brief
           SAC behaviour run, a 2,048 x 8 frame collect by
@@ -43,8 +51,10 @@ seeds, so five processes can run them side by side):
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
         [offline] [qtopt [--qtopt-seed=N ...]] [ppo_rnn]
+        [host_sac [--host-sac-seed=N ...]]
 
-(`ppo_rnn` takes about a minute a seed on one core.)
+(`ppo_rnn` takes about a minute a seed on one core; `host_sac` a minute or
+two; `host_sac_port` runs the port at `HOST_SAC` over the same seeds.)
 
 The tests below check that these runs are built from the port examples'
 configurations, so the bars are of the same configuration.
@@ -56,6 +66,8 @@ import os
 import sys
 import tempfile
 import time
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -268,6 +280,104 @@ def ppo_rnn_bar(runs):
   if min(finals) <= PPO_RNN_GATE:
     return PPO_RNN_GATE
   return max(PPO_RNN_GATE, min(finals) - (max(finals) - min(finals)) / 3.0)
+
+
+HOST_SAC = dict(env_batch_size=8, train_steps_per_tick=4, fc=(64, 64),
+                replay_capacity=8192, sample_batch_size=256,
+                initial_random_ticks=128, max_ticks=8000, chunk=250, lr=3e-4)
+
+
+def _host_sac_loop(seed, port):
+  """The JAX package's (or the port's, on the CPU) `HostDeviceTrainLoop`
+  of SAC at `HOST_SAC` over 8 gymnasium Pendulums seeded from `seed`."""
+  c = HOST_SAC
+  if port:
+    import torch
+
+    from agents_tpu_torch.agents.sac import SacAgent
+    from agents_tpu_torch.environments import suite_gym
+    from agents_tpu_torch.environments.batched_py_environment import \
+        BatchedPyEnvironment
+    from agents_tpu_torch.metrics import py_metrics
+    from agents_tpu_torch.networks import (make_critic_network,
+                                           make_sac_actor_network)
+    from agents_tpu_torch.replay_buffers import UniformReplay
+    from agents_tpu_torch.train import HostDeviceTrainLoop
+    from agents_tpu_torch.trajectories import trajectory as tj
+  else:
+    from agents_tpu import networks
+    from agents_tpu.agents.sac import SacAgent
+    from agents_tpu.environments import suite_gym
+    from agents_tpu.environments.batched_py_environment import \
+        BatchedPyEnvironment
+    from agents_tpu.metrics import py_metrics
+    from agents_tpu.replay_buffers import UniformReplay
+    from agents_tpu.train import HostDeviceTrainLoop
+    from agents_tpu.trajectories import trajectory as tj
+
+  env = BatchedPyEnvironment([suite_gym.load("Pendulum-v1")
+                              for _ in range(c["env_batch_size"])])
+  env.seed(seed * 1000)
+  tss, asp = env.time_step_spec(), env.action_spec()
+  metrics = [py_metrics.AverageReturnMetric(20)]
+  if port:
+    g = torch.Generator().manual_seed(seed)
+    adam = lambda p: torch.optim.Adam(p, lr=c["lr"])  # noqa: E731
+    agent = SacAgent(
+        tss, asp,
+        make_critic_network(tss.observation, asp,
+                            joint_fc_layer_params=c["fc"], device="cpu",
+                            generator=g),
+        make_sac_actor_network(tss.observation, asp,
+                               fc_layer_params=c["fc"], device="cpu",
+                               generator=g),
+        adam, adam, adam, generator=g, device="cpu")
+    replay = UniformReplay(tj.trajectory_spec(tss, asp),
+                           c["env_batch_size"], c["replay_capacity"],
+                           device="cpu")
+    kw = dict(device="cpu")
+  else:
+    agent = SacAgent(
+        tss, asp,
+        critic_network=networks.make_critic_network(
+            tss.observation, asp, joint_fc_layer_params=c["fc"]),
+        actor_network=networks.make_sac_actor_network(
+            tss.observation, asp, fc_layer_params=c["fc"]),
+        actor_optimizer=_adam(c["lr"]), critic_optimizer=_adam(c["lr"]),
+        alpha_optimizer=_adam(c["lr"]))
+    replay = UniformReplay(tj.trajectory_spec(tss, asp),
+                           c["env_batch_size"], c["replay_capacity"])
+    kw = {}
+  return HostDeviceTrainLoop(env, agent, replay,
+                             train_steps_per_tick=c["train_steps_per_tick"],
+                             sample_batch_size=c["sample_batch_size"],
+                             py_metrics=metrics, **kw)
+
+
+def run_host_sac(seed, port=False, max_ticks=None):
+  """Random ticks, then chunks of 250 ticks up to `max_ticks`, stopping at
+  the first check whose last-20 return reaches -250."""
+  c = HOST_SAC
+  max_ticks = max_ticks or c["max_ticks"]
+  loop = _host_sac_loop(seed, port)
+  dev, time_step = loop.init(seed)
+  dev, time_step, prev, action = loop.collect(
+      dev, time_step, c["initial_random_ticks"], seed=seed)
+  ticks, points, passed_at, t0 = 0, [], None, time.time()
+  while ticks < max_ticks:
+    dev, time_step, prev, action, loss = loop.run(dev, time_step, prev,
+                                                  action, c["chunk"])
+    ticks += c["chunk"]
+    ret = float(loop.metric_results()["AverageReturn"])
+    points.append([ticks, ret, loss])
+    if ret >= LEARN_GATE:
+      passed_at = ticks
+      break
+  loop.env.close()
+  return {"passed_at": passed_at, "last20_average_return": points[-1][1],
+          "points": points, "seconds": time.time() - t0}
+
+
 
 
 def normalized_score(ret, behavior_return, random_return):
@@ -544,6 +654,48 @@ def test_ppo_rnn_bar_rule():
   assert ppo_rnn_bar(runs) == PPO_RNN_GATE
 
 
+# The JAX package's host SAC at `HOST_SAC` passes -250 at 2,250, 2,250,
+# 2,250, 2,250 and 2,750 ticks over seeds 0-4 (`python
+# tests/test_torch_reference_bars.py host_sac`), so by `qtopt_bar`'s rule
+# the bar is -250 within the 8,000-tick budget.
+HOST_SAC_BAR = LEARN_GATE
+
+
+@pytest.mark.parametrize("port", [False, True], ids=["jax", "port"])
+def test_host_sac_bar_runs_the_host_sac_config(port):
+  """The JAX and the port loop of `HOST_SAC`: 8 gymnasium Pendulums, 4
+  train steps of 256 per tick, a ring of 8192 per row, (64, 64) networks;
+  random ticks and one policy tick with a finite loss."""
+  import numpy as np
+
+  loop = _host_sac_loop(0, port)
+  assert (loop.env.batch_size, loop.train_steps_per_tick,
+          loop.sample_batch_size, loop.replay.capacity) == (8, 4, 256, 8192)
+  assert loop.agent.reward_scale_factor == 1.0
+  dev, time_step = loop.init(0)
+  dev, time_step, prev, action = loop.collect(dev, time_step, 3)
+  _, _, _, _, loss = loop.run(dev, time_step, prev, action, 1)
+  assert np.isfinite(loss)
+  assert loop.metric_results() == {"AverageReturn": 0.0}
+  loop.env.close()
+
+
+def test_host_sac_bar_rule():
+  runs = [{"passed_at": p, "last20_average_return": -200.0}
+          for p in (2250, 2250, 2250, 2250, 2750)]
+  assert qtopt_bar(runs) == HOST_SAC_BAR
+
+
+@pytest.mark.slow
+def test_port_host_sac_passes_the_jax_bar():
+  """The port's `HostDeviceTrainLoop` SAC at `HOST_SAC` on the CPU reaches
+  a last-20 return of -250 within the 8,000-tick budget (about 80 s on one
+  core; it passes at 2,000-2,250 ticks)."""
+  out = run_host_sac(0, port=True)
+  assert out["passed_at"] is not None, out["points"][-3:]
+  assert out["last20_average_return"] >= HOST_SAC_BAR
+
+
 def test_offline_bars_run_the_example_defaults():
   """The offline pipeline's config is `tests/test_cql_offline_e2e.py`'s:
   B=8, (64, 64), ring 4096 and 2 train steps of 128 for the behaviour run,
@@ -571,7 +723,7 @@ if __name__ == "__main__":
   from examples.cql_sac_offline_torch import Config as OfflineConfig
   from examples.td3_pendulum_torch import parse_td3_args
 
-  which = sys.argv[1:] or ["td3", "offline", "qtopt", "ppo_rnn"]
+  which = sys.argv[1:] or ["td3", "offline", "qtopt", "ppo_rnn", "host_sac"]
   if "td3" in which:
     for seed in range(5):
       td3 = run_td3_bar(dataclasses.replace(parse_td3_args(["--preset=live"]),
@@ -598,6 +750,17 @@ if __name__ == "__main__":
       print(json.dumps({"ppo_rnn_seed": seed, **ppo_rnn_runs[-1]}),
             flush=True)
     print(json.dumps({"ppo_rnn_bar": ppo_rnn_bar(ppo_rnn_runs)}), flush=True)
+  for mode, port in (("host_sac", False), ("host_sac_port", True)):
+    if mode not in which:
+      continue
+    seeds = [int(s.split("=", 1)[1]) for s in which
+             if s.startswith("--host-sac-seed=")] or list(range(5))
+    host_runs = []
+    for seed in seeds:
+      host_runs.append(run_host_sac(seed, port=port))
+      print(json.dumps({f"{mode}_seed": seed, **host_runs[-1]}), flush=True)
+    if len(host_runs) == 5:
+      print(json.dumps({f"{mode}_bar": qtopt_bar(host_runs)}), flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)
