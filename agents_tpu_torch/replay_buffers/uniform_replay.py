@@ -31,6 +31,23 @@ from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
 
 
+def gather_windows(storage, t0, rows, n: int, capacity: int,
+                   batch_size: int):
+  """[S, n, ...] windows of a ``[capacity, B, ...]`` storage nest: window
+  i is ring slots ``(t0[i] + k) % capacity``, k < n, of env row rows[i],
+  gathered by flat index into [capacity * B, ...]."""
+  steps = torch.arange(n, device=t0.device)
+  t_idx = (t0[:, None] + steps[None, :]) % capacity
+  flat_idx = (t_idx * batch_size + rows[:, None]).reshape(-1)
+
+  def leaf_gather(s):
+    flat = s.reshape((capacity * batch_size,) + s.shape[2:])
+    out = gather_rows(flat, flat_idx)
+    return out.reshape((t_idx.shape[0], n) + s.shape[2:])
+
+  return nest_utils.tree_map(leaf_gather, storage)
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplayState:
   storage: Any   # nest of [capacity, B, ...] tensors
@@ -132,17 +149,8 @@ class UniformReplay:
     return batch, BufferInfo(ids=t0, rows=rows, probabilities=probs)
 
   def _gather(self, storage, t0, rows, n):
-    """Gather [S, n, ...] windows by flat index into [capacity * B, ...]."""
-    steps = torch.arange(n, device=t0.device)
-    t_idx = (t0[:, None] + steps[None, :]) % self.capacity
-    flat_idx = (t_idx * self.batch_size + rows[:, None]).reshape(-1)
-
-    def leaf_gather(s):
-      flat = s.reshape((self.capacity * self.batch_size,) + s.shape[2:])
-      out = gather_rows(flat, flat_idx)
-      return out.reshape((t_idx.shape[0], n) + s.shape[2:])
-
-    return nest_utils.tree_map(leaf_gather, storage)
+    return gather_windows(storage, t0, rows, n, self.capacity,
+                          self.batch_size)
 
   def gather_all(self, state: ReplayState):
     """All frames, batch-major [B, capacity, ...], oldest first."""

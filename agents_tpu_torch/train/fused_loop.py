@@ -1,7 +1,7 @@
 """The fused training iteration on the card.
 
-Port of ``agents_tpu/train/fused_loop.py`` (uniform replay, one device):
-one `iteration` does
+Port of ``agents_tpu/train/fused_loop.py`` (one device): one `iteration`
+does
 
     collect (policy + env, `collect_steps_per_iteration` lockstep steps)
     -> replay insert -> replay sample -> agent.train -> metric updates
@@ -14,10 +14,18 @@ asking the card. `run(n)` returns the n losses as one device tensor.
 The JAX package compiles the iteration into one program; here it runs
 eagerly, op by op, and the replay storage, parameters and optimizer state
 are updated in place.
+
+Prioritized replay plugs in as in the JAX package (:77-78, :122-157): a
+replay with `update_priorities` is sampled with `per_beta`, its IS weights
+go to ``agent.train(weights=...)``, and the loss's `td_error` goes back as
+the new priorities (the mean of |td| over its non-batch axes for a
+sequence loss). An agent whose loss has no `td_error` (C51: a
+cross-entropy) gets a warning, once per loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Tuple
 
 from agents_tpu_torch.drivers.torch_driver import DriverState, TorchDriver
@@ -45,11 +53,13 @@ class FusedTrainLoop:
   Args:
     env: BatchedTorchEnv.
     agent: an Agent (collect_policy drives collection).
-    replay: UniformReplay storing Trajectory frames.
+    replay: UniformReplay (or PrioritizedReplay) storing Trajectory
+      frames.
     metrics: metrics updated during collection.
     collect_steps_per_iteration: driver steps per iteration.
     sample_batch_size: replay sample size for training.
     train_steps_per_iteration: gradient steps per iteration.
+    per_beta: the IS-weight exponent of a prioritized replay.
     device: "cuda" unless the caller asks for "cpu"; env, agent and replay
       must live there too.
   """
@@ -57,7 +67,8 @@ class FusedTrainLoop:
   def __init__(self, env, agent, replay: UniformReplay, metrics=(),
                collect_steps_per_iteration: int = 1,
                sample_batch_size: int = 64,
-               train_steps_per_iteration: int = 1, device="cuda"):
+               train_steps_per_iteration: int = 1, per_beta: float = 0.4,
+               device="cuda"):
     self.device = resolve_device(device)
     check_devices(self.device, env=env, agent=agent, replay=replay)
     self.env = env
@@ -67,6 +78,9 @@ class FusedTrainLoop:
     self.collect_steps = collect_steps_per_iteration
     self.sample_batch_size = sample_batch_size
     self.train_steps = train_steps_per_iteration
+    self.prioritized = hasattr(replay, "update_priorities")
+    self.per_beta = per_beta
+    self._warned_no_td_error = False
     observers = [self.replay.add_batch] + [m.update for m in self.metrics]
     self.driver = TorchDriver(env, agent.collect_policy, observers=observers)
 
@@ -101,13 +115,40 @@ class FusedTrainLoop:
 
   def iteration(self, state: LoopState) -> Tuple[LoopState, LossInfo]:
     state = self._collect(state, self.collect_steps)
-    agent_state = state.agent_state
+    agent_state, replay_state = state.agent_state, state.replay_state
     for _ in range(self.train_steps):
-      experience, _ = self.replay.sample(
-          state.replay_state, state.draws, self.sample_batch_size,
-          num_steps=self.agent.train_sequence_length)
-      agent_state, loss_info = self.agent.train(agent_state, experience)
-    return dataclasses.replace(state, agent_state=agent_state), loss_info
+      if self.prioritized:
+        experience, info = self.replay.sample(
+            replay_state, state.draws, self.sample_batch_size,
+            num_steps=self.agent.train_sequence_length, beta=self.per_beta)
+        agent_state, loss_info = self.agent.train(
+            agent_state, experience, weights=info.is_weights)
+        replay_state = self._update_priorities(replay_state, info, loss_info)
+      else:
+        experience, _ = self.replay.sample(
+            replay_state, state.draws, self.sample_batch_size,
+            num_steps=self.agent.train_sequence_length)
+        agent_state, loss_info = self.agent.train(agent_state, experience)
+    return dataclasses.replace(state, agent_state=agent_state,
+                               replay_state=replay_state), loss_info
+
+  def _update_priorities(self, replay_state, info, loss_info):
+    """The loss's TD errors back as priorities; without them the items
+    keep their insert-time max priority while the IS weights still bend
+    the loss, so PER silently degrades to a biased uniform sampler."""
+    td = getattr(loss_info.extra, "td_error", None)
+    if td is None:
+      if not self._warned_no_td_error:
+        self._warned_no_td_error = True
+        warnings.warn(
+            f"PrioritizedReplay paired with {type(self.agent).__name__}, "
+            "whose LossInfo.extra has no td_error field: priorities will "
+            "never be updated. Use UniformReplay, or expose td_error in the "
+            "agent's loss extras.", stacklevel=3)
+      return replay_state
+    if td.dim() > 1:  # sequence losses: [S, T-1] -> per-item scalar
+      td = td.abs().mean(dim=tuple(range(1, td.dim())))
+    return self.replay.update_priorities(replay_state, info, td)
 
   def run(self, state: LoopState, num_iterations: int):
     """`num_iterations` iterations; returns (state, losses [n] on device)."""

@@ -6,11 +6,12 @@ card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line
 with its wall time since the line before (`phase_seconds`); any failed
 phase exits non-zero before the last line. The phases run in the order
-below, except the five long learning runs: `sac_learn` runs last (after
-the host phases 34-39), while
-`td3_learn`, `cql_offline` with `bc`, `qtopt_learn` and `ppo_rnn_learn`
-run beside it in four child processes of this script (``chip_smoke.py
---child NAME``) on the same card, after every timed phase.
+below, except the six long learning runs: `sac_learn` runs last (after
+the host phases 34-39 and the replay phases 40-44), while
+`td3_learn`, `cql_offline` with `bc`, `qtopt_learn`, `ppo_rnn_learn` and
+`per_learn` run beside it in five child processes of this script
+(``chip_smoke.py --child NAME``) on the same card, after every timed
+phase.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -223,7 +224,9 @@ run beside it in four child processes of this script (``chip_smoke.py
                   (checkpoint bytes, save and restore seconds); (b)
                   ``--preset=rnn_learn`` PPO, 3 + 3, the LSTM carry and the
                   episodes in flight; (c) SAC at the `sac_parity` config,
-                  3 + 3, its three Adams and log alpha.
+                  3 + 3, its three Adams and log alpha; (d) the PER loop
+                  at the bench point, 50 + 50, its priorities, max
+                  priority and host count.
  33. ppo_rnn_learn  ``--preset=rnn_learn`` (``tests/test_ppo_rnn.py``'s
                   config: B=8, T=48, (32,) / 16 / (32,), 4 epochs x 2
                   minibatches, entropy 0.01, Adam 1e-3) for 30 iterations
@@ -273,9 +276,56 @@ run beside it in four child processes of this script (``chip_smoke.py
                   fresh loop object resumed toward 90: the restored state
                   `torch.equal` to the saved one, counters and metrics
                   continued.
- 40. kernels      the port's hand-written kernels on these paths (none: the
+ 40. per_parity   the PER fused DQN loop (B=64, ring 64, sample 32, (100, 50),
+                  alpha 0.6, beta 0.4, TF32 off), card against CPU for 5
+                  iterations, each from the CPU's state with the CPU's
+                  draws: ids and rows equal on every sample whose uniform
+                  lies more than 4 ulp of the total from a CDF boundary; on
+                  each iteration whose samples all agree (at least 3 of 5),
+                  probabilities, IS weights, loss, priorities, max priority
+                  and networks at rtol 1e-5 / atol 1e-6.
+ 41. per_main     PER at the CartPole bench point (B=4096, ring 512: 2,097,152
+                  priorities; sample 256; (100, 50)): 100 collect steps, 20
+                  warm-up iterations, 5 windows of 20 under the sync debug
+                  mode (median ms/iteration and env-steps/s beside `main`'s,
+                  the overhead of PER), the cumsum and searchsorted share
+                  of a profiled window, the sample, cumsum and search alone
+                  on CUDA events; exact replay count, finite losses, IS
+                  weights in (0, 1].
+ 42. episodic     `EpisodicReplay` (B=64 CartPole rows, 256 slots of 64) for
+                  300 `add_batch` calls on "cpu" and "cuda" with the same
+                  frames: slots, lengths, ids, cursor and completed ids
+                  equal at every call, the card's calls and samples free of
+                  syncs but for the callback drains (every 50 calls), the
+                  sampled episodes equal from the CPU's draws.
+ 43. ingest_sac   `examples/sac_train_job_torch.py`'s learner at the JAX job's
+                  defaults (rings of 32,768, replay 256 rows x 512, sample
+                  256, 8 train steps per call, min 512 items, SAC (256, 256))
+                  fed by two collector processes (``chip_smoke.py
+                  --collector``, the collect job on the CPU, B=8 random
+                  envs with Pendulum-v1's specs, rewards tagging each
+                  frame), weights through the shm store every 200 steps;
+                  a `MinSize` and a `SampleToInsertRatio` (8) leg of 400
+                  train steps: items/s, train-steps/s, the learner's split,
+                  drops, push and pull us, the realized ratio; gates: every
+                  pushed frame drained once with equal bytes, no sample
+                  before 512 items, the ratio inside its error buffer,
+                  each collector's pulled steps advancing and untorn (CRC),
+                  no sync inside a train call.
+ 44. host_replay  `PyUniformReplayBuffer` and `PyHashedReplayBuffer` as
+                  `bench.py:host_atari_replay_probe` drives them (84x84x4
+                  uint8, capacity cut from 1M frames to 100k): fill
+                  frames/s, 2-step samples at batch 256, the batch's H2D
+                  GB/s, the hashed variant's add rate and bytes stored.
+ 45. per_learn    `tests/test_prioritized_replay.py`'s PER config (B=32, ring
+                  256, (64, 64), sample 64) for 1,600 iterations to a
+                  last-20 return above 100 (the JAX test's bar, which the
+                  JAX package's own runs do not tighten), priorities
+                  spread, then greedy eval over exactly 30 episodes; a
+                  fifth child process.
+ 46. kernels      the port's hand-written kernels on these paths (none: the
                   JAX package has no Pallas kernel at HEAD).
- 41. total        the script's wall time; then {"kernels": []}, and as the
+ 47. total        the script's wall time; then {"kernels": []}, and as the
                   last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -691,6 +741,7 @@ def phase_main_and_learn(card):
         and replay_count == expected_count)
   state, prof = profile_window(loop, state, 50)
   iterations += 50
+  MAIN_POINT["ms_per_iteration"] = dt * 1e3 / TIMED_ITERATIONS
   emit("main", card=card, batch_size=B_MAIN, **{k: list(v) if isinstance(
       v, tuple) else v for k, v in MAIN.items()},
        timed_iterations=TIMED_ITERATIONS, sync_debug_mode="error",
@@ -3336,7 +3387,8 @@ def phase_checkpoint_resume(card):
   the run without a break: (a) fused DQN at the CartPole bench point, (b)
   recurrent PPO at `--preset=rnn_learn` (the LSTM carry and the episodes
   in flight), (c) SAC at the `sac_parity` config (three Adams and log
-  alpha)."""
+  alpha), (d) the PER loop at the bench point (priorities, max priority
+  and the host count)."""
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
   from examples.ppo_cartpole_torch import parse_ppo_args
   from examples.sac_pendulum_torch import Config as SacConfig
@@ -3353,7 +3405,11 @@ def phase_checkpoint_resume(card):
                   lambda loop: loop.init(ppo_cfg.seed), CKPT_PPO_ITERATIONS),
       "sac": (lambda: sac_loop(sac_cfg),
               lambda loop: loop.init(seed=0, initial_collect_steps=16),
-              CKPT_SAC_ITERATIONS)}
+              CKPT_SAC_ITERATIONS),
+      "per_bench_point": (
+          lambda: build_per_loop("cuda", B_MAIN, **MAIN),
+          lambda loop: loop.init(seed=0, initial_collect_steps=100),
+          CKPT_DQN_ITERATIONS)}
   out = {}
   with tempfile.TemporaryDirectory() as tmp:
     for name, (build, init, iterations) in cases.items():
@@ -3885,18 +3941,819 @@ def host_phases(card):
   free_card()
 
 
+# -- prioritized replay, the other buffers and distributed SAC -----------------
+
+PER_ALPHA, PER_BETA = 0.6, 0.4
+PER_PARITY = dict(capacity=64, sample_batch_size=32, fc=(100, 50))
+PER_PARITY_INITIAL, PER_PARITY_STEPS, PER_PARITY_MIN_COMPARED = 16, 5, 3
+# A sample is clear of a CDF boundary when its uniform lies more than this
+# many ulps of the total from the CDF entries around it (the gap rule).
+PER_GAP_ULPS = 4
+PER_INITIAL, PER_WARMUP, PER_TIMED_WINDOWS, PER_WINDOW = 100, 20, 5, 20
+PER_PROFILED, PER_ISOLATED_CALLS = 10, 50
+# `tests/test_prioritized_replay.py:165-204`'s config; its bar is the JAX
+# test's 100, which the JAX package's own runs over seeds 0-4 (117.2 to
+# 200.0) do not tighten (`tests/test_torch_reference_bars.py`, `per_bar`).
+PER_LEARN = dict(batch_size=32, capacity=256, sample_batch_size=64,
+                 fc=(64, 64))
+PER_LEARN_INITIAL, PER_LEARN_ITERATIONS, PER_LEARN_CHUNK = 64, 1600, 400
+PER_LEARN_GATE = 100.0
+EPISODIC = dict(batch_size=64, num_slots=256, max_episode_len=64)
+EPISODIC_CALLS, EPISODIC_DRAIN_EVERY, EPISODIC_SAMPLE = 300, 50, 256
+INGEST_LEG_STEPS, INGEST_RATIO, INGEST_COLLECTORS = 400, 8.0, 2
+INGEST_ENV_BATCH, INGEST_PULLS = 8, 200
+# A collector's rewards tag each frame: collector * 2**22 + env * 2**17 +
+# the env's count of time steps, exact in float32.
+INGEST_COLLECTOR_TAG, INGEST_ENV_TAG = 1 << 22, 1 << 17
+# `bench.py:host_atari_replay_probe`'s 1M frames (28 GB) cut to 100k
+# (2.8 GB of host RAM); its hashed variant's 100k frames.
+HOST_REPLAY_CAPACITY, HOST_REPLAY_HASHED, HOST_REPLAY_CHUNK = 100_000, 100_000, 1024
+HOST_REPLAY_SAMPLES, HOST_REPLAY_TRANSFERS = 40, 10
+MAIN_POINT = {}
+
+
+def build_per_loop(device, batch_size, capacity, sample_batch_size, fc):
+  """`build_loop`'s DQN loop with its replay made prioritized (alpha 0.6,
+  beta 0.4)."""
+  from agents_tpu_torch.replay_buffers import PrioritizedReplay
+  from agents_tpu_torch.train import FusedTrainLoop
+
+  loop = build_loop(device, batch_size, capacity, sample_batch_size, fc)
+  replay = PrioritizedReplay(loop.replay.data_spec, batch_size, capacity,
+                             alpha=PER_ALPHA, device=device)
+  return FusedTrainLoop(loop.env, loop.agent, replay, metrics=loop.metrics,
+                        sample_batch_size=sample_batch_size,
+                        per_beta=PER_BETA, device=device)
+
+
+def record_per_samples(loop):
+  """Wraps `loop.replay.sample` to keep, per call, the priorities and count
+  it sampled from and its info; returns the list."""
+  samples, sample = [], loop.replay.sample
+
+  def recorded(state, draws, *args, **kwargs):
+    batch, info = sample(state, draws, *args, **kwargs)
+    samples.append((state.priorities.clone(), state.count, info))
+    return batch, info
+
+  loop.replay.sample = recorded
+  return samples
+
+
+def per_clear_of_boundaries(replay, priorities, count, num_steps, u):
+  """On the CPU: whether each stratified uniform `u` ([S] in [0, 1)) lies
+  more than `PER_GAP_ULPS` ulps of the total from the CDF entries around
+  it, for a sample of `priorities` at `count`."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.replay_buffers.prioritized_replay import \
+      chunked_cumsum
+
+  size = min(count, replay.capacity)
+  t_r = replay._time_ids(count).cpu()
+  valid = (t_r >= 0) & (t_r >= count - size) & (t_r <= count - num_steps)
+  flat = torch.where(valid[:, None], torch.pow(priorities.cpu(), replay.alpha),
+                     0.0).reshape(-1)
+  cdf = chunked_cumsum(flat).numpy()
+  total = np.float32(max(cdf[-1], 1e-30))
+  s = len(u)
+  x = (np.arange(s, dtype=np.float32) + np.asarray(u, np.float32)) \
+      / np.float32(s) * total
+  x = np.minimum(x, total * np.float32(1.0 - 1e-7))
+  idx = np.searchsorted(cdf, x, side="right")
+  lo = np.where(idx > 0, cdf[np.maximum(idx - 1, 0)], -np.inf)
+  hi = cdf[np.minimum(idx, len(cdf) - 1)]
+  gap = PER_GAP_ULPS * np.spacing(total)
+  return (x - lo > gap) & (hi - x > gap)
+
+
+def phase_per_parity(card):
+  """The PER fused DQN loop (B=64, ring 64, sample 32, (100, 50), alpha 0.6,
+  beta 0.4, TF32 off), card against CPU, each iteration started from the
+  CPU's state with the CPU's draws: ids and rows equal on every sample
+  clear of a CDF boundary; on an iteration whose samples all agree, the
+  sample's probabilities and IS weights, the loss, the priorities, the max
+  priority and the networks at rtol 1e-5 / atol 1e-6."""
+  import copy
+
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.train.checkpointer import capture, restore_into
+  from agents_tpu_torch.utils import convert
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  state_dict = convert.q_params_to_state_dict(
+      numpy_q_params(np.random.RandomState(0), PER_PARITY["fc"]))
+  loops = {d: build_per_loop(d, B_PARITY, **PER_PARITY)
+           for d in ("cpu", "cuda")}
+  samples = {}
+  for device, loop in loops.items():
+    loop.agent.q_network.load_state_dict(state_dict)
+    samples[device] = record_per_samples(loop)
+  draws = RecordingDraws(Draws(0, "cpu"))
+  cstate = loops["cpu"].init(draws=draws,
+                             initial_collect_steps=PER_PARITY_INITIAL)
+  gstate = loops["cuda"].init(seed=0)
+  diffs, mismatched, compared, flipped, clear_total = {}, [], 0, [], 0
+
+  def compare(tag, card_value, cpu_value):
+    a, b = card_value.detach().cpu(), cpu_value.detach().cpu()
+    if a.dtype.is_floating_point:
+      diffs[tag] = max_diff(a, b)
+      if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+        mismatched.append(tag)
+    elif not torch.equal(a, b):
+      mismatched.append(tag)
+
+  for step in range(PER_PARITY_STEPS):
+    # A copy of the CPU's state: `capture` shares a CPU tensor, and an
+    # optimizer's `load_state_dict` keeps a tensor already on its device.
+    for field in ("driver_state", "replay_state", "agent_state",
+                  "metric_states"):
+      gstate = dataclasses.replace(gstate, **{field: restore_into(
+          getattr(gstate, field),
+          copy.deepcopy(capture(getattr(cstate, field))))})
+    seen = record_counts(draws)
+    cstate, cinfo = loops["cpu"].iteration(cstate)
+    gstate = dataclasses.replace(gstate, draws=ReplayDraws(
+        new_records(draws, seen), "cuda"))
+    gstate, ginfo = loops["cuda"].iteration(gstate)
+    (cprio, count, cs), (gprio, _, gs) = samples["cpu"][-1], samples["cuda"][-1]
+    clear = torch.from_numpy(per_clear_of_boundaries(
+        loops["cpu"].replay, cprio, count, 2, draws.records["per_u"][-1]))
+    clear_total += int(clear.sum())
+    for name in ("ids", "rows"):
+      compare(f"step{step}.{name}.clear", getattr(gs, name).cpu()[clear],
+              getattr(cs, name)[clear])
+    if not (torch.equal(gs.ids.cpu(), cs.ids)
+            and torch.equal(gs.rows.cpu(), cs.rows)):
+      flipped.append(step)     # a near-tie the gap rule allows to differ
+      continue
+    compared += 1
+    compare(f"step{step}.priorities_sampled", gprio, cprio)
+    compare(f"step{step}.probabilities", gs.probabilities, cs.probabilities)
+    compare(f"step{step}.is_weights", gs.is_weights, cs.is_weights)
+    compare(f"step{step}.loss", ginfo.loss, cinfo.loss)
+    compare(f"step{step}.priorities", gstate.replay_state.priorities,
+            cstate.replay_state.priorities)
+    compare(f"step{step}.max_priority", gstate.replay_state.max_priority,
+            cstate.replay_state.max_priority)
+    gtensors, ctensors = (dqn_tensors(gstate.agent_state),
+                          dqn_tensors(cstate.agent_state))
+    for k in ctensors:
+      compare(f"step{step}.{k}", gtensors[k], ctensors[k])
+  samples_total = PER_PARITY_STEPS * PER_PARITY["sample_batch_size"]
+  ok = not mismatched and compared >= PER_PARITY_MIN_COMPARED
+  worst = max(diffs, key=diffs.get)
+  emit("per_parity", card=card, batch_size=B_PARITY, **{
+      k: list(v) if isinstance(v, tuple) else v for k, v in PER_PARITY.items()},
+       alpha=PER_ALPHA, beta=PER_BETA, steps=PER_PARITY_STEPS, rtol=RTOL,
+       atol=ATOL, gap_ulps=PER_GAP_ULPS, samples=samples_total,
+       samples_clear=clear_total, steps_compared=compared,
+       steps_with_a_permitted_flip=flipped,
+       largest_float_diff={"name": worst, "abs": diffs[worst]},
+       mismatched=mismatched, ok=ok)
+  if not ok:
+    fail("per_parity", f"card and CPU disagree on {mismatched[:10]}, or "
+         f"fewer than {PER_PARITY_MIN_COMPARED} steps compared ({compared})")
+
+
+def device_ms_by_op(fn, names):
+  """`fn()` under `torch.profiler`: the device milliseconds of the ops
+  `names` (`key_averages`), and the window's wall milliseconds."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  out = {}
+  for event in prof.key_averages():
+    if event.key in names:
+      us = getattr(event, "device_time_total", None)
+      if us is None:
+        us = getattr(event, "cuda_time_total", 0.0)
+      out[event.key] = out.get(event.key, 0.0) + us / 1e3
+  return out, wall_ms
+
+
+def event_ms(fn, calls):
+  """Milliseconds per call of `fn()` between two CUDA events, after a
+  warm-up call."""
+  import torch
+
+  fn()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  torch.cuda.synchronize()
+  start.record()
+  for _ in range(calls):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / calls
+
+
+def phase_per_main(card):
+  """PER at the CartPole bench point (B=4096, ring 512: 2,097,152
+  priorities, 8 MiB; sample 256; (100, 50)): timed windows under the sync
+  debug mode beside `main`, the sample's share, the busy share."""
+  import torch
+
+  from agents_tpu_torch.replay_buffers.prioritized_replay import \
+      chunked_cumsum
+  from agents_tpu_torch.utils.draws import Draws
+
+  loop = build_per_loop("cuda", B_MAIN, **MAIN)
+  t_init = time.perf_counter()
+  state = loop.init(seed=0, initial_collect_steps=PER_INITIAL)
+  state, _ = loop.run(state, PER_WARMUP)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t_init
+  timed = PER_TIMED_WINDOWS * PER_WINDOW
+  state, losses, window_ms = timed_windows(loop, state, timed,
+                                           PER_TIMED_WINDOWS)
+  ms = sorted(window_ms)[len(window_ms) // 2]
+  replay, rstate = loop.replay, state.replay_state
+  count_ok = rstate.count == PER_INITIAL + PER_WARMUP + timed
+  finite = bool(torch.isfinite(losses).all())
+  draws = Draws(1, "cuda")
+  _, info = replay.sample(rstate, draws, MAIN["sample_batch_size"],
+                          num_steps=2, beta=PER_BETA)
+  w = info.is_weights
+  weights_ok = bool(((w > 0) & (w <= 1)).all())
+  priorities = rstate.priorities
+  priorities_ok = bool(torch.isfinite(priorities).all()) and float(
+      priorities.std()) > 0.0
+  state, prof = profile_window(loop, state, PER_PROFILED)
+  by_op, wall_ms = device_ms_by_op(
+      lambda: loop.run(state, PER_PROFILED),
+      ("aten::cumsum", "aten::searchsorted"))
+  sample_device_ms = sum(by_op.values()) / PER_PROFILED
+  flat = priorities.reshape(-1)
+  u = torch.rand(MAIN["sample_batch_size"], device="cuda")
+  cdf = chunked_cumsum(flat)
+  isolated = {
+      "sample": event_ms(lambda: replay.sample(
+          rstate, draws, MAIN["sample_batch_size"], num_steps=2,
+          beta=PER_BETA), PER_ISOLATED_CALLS),
+      "chunked_cumsum": event_ms(lambda: chunked_cumsum(flat),
+                                 PER_ISOLATED_CALLS),
+      "searchsorted": event_ms(lambda: torch.searchsorted(cdf, u, right=True),
+                               PER_ISOLATED_CALLS)}
+  main_ms = MAIN_POINT.get("ms_per_iteration")
+  ok = count_ok and finite and weights_ok and priorities_ok
+  emit("per_main", card=card, batch_size=B_MAIN, **{
+      k: list(v) if isinstance(v, tuple) else v for k, v in MAIN.items()},
+       alpha=PER_ALPHA, beta=PER_BETA, priorities=priorities.numel(),
+       priority_bytes=priorities.numel() * priorities.element_size(),
+       timed_iterations=timed, sync_debug_mode="error",
+       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
+       env_steps_per_s=B_MAIN * 1e3 / ms,
+       main_ms_per_iteration=main_ms,
+       main_env_steps_per_s=B_MAIN * 1e3 / main_ms if main_ms else None,
+       per_overhead=ms / main_ms - 1.0 if main_ms else None,
+       init_and_warmup_s=init_s, replay_count=rstate.count,
+       replay_count_exact=count_ok, losses_finite=finite,
+       is_weights_in_0_1=weights_ok,
+       is_weights_min=float(w.min()), priorities_finite_and_spread=priorities_ok,
+       profile=prof,
+       sample_device_ms_per_iteration_by_op=by_op and {
+           k: v / PER_PROFILED for k, v in by_op.items()},
+       cumsum_and_searchsorted_share=sample_device_ms * PER_PROFILED / wall_ms,
+       isolated_ms=isolated,
+       sample_share_isolated=isolated["sample"] / ms, ok=ok)
+  if not ok:
+    fail("per_main", "PER checks failed (replay count, losses, IS weights "
+         "or priorities)")
+
+
+def phase_per_learn(card):
+  """`tests/test_prioritized_replay.py:165-204`'s PER loop to 1,600
+  iterations: the last-20 return above its bar, priorities spread, then
+  greedy eval over exactly 30 episodes."""
+  import torch
+
+  t0 = time.perf_counter()
+  loop = build_per_loop("cuda", **PER_LEARN)
+  state = loop.init(seed=0, initial_collect_steps=PER_LEARN_INITIAL)
+  iterations, points = 0, []
+  while iterations < PER_LEARN_ITERATIONS:
+    state, losses = loop.run(state, PER_LEARN_CHUNK)
+    iterations += PER_LEARN_CHUNK
+    points.append([iterations,
+                   float(loop.results(state)["AverageReturn"])])
+  ret = points[-1][1]
+  std = float(state.replay_state.priorities.std())
+  learn_s = time.perf_counter() - t0
+  t_eval = time.perf_counter()
+  out = loop.evaluate(state, 101, num_episodes=30, max_steps=2000)
+  episodes = int(out["NumberOfEpisodes"])
+  torch.cuda.synchronize()
+  finite = bool(torch.isfinite(losses).all())
+  ok = ret > PER_LEARN_GATE and std > 0.0 and finite and episodes == 30
+  emit("per_learn", card=card, **{
+      k: list(v) if isinstance(v, tuple) else v for k, v in PER_LEARN.items()},
+       alpha=PER_ALPHA, beta=PER_BETA, iterations=iterations,
+       last20_average_return=ret, gate=PER_LEARN_GATE, points=points,
+       priority_std=std, losses_finite=finite,
+       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
+       eval_episodes=episodes, eval_average_return=float(out["AverageReturn"]),
+       eval_seconds=time.perf_counter() - t_eval, ok=ok)
+  if not ok:
+    fail("per_learn", f"last-20 return {ret} (gate > {PER_LEARN_GATE}), "
+         f"priority std {std}, {episodes} eval episodes of 30")
+
+
+def cartpole_frames(batch_size, steps, seed=0):
+  """`steps` Trajectory frames of `batch_size` CartPole rows under random
+  actions, on the CPU."""
+  from agents_tpu_torch.environments import BatchedTorchEnv
+  from agents_tpu_torch.environments.classic import CartPole
+  from agents_tpu_torch.trajectories import policy_step
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from agents_tpu_torch.utils.draws import Draws
+
+  env = BatchedTorchEnv(CartPole(), batch_size, device="cpu")
+  draws = Draws(seed, "cpu")
+  env_state, step = env.reset(draws)
+  frames = []
+  for _ in range(steps):
+    action = draws.randint("random_action", (batch_size,), 0, 2)
+    env_state, nxt = env.step(env_state, step, action, draws)
+    frames.append(tj.from_transition(
+        step, policy_step.PolicyStep(action=action), nxt))
+    step = nxt
+  return env, frames
+
+
+def phase_episodic(card):
+  """`EpisodicReplay` on CartPole rows (B=64) for 300 `add_batch` calls on
+  "cpu" and "cuda" with the same frames: slots, lengths, ids, cursor and
+  completed ids equal at every call; the card's calls and its
+  `sample_episodes` (the CPU's draws replayed) make no host sync, the
+  callback drains aside; the sampled episodes equal."""
+  import torch
+
+  from agents_tpu_torch.replay_buffers.episodic_replay import (
+      CompletionCallback, EpisodicReplay)
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from agents_tpu_torch.utils import nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  B = EPISODIC["batch_size"]
+  env, frames = cartpole_frames(B, EPISODIC_CALLS)
+  spec = tj.trajectory_spec(env.time_step_spec(), env.action_spec())
+  fields = ("open_slot", "open_len", "lengths", "episode_ids", "next_slot",
+            "next_episode_id", "num_completed")
+  runs = {}
+  for device in ("cpu", "cuda"):
+    replay = EpisodicReplay(spec, device=device, **EPISODIC)
+    device_frames = [to_device(f, device) for f in frames]
+    fired = []
+    callback = CompletionCallback([fired.append])
+    state, trace, pending = replay.init(), [], []
+    drain_s = 0.0
+    if device == "cpu":
+      draws = RecordingDraws(Draws(5, "cpu"))
+    else:     # the CPU's draws, copied to the card before the timed calls
+      draws = ReplayDraws(runs["cpu"]["draws"].records, "cuda")
+    if device == "cuda":
+      torch.cuda.synchronize()
+      torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for i, frame in enumerate(device_frames, start=1):
+      state, done = replay.add_batch(state, frame, return_completed=True)
+      pending.append(done)
+      trace.append([getattr(state, f).clone() for f in fields] + [done])
+      if i % EPISODIC_DRAIN_EVERY == 0:
+        t_drain = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(0)
+        callback(torch.cat(pending))
+        if device == "cuda":
+          torch.cuda.set_sync_debug_mode("error")
+        pending = []
+        drain_s += time.perf_counter() - t_drain
+    sampled = {completed_only: replay.sample_episodes(
+        state, draws, EPISODIC_SAMPLE, completed_only=completed_only,
+        return_info=True) for completed_only in (True, False)}
+    torch.cuda.set_sync_debug_mode(0)
+    if device == "cuda":
+      torch.cuda.synchronize()
+    runs[device] = dict(state=state, trace=trace, sampled=sampled,
+                        fired=fired, draws=draws, drain_s=drain_s,
+                        seconds=time.perf_counter() - t0)
+  mismatched = []
+  for i, (ct, gt) in enumerate(zip(runs["cpu"]["trace"],
+                                   runs["cuda"]["trace"])):
+    for name, a, b in zip(fields + ("completed_ids",), gt, ct):
+      if not torch.equal(a.cpu(), b):
+        mismatched.append(f"call{i}.{name}")
+  for completed_only in (True, False):
+    g, c = runs["cuda"]["sampled"][completed_only], runs["cpu"]["sampled"][
+        completed_only]
+    for j, (a, b) in enumerate(zip(nest_utils.flatten(g),
+                                   nest_utils.flatten(c), strict=True)):
+      if not torch.equal(a.cpu(), b):
+        mismatched.append(f"sample.{completed_only}.{j}")
+  for j, (a, b) in enumerate(zip(
+      nest_utils.flatten(runs["cuda"]["state"].storage),
+      nest_utils.flatten(runs["cpu"]["state"].storage))):
+    if not torch.equal(a.cpu(), b):
+      mismatched.append(f"storage.{j}")
+  gpu = runs["cuda"]
+  completed = int(gpu["state"].num_completed)
+  fired_ok = gpu["fired"] == runs["cpu"]["fired"] and len(
+      gpu["fired"]) == completed
+  wrapped = completed > EPISODIC["num_slots"]
+  ok = not mismatched and fired_ok and wrapped
+  emit("episodic", card=card, **EPISODIC,
+       add_batch_calls=EPISODIC_CALLS, drain_every=EPISODIC_DRAIN_EVERY,
+       sync_debug_mode="error outside the callback drains",
+       completed_episodes=completed, slot_ring_wrapped=wrapped,
+       callbacks_fired=len(gpu["fired"]), callbacks_equal=fired_ok,
+       ms_per_add_batch=(gpu["seconds"] - gpu["drain_s"]) * 1e3
+       / EPISODIC_CALLS, drain_seconds=gpu["drain_s"],
+       mismatched=mismatched[:10], ok=ok)
+  if not ok:
+    fail("episodic", f"card and CPU disagree on {mismatched[:10]}, "
+         f"callbacks equal {fired_ok}, ring wrapped {wrapped}")
+
+
+def pendulum_specs():
+  """Pendulum-v1's observation (3,) in [-1, -1, -8]..[1, 1, 8] and action
+  (1,) in [-2, 2]."""
+  import numpy as np
+
+  from agents_tpu_torch.specs import array_spec
+
+  return (array_spec.BoundedArraySpec((3,), np.float32, [-1.0, -1.0, -8.0],
+                                      [1.0, 1.0, 8.0]),
+          array_spec.BoundedArraySpec((1,), np.float32, -2.0, 2.0))
+
+
+def ingest_collector(ring, weights_shm, collector):
+  """A collect job of `examples/sac_collect_job_torch.py` on the CPU (B=8)
+  over `RandomPyEnvironment`s with Pendulum-v1's specs, each wrapped so
+  that the reward of every time step it returns, resets included, tags it
+  with the collector, the env and a running count; it runs until its
+  learner's SIGTERM."""
+  import itertools
+
+  import numpy as np
+
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from agents_tpu_torch.environments.wrappers import PyEnvironmentBaseWrapper
+  from examples import sac_collect_job_torch as job
+
+  class TaggedRewards(PyEnvironmentBaseWrapper):
+
+    def __init__(self, env, base):
+      super().__init__(env)
+      self._base, self._count = base, 0
+
+    def _tag(self, time_step):
+      self._count += 1
+      return dataclasses.replace(time_step, reward=np.asarray(
+          self._base + self._count, np.float32))
+
+    def _reset(self):
+      return self._tag(self._env.reset())
+
+    def _step(self, action):
+      return self._tag(self._env.step(action))
+
+  cid, envs = int(collector), itertools.count()
+
+  def make_env(_):
+    k = next(envs)
+    return TaggedRewards(
+        RandomPyEnvironment(*pendulum_specs(), seed=1000 * cid + k),
+        cid * INGEST_COLLECTOR_TAG + k * INGEST_ENV_TAG)
+
+  args = job.parse_args([f"--root_dir={RUNS_DIR}", f"--ring={ring}",
+                         f"--env_batch_size={INGEST_ENV_BATCH}",
+                         f"--weights_shm={weights_shm}", f"--seed={cid}"])
+  job.run_collector(args, make_env=make_env,
+                    log=lambda line: print(line, flush=True))
+
+
+def check_ingested(blocks, pushed):
+  """The drained [n, 2, ...] pairs against the collectors' reports: each
+  pair's tags are one env's consecutive steps, no frame arrives twice,
+  each collector's count is what it pushed, and a frame that arrives in
+  two pairs (second of one, first of the next) has the same bytes in
+  both. Returns a dict of counts and failures."""
+  import numpy as np
+
+  from agents_tpu_torch.utils import nest_utils
+
+  firsts, seconds, counts, bad_pairs = {}, {}, {}, 0
+  for block in blocks:
+    leaves = [np.asarray(x) for x in nest_utils.flatten_sorted(block)]
+    n = leaves[0].shape[0]
+    halves = [np.concatenate([x[:, h].reshape(n, -1).view(np.uint8)
+                              for x in leaves], axis=1) for h in (0, 1)]
+    tags = block.reward.astype(np.int64)
+    bad_pairs += int((tags[:, 1] != tags[:, 0] + 1).sum())
+    for i in range(n):
+      t0, t1 = int(tags[i, 0]), int(tags[i, 1])
+      cid = t0 // INGEST_COLLECTOR_TAG
+      counts[cid] = counts.get(cid, 0) + 1
+      if t0 in firsts:
+        bad_pairs += 1
+      firsts[t0] = halves[0][i].tobytes()
+      seconds[t1] = halves[1][i].tobytes()
+  shared = set(firsts) & set(seconds)
+  bytes_differ = sum(firsts[t] != seconds[t] for t in shared)
+  counts_ok = counts == {cid: n for cid, n in enumerate(pushed)}
+  return {"frames": sum(counts.values()), "by_collector": counts,
+          "pushed": pushed, "counts_equal_pushed": counts_ok,
+          "bad_pairs": bad_pairs, "frames_in_two_pairs": len(shared),
+          "frames_whose_bytes_differ": bytes_differ,
+          "ok": counts_ok and not bad_pairs and not bytes_differ
+          and len(shared) > 0}
+
+
+def ingest_leg(card, name, samples_per_insert):
+  """One learner of `examples/sac_train_job_torch.py` at the JAX job's
+  defaults fed by `INGEST_COLLECTORS` collector processes, for
+  `INGEST_LEG_STEPS` train steps; its numbers and gates."""
+  import secrets
+  import zlib
+
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from agents_tpu_torch.train.variable_container import VariableContainer
+  from examples import sac_train_job_torch as job
+  from examples.sac_collect_job_torch import snapshot_crc32
+
+  tag = f"{os.getpid()}_{secrets.token_hex(3)}"
+  rings = [f"cs_ingest_{tag}_{i}" for i in range(INGEST_COLLECTORS)]
+  shm = f"cs_weights_{tag}"
+  argv = [f"--rings={','.join(rings)}", f"--weights_shm={shm}",
+          f"--total_train_steps={INGEST_LEG_STEPS}", f"--root_dir={RUNS_DIR}"]
+  if samples_per_insert:
+    argv.append(f"--samples_per_insert={samples_per_insert}")
+  args = job.parse_args(argv)
+  env = RandomPyEnvironment(*pendulum_specs())
+  learner = job.Learner(args, env.time_step_spec(), env.action_spec())
+  lim = learner.limiter
+  blocks, diffs, at_sample, crcs = [], [], [], {}
+  drain, train_call, publish = (learner.drain, learner.train_call,
+                                learner.publish)
+
+  def diff():
+    return lim.inserts * getattr(lim, "samples_per_insert", 0.0) - lim.samples
+
+  def checked_drain():
+    got = drain()
+    blocks.extend(got)
+    diffs.append(diff())
+    return got
+
+  def checked_train_call():
+    at_sample.append((diff(), lim.inserts, learner.replay_state.count,
+                      time.perf_counter(), learner.total_items))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      train_call()
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+
+  def checked_publish():
+    publish()
+    crcs[learner.train_steps] = snapshot_crc32(
+        learner.collect_params().state_dict())
+
+  learner.drain, learner.train_call, learner.publish = (
+      checked_drain, checked_train_call, checked_publish)
+  children = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--collector", ring, shm,
+       str(cid)], stdout=subprocess.PIPE, text=True)
+      for cid, ring in enumerate(rings)]
+  reports, leftovers = [], []
+  try:
+    learner.publish()
+    t0 = time.perf_counter()
+    while learner.train_steps < INGEST_LEG_STEPS:
+      learner.step()
+    torch.cuda.synchronize()
+    # Rates from the first train call on: before it the learner waits for
+    # the collectors to start and fill `min_replay_items`.
+    t_end = time.perf_counter()
+    startup_s, leg_s = at_sample[0][3] - t0, t_end - at_sample[0][3]
+    items = learner.total_items - at_sample[0][4]
+    seconds = dict(learner.seconds)
+    pushes = len(crcs)
+    for proc in children:
+      proc.terminate()
+    # Drain (without the limiter) while the collectors finish their tick,
+    # so none waits on a full ring; then whatever is left.
+    while any(proc.poll() is None for proc in children):
+      for server in learner.servers:
+        out = server.drain(max_frames=4096)
+        if out is not None:
+          leftovers.append(out)
+      time.sleep(0.005)
+    for proc in children:
+      out, _ = proc.communicate(timeout=60)
+      lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+      reports.append([l for l in lines if l.get("done")][-1])
+    for server in learner.servers:
+      while (out := server.drain(max_frames=4096)) is not None:
+        leftovers.append(out)
+    reader = VariableContainer(shm, learner.collect_params())
+    t_pull = time.perf_counter()
+    for _ in range(INGEST_PULLS):
+      reader.pull()
+    pull_us = (time.perf_counter() - t_pull) * 1e6 / INGEST_PULLS
+    reader.close()
+    dropped = learner.dropped()
+  finally:
+    for proc in children:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    learner.close()
+  ingested = check_ingested(blocks + leftovers,
+                            [r["pushed_items"] for r in reports])
+  pulls_ok = all(
+      len({s for s, _ in r["pulls"]}) >= 2
+      and [s for s, _ in r["pulls"]] == sorted(s for s, _ in r["pulls"])
+      and all(crcs.get(s) == c for s, c in r["pulls"]) for r in reports)
+  sampled_early = [s for s in at_sample
+                   if s[1] < args.min_replay_items or s[2] == 0]
+  chunk = learner.samples_per_chunk
+  ratio_ok = True
+  if samples_per_insert:
+    ratio_ok = (max(diffs) <= lim.max_diff
+                and min(s[0] for s in at_sample) - chunk >= lim.min_diff)
+  ok = (ingested["ok"] and pulls_ok and not sampled_early and ratio_ok
+        and learner.train_steps == INGEST_LEG_STEPS)
+  return {
+      "leg": name, "limiter": type(lim).__name__,
+      "samples_per_insert": samples_per_insert or None,
+      "train_steps": learner.train_steps,
+      "seconds_to_first_train_call": startup_s,
+      "seconds_from_first_train_call": leg_s,
+      "items_ingested": learner.total_items,
+      "items_ingested_per_s": items / leg_s,
+      "train_steps_per_s": learner.train_steps / leg_s,
+      "split_seconds": seconds, "dropped": dropped,
+      "weight_pushes": pushes,
+      "push_us": seconds["push"] * 1e6 / max(pushes, 1), "pull_us": pull_us,
+      "weight_bytes": sum(v.numel() * v.element_size() for v in
+                          learner.collect_params().state_dict().values()),
+      "realized_samples_per_insert": lim.samples / max(lim.inserts, 1),
+      "diff_range": [min(diffs), max(diffs)] if samples_per_insert else None,
+      "diff_bounds": ([lim.min_diff, lim.max_diff]
+                      if samples_per_insert else None),
+      "ratio_within_error_buffer": ratio_ok,
+      "first_sample_at_inserts": at_sample[0][1] if at_sample else None,
+      "sampled_before_min_items": len(sampled_early),
+      "collector_pulls": [[s for s, _ in r["pulls"]] for r in reports],
+      "pulls_untorn_and_advancing": pulls_ok,
+      "collector_ticks": [r["ticks"] for r in reports],
+      "ingest": ingested, "ok": ok}
+
+
+def phase_ingest_sac(card):
+  """The distributed SAC learner at the JAX job's defaults (ring 32,768,
+  replay 256 rows x 512, sample 256, 8 train steps per call,
+  `min_replay_items` 512, SAC (256, 256), Adam 3e-4 x3) fed by two
+  collector processes through the shm rings, weights through the shm
+  store every 200 steps: a `MinSize` leg and a `SampleToInsertRatio` leg
+  (8 samples per insert)."""
+  legs = [ingest_leg(card, "min_size", 0.0),
+          ingest_leg(card, "ratio", INGEST_RATIO)]
+  ok = all(leg["ok"] for leg in legs)
+  emit("ingest_sac", card=card, collectors=INGEST_COLLECTORS,
+       collector_env_batch=INGEST_ENV_BATCH, train_steps_per_leg=
+       INGEST_LEG_STEPS, sync_debug_mode="error inside each train call",
+       legs=legs, ok=ok)
+  if not ok:
+    fail("ingest_sac", "a leg failed its gates: " + ", ".join(
+        leg["leg"] for leg in legs if not leg["ok"]))
+
+
+def phase_host_replay(card):
+  """`PyUniformReplayBuffer` and `PyHashedReplayBuffer` as
+  `bench.py:host_atari_replay_probe` drives them, with 84x84x4 uint8
+  frames, capacity cut from 1M frames to 100k: fill frames/s, 2-step
+  samples at batch 256, the sampled batch's H2D GB/s, the hashed variant's
+  add rate and bytes stored."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.replay_buffers.py_uniform_replay import (
+      PyHashedReplayBuffer, PyUniformReplayBuffer)
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from agents_tpu_torch.utils import nest_utils
+
+  spec = tj.trajectory_spec(
+      ts.time_step_spec(array_spec.ArraySpec((84, 84, 4), np.uint8)),
+      array_spec.BoundedArraySpec((), np.int32, 0, 3))
+  rng = np.random.RandomState(0)
+  block = array_spec.map_spec_nest(
+      lambda s: rng.randint(0, 255, (HOST_REPLAY_CHUNK,) + s.shape).astype(
+          s.dtype) if s.dtype == np.uint8 else np.zeros(
+              (HOST_REPLAY_CHUNK,) + s.shape, s.dtype), spec)
+  buf = PyUniformReplayBuffer(spec, HOST_REPLAY_CAPACITY,
+                              reuse_sample_buffers=True)
+  chunks = HOST_REPLAY_CAPACITY // HOST_REPLAY_CHUNK
+  t0 = time.perf_counter()
+  for _ in range(chunks):
+    buf.add_batch(block)
+  fill_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  for i in range(HOST_REPLAY_SAMPLES):
+    batch = buf.sample(256, num_steps=2, rng=np.random.RandomState(i))
+  sample_s = (time.perf_counter() - t0) / HOST_REPLAY_SAMPLES
+  leaves = nest_utils.flatten(batch)
+  batch_bytes = sum(x.nbytes for x in leaves)
+  on_card = [torch.from_numpy(x).to("cuda") for x in leaves]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(HOST_REPLAY_TRANSFERS):
+    on_card = [torch.from_numpy(x).to("cuda") for x in leaves]
+  torch.cuda.synchronize()
+  transfer_s = (time.perf_counter() - t0) / HOST_REPLAY_TRANSFERS
+  copied_ok = all(np.array_equal(g.cpu().numpy(), x)
+                  for g, x in zip(on_card, leaves))
+  hbuf = PyHashedReplayBuffer(spec, HOST_REPLAY_HASHED,
+                              reuse_sample_buffers=True)
+  t0 = time.perf_counter()
+  for _ in range(HOST_REPLAY_HASHED // HOST_REPLAY_CHUNK):
+    hbuf.add_batch(block)
+  hashed_s = time.perf_counter() - t0
+  frames = HOST_REPLAY_HASHED // HOST_REPLAY_CHUNK * HOST_REPLAY_CHUNK
+  same = all(np.array_equal(a, b) for a, b in zip(
+      nest_utils.flatten(buf.sample(64, num_steps=2,
+                                    rng=np.random.RandomState(99))),
+      nest_utils.flatten(hbuf.sample(64, num_steps=2,
+                                     rng=np.random.RandomState(99)))))
+  windows_ok = bool((batch.observation.shape == (256, 2, 84, 84, 4)))
+  resident = sum(x.nbytes for x in nest_utils.flatten(buf._storage))
+  ok = (copied_ok and same and windows_ok
+        and len(buf) == chunks * HOST_REPLAY_CHUNK
+        and hbuf.num_unique_observations == HOST_REPLAY_CHUNK)
+  emit("host_replay", card=card, capacity_frames=HOST_REPLAY_CAPACITY,
+       capacity_cut_from=1_000_000, resident_bytes=resident,
+       frames_filled=len(buf),
+       fill_frames_per_s=chunks * HOST_REPLAY_CHUNK / fill_s,
+       sample_batch256_ms=sample_s * 1e3,
+       sample_frames_per_s=256 * 2 / sample_s, batch_bytes=batch_bytes,
+       host_to_device_ms=transfer_s * 1e3,
+       host_to_device_gb_per_s=batch_bytes / transfer_s / 1e9,
+       mnih15_cadence_env_frames_per_s_with_transfer=4.0 / (
+           sample_s + transfer_s),
+       hashed_frames=frames, hashed_add_frames_per_s=frames / hashed_s,
+       hashed_unique_observations=hbuf.num_unique_observations,
+       hashed_observation_bytes_stored=hbuf.observation_bytes_stored,
+       hashed_dedup_ratio=frames / max(hbuf.num_unique_observations, 1),
+       copy_equal=copied_ok, hashed_samples_equal_uniform=same, ok=ok)
+  if not ok:
+    fail("host_replay", "host replay checks failed")
+
+
+def replay_phases(card):
+  """Prioritized replay on the fused loop, the episodic and host buffers,
+  and the distributed SAC learner."""
+  phase_per_parity(card)
+  phase_per_main(card)
+  free_card()
+  phase_episodic(card)
+  phase_ingest_sac(card)
+  free_card()
+  phase_host_replay(card)
+
+
 # The learning runs, each in a process of its own (see `learning_phases`).
 CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline,
                 "qtopt_learn": phase_qtopt_learn,
-                "ppo_rnn_learn": phase_ppo_rnn_learn}
+                "ppo_rnn_learn": phase_ppo_rnn_learn,
+                "per_learn": phase_per_learn}
 
 
 def learning_phases(card):
   """`sac_learn` here while `td3_learn`, `cql_offline` + `bc`,
-  `qtopt_learn` and `ppo_rnn_learn` run in four child processes of this
-  script on the same card. Each is a long run of small host-bound steps (the card idles over
-  90% of the time), so four at once take about as long as the longest on
-  the host's cores; no timed phase runs beside
+  `qtopt_learn`, `ppo_rnn_learn` and `per_learn` run in five child
+  processes of this script on the same card. Each is a long run of small
+  host-bound steps (the card idles over 90% of the time), so five at once
+  take about as long as the longest on the host's cores; no timed phase
+  runs beside
   them. Their lines are printed as each ends; a child that fails fails
   the script, and no child outlives it."""
   children = {
@@ -3920,6 +4777,11 @@ def learning_phases(card):
 
 
 def main(argv=()):
+  if list(argv[:1]) == ["--collector"]:
+    # A collector of `ingest_sac`: on the CPU, it never touches the card.
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    ingest_collector(*argv[1:])
+    return 0
   import torch
 
   if not torch.cuda.is_available():
@@ -3976,6 +4838,7 @@ def main(argv=()):
   phase_checkpoint_resume(card)
   free_card()
   host_phases(card)
+  replay_phases(card)
   learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")

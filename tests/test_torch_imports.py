@@ -18,7 +18,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "agents_tpu")
 EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
             "sac_pendulum_torch.py", "ppo_cartpole_torch.py",
             "td3_pendulum_torch.py", "cql_sac_offline_torch.py",
-            "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py")
+            "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py",
+            "sac_train_job_torch.py", "sac_collect_job_torch.py")
+# The distributed SAC jobs build no `Config`: the learner is checked on its
+# own below, and the collector runs on the CPU by design.
+JOBS = ("sac_train_job_torch.py", "sac_collect_job_torch.py")
 HOST_MODULES = (
     "environments.py_environment", "environments.test_envs",
     "environments.utils", "environments.wrappers",
@@ -27,7 +31,10 @@ HOST_MODULES = (
     "environments.parallel_py_environment", "metrics.py_metrics",
     "policies.jitted_py_policy", "drivers.py_driver", "eval.metric_utils",
     "train.host_device_loop", "train.host_on_policy_loop",
-    "train.async_host_device_loop")
+    "train.async_host_device_loop", "replay_buffers.rate_limiter",
+    "replay_buffers.prioritized_replay", "replay_buffers.episodic_replay",
+    "replay_buffers.py_uniform_replay", "replay_buffers.host_ingest",
+    "train.variable_container", "utils.native_build")
 
 
 def _port_modules():
@@ -138,7 +145,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                          make_value_rnn_network)
   from agents_tpu_torch.networks import \
       make_actor_distribution_rnn_network as make_actor_rnn
-  from agents_tpu_torch.replay_buffers import UniformReplay
+  from agents_tpu_torch.replay_buffers import (PrioritizedReplay,
+                                               UniformReplay)
+  from agents_tpu_torch.replay_buffers.episodic_replay import EpisodicReplay
   from agents_tpu_torch.train import FusedTrainLoop, OnPolicyTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
 
@@ -216,7 +225,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                 lambda: DqnAgent(tss, asp, qrnn, torch.optim.Adam,
                                  train_sequence_length=4),
                 lambda: PPOAgent(tss, asp, torch.optim.Adam, actor_rnn,
-                                 value_rnn)):
+                                 value_rnn),
+                lambda: PrioritizedReplay(tj.trajectory_spec(tss, asp), 4, 8),
+                lambda: FusedTrainLoop(env, agent, PrioritizedReplay(
+                    tj.trajectory_spec(tss, asp), 4, 8, device="cpu")),
+                lambda: EpisodicReplay(tj.trajectory_spec(tss, asp), 4, 9,
+                                       5)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 
@@ -225,6 +239,8 @@ def test_example_raises_without_a_card():
   """The examples' default device is "cuda" too (the offline example
   builds its environment first)."""
   for example in EXAMPLES:
+    if example in JOBS:
+      continue
     code = ("import sys, torch\n"
             "torch.cuda.is_available = lambda: False\n"
             f"sys.path.insert(0, {os.path.join(ROOT, 'examples')!r})\n"
@@ -237,12 +253,34 @@ def test_example_raises_without_a_card():
 
 
 
+def test_train_job_raises_without_a_card():
+  """The distributed SAC learner defaults to "cuda" and raises without a
+  card before it creates a ring; `--device cpu` runs it on the CPU."""
+  code = ("import sys, torch\n"
+          "torch.cuda.is_available = lambda: False\n"
+          f"sys.path.insert(0, {ROOT!r})\n"
+          "from examples import sac_train_job_torch as job\n"
+          "from agents_tpu_torch.environments.test_envs import "
+          "RandomPyEnvironment\n"
+          "from agents_tpu_torch.specs import array_spec\n"
+          "import numpy as np\n"
+          "env = RandomPyEnvironment(array_spec.ArraySpec((3,), np.float32),"
+          " array_spec.BoundedArraySpec((1,), np.float32, -2, 2))\n"
+          "job.Learner(job.parse_args(['--rings=never_created']),"
+          " env.time_step_spec(), env.action_spec())\n")
+  out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode != 0
+  assert "torch.cuda.is_available() is False" in out.stderr
+
+
 def test_host_modules_import_without_gymnasium():
   """The host modules and the HalfCheetah examples import where gymnasium
   cannot be imported (it is imported inside `suite_gym.load` and
   `spec_from_gym_space` only)."""
   names = [f"agents_tpu_torch.{m}" for m in HOST_MODULES] + [
-      "examples.sac_halfcheetah_torch", "examples.ppo_halfcheetah_torch"]
+      "examples.sac_halfcheetah_torch", "examples.ppo_halfcheetah_torch",
+      "examples.sac_train_job_torch", "examples.sac_collect_job_torch"]
   code = ("import importlib, json, sys\n"
           "sys.modules['gymnasium'] = None\n"
           f"for m in {names!r}: importlib.import_module(m)\n"

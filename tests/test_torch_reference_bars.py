@@ -25,6 +25,14 @@ by the port:
           minibatches, entropy 0.01, Adam 1e-3) for its 30 iterations: the
           last-20 return at the end. `ppo_rnn_bar` turns the five seeds'
           returns into the bar.
+  per     `agents_tpu`'s `DqnAgent` in its `FusedTrainLoop` with
+          `PrioritizedReplay` at `tests/test_prioritized_replay.py:165-204`'s
+          config (`PER`: B=32 CartPoles, ring 256, (64, 64), eps 0.1, tau
+          0.05 every 5, Adam 1e-3, squared loss, sample 64, 64 initial
+          collect steps, alpha 0.6, beta 0.4) for 1,600 iterations: the
+          last-20 return at the end. `per_bar` turns the five seeds' returns
+          into the bar; `run_per(..., port=True)` runs the port's loop at the
+          same config.
   host_sac `agents_tpu`'s `SacAgent` in its `HostDeviceTrainLoop` over a
           `BatchedPyEnvironment` of 8 gymnasium `Pendulum-v1`s (`HOST_SAC`:
           4 train steps per tick, (64, 64) actor and critic, ring 8192 per
@@ -51,10 +59,11 @@ seeds, so five processes can run them side by side):
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
         [offline] [qtopt [--qtopt-seed=N ...]] [ppo_rnn]
-        [host_sac [--host-sac-seed=N ...]]
+        [host_sac [--host-sac-seed=N ...]] [per]
 
 (`ppo_rnn` takes about a minute a seed on one core; `host_sac` a minute or
-two; `host_sac_port` runs the port at `HOST_SAC` over the same seeds.)
+two; `host_sac_port` runs the port at `HOST_SAC` over the same seeds; `per`
+and `per_port` under a minute a seed.)
 
 The tests below check that these runs are built from the port examples'
 configurations, so the bars are of the same configuration.
@@ -380,6 +389,102 @@ def run_host_sac(seed, port=False, max_ticks=None):
 
 
 
+PER = dict(env_batch_size=32, replay_capacity=256, sample_batch_size=64,
+           fc_layer_params=(64, 64), initial_collect_steps=64,
+           iterations=1600, alpha=0.6, beta=0.4)
+PER_GATE = 100.0
+
+
+def port_per_loop(seed=0, device="cpu"):
+  """The port's `FusedTrainLoop` with `PrioritizedReplay` at `PER`: the
+  DQN example's loop at that config, its replay made prioritized."""
+  from agents_tpu_torch.replay_buffers import PrioritizedReplay
+  from agents_tpu_torch.train import FusedTrainLoop
+  from examples.dqn_cartpole_torch import Config, build_loop
+
+  c = PER
+  loop = build_loop(Config(
+      env_batch_size=c["env_batch_size"], replay_capacity=c["replay_capacity"],
+      sample_batch_size=c["sample_batch_size"],
+      fc_layer_params=c["fc_layer_params"], seed=seed, device=device))
+  replay = PrioritizedReplay(loop.replay.data_spec, c["env_batch_size"],
+                             c["replay_capacity"], alpha=c["alpha"],
+                             device=device)
+  return FusedTrainLoop(loop.env, loop.agent, replay, metrics=loop.metrics,
+                        sample_batch_size=c["sample_batch_size"],
+                        per_beta=c["beta"], device=device)
+
+
+def jax_per_loop():
+  """The JAX loop of `tests/test_prioritized_replay.py:165-204`."""
+  from agents_tpu import metrics, networks
+  from agents_tpu.agents.dqn import DqnAgent
+  from agents_tpu.environments.classic.cartpole import CartPole
+  from agents_tpu.environments.jax_environment import BatchedJaxEnv
+  from agents_tpu.replay_buffers import PrioritizedReplay
+  from agents_tpu.train import FusedTrainLoop
+  from agents_tpu.trajectories import trajectory as tj
+  from agents_tpu.utils import common
+
+  c = PER
+  env = BatchedJaxEnv(CartPole(), batch_size=c["env_batch_size"])
+  tss, asp = env.time_step_spec(), env.action_spec()
+  qnet = networks.make_q_network(tss.observation, asp,
+                                 fc_layer_params=c["fc_layer_params"])
+  agent = DqnAgent(tss, asp, qnet, _adam(1e-3), epsilon_greedy=0.1,
+                   target_update_tau=0.05, target_update_period=5,
+                   gamma=0.99,
+                   td_errors_loss_fn=common.element_wise_squared_loss)
+  rb = PrioritizedReplay(tj.trajectory_spec(tss, asp),
+                         batch_size=c["env_batch_size"],
+                         max_length=c["replay_capacity"], alpha=c["alpha"])
+  return FusedTrainLoop(env, agent, rb,
+                        metrics=metrics.standard_collect_metrics(20),
+                        collect_steps_per_iteration=1,
+                        sample_batch_size=c["sample_batch_size"],
+                        per_beta=c["beta"])
+
+
+def run_per(seed, port=False):
+  """`PER["iterations"]` iterations from `seed` (the JAX loop from
+  ``key(seed)``, the port's from ``Draws(seed)`` on the CPU): the last-20
+  return, the losses' finiteness and the priorities' spread."""
+  import numpy as np
+
+  c, t0 = PER, time.time()
+  if port:
+    import torch
+
+    loop = port_per_loop(seed)
+    state = loop.init(seed, initial_collect_steps=c["initial_collect_steps"])
+    state, losses = loop.run(state, c["iterations"])
+    finite = bool(torch.isfinite(losses).all())
+  else:
+    import jax
+
+    loop = jax_per_loop()
+    state = jax.jit(lambda k: loop.init(
+        k, initial_collect_steps=c["initial_collect_steps"]))(
+            jax.random.key(seed))
+    state, losses = jax.jit(lambda s: loop.run(s, c["iterations"]))(state)
+    finite = bool(np.isfinite(np.asarray(losses)).all())
+  return {"last20_average_return": float(np.asarray(
+      loop.results(state)["AverageReturn"])), "losses_finite": finite,
+          "priority_std": float(np.asarray(
+              state.replay_state.priorities).std()),
+          "seconds": time.time() - t0}
+
+
+def per_bar(runs):
+  """The PER bar from the JAX runs over seeds 0-4: the JAX test's 100
+  unless all five clear it; then the worst seed's return less a third of
+  the spread across seeds, and never under 100."""
+  finals = [r["last20_average_return"] for r in runs]
+  if min(finals) <= PER_GATE:
+    return PER_GATE
+  return max(PER_GATE, min(finals) - (max(finals) - min(finals)) / 3.0)
+
+
 def normalized_score(ret, behavior_return, random_return):
   """D4RL's normalized score: 0 at random play, 1 at the behaviour
   policy (both greedy returns over the same episodes)."""
@@ -686,6 +791,42 @@ def test_host_sac_bar_rule():
   assert qtopt_bar(runs) == HOST_SAC_BAR
 
 
+def test_per_bar_runs_the_jax_test_config():
+  """The JAX PER loop is `tests/test_prioritized_replay.py`'s (B=32, ring
+  256, (64, 64), sample 64, alpha 0.6, beta 0.4) and the port's loop has
+  the same widths and settings; one iteration each with finite losses."""
+  import jax
+  import numpy as np
+  import torch
+
+  jloop, tloop = jax_per_loop(), port_per_loop()
+  for loop in (jloop, tloop):
+    assert (loop.env.batch_size, loop.replay.capacity, loop.replay.alpha,
+            loop.sample_batch_size, loop.per_beta, loop.prioritized) == (
+                32, 256, 0.6, 64, 0.4, True)
+    assert (loop.agent.epsilon_greedy, loop.agent.gamma,
+            loop.agent.target_update_tau,
+            loop.agent.target_update_period) == (0.1, 0.99, 0.05, 5)
+  assert [m.in_features for m in tloop.agent.q_network.modules()
+          if isinstance(m, torch.nn.Linear)] == [4, 64, 64]
+  jstate = jloop.init(jax.random.key(0), initial_collect_steps=4)
+  _, jlosses = jloop.run(jstate, 1)
+  tstate = tloop.init(0, initial_collect_steps=4)
+  _, tlosses = tloop.run(tstate, 1)
+  assert np.isfinite(np.asarray(jlosses)).all()
+  assert torch.isfinite(tlosses).all()
+
+
+def test_per_bar_rule():
+  runs = [{"last20_average_return": r}
+          for r in (192.75, 200.0, 157.85, 192.0, 117.2)]
+  assert per_bar(runs) == PER_GATE        # 117.2 - 82.8 / 3 < 100
+  runs[4]["last20_average_return"] = 180.0
+  assert per_bar(runs) == 157.85 - (200.0 - 157.85) / 3.0
+  runs[0]["last20_average_return"] = 90.0
+  assert per_bar(runs) == PER_GATE
+
+
 @pytest.mark.slow
 def test_port_host_sac_passes_the_jax_bar():
   """The port's `HostDeviceTrainLoop` SAC at `HOST_SAC` on the CPU reaches
@@ -761,6 +902,14 @@ if __name__ == "__main__":
       print(json.dumps({f"{mode}_seed": seed, **host_runs[-1]}), flush=True)
     if len(host_runs) == 5:
       print(json.dumps({f"{mode}_bar": qtopt_bar(host_runs)}), flush=True)
+  for mode, port in (("per", False), ("per_port", True)):
+    if mode not in which:
+      continue
+    per_runs = []
+    for seed in range(5):
+      per_runs.append(run_per(seed, port=port))
+      print(json.dumps({f"{mode}_seed": seed, **per_runs[-1]}), flush=True)
+    print(json.dumps({f"{mode}_bar": per_bar(per_runs)}), flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)
