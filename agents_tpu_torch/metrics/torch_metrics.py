@@ -2,7 +2,9 @@
 
 Port of ``agents_tpu/metrics/jax_metrics.py`` (`DequeState`,
 `EnvironmentSteps`, `NumberOfEpisodes`, `AverageReturnMetric`,
-`AverageEpisodeLengthMetric`, `standard_collect_metrics`). Each metric is a
+`MaxReturnMetric`, `MinReturnMetric`, `AverageEpisodeLengthMetric`,
+`AverageReturnMultiMetric`, `ChosenActionHistogram`,
+`standard_collect_metrics`). Each metric is a
 (state, trajectory-frame) -> state reducer over device tensors plus a
 `result` readout, so a driver updates them with no host sync. Frames
 arrive batched [B]. Counters are int64 (torch's sum type) where the JAX
@@ -160,12 +162,89 @@ class AverageReturnMetric(Metric):
     return state.deque.mean()
 
 
+class MaxReturnMetric(AverageReturnMetric):
+  """Largest episode return over the last `buffer_size` episodes."""
+  name = "MaxReturn"
+
+  def result(self, state):
+    return state.deque.max()
+
+
+class MinReturnMetric(AverageReturnMetric):
+  """Smallest episode return over the last `buffer_size` episodes."""
+  name = "MinReturn"
+
+  def result(self, state):
+    return state.deque.min()
+
+
 class AverageEpisodeLengthMetric(AverageReturnMetric):
   """Mean episode length over the last `buffer_size` episodes."""
   name = "AverageEpisodeLength"
 
   def _increment(self, traj, not_boundary):
     return not_boundary
+
+
+@dataclasses.dataclass(frozen=True)
+class _MultiReturnState:
+  accumulator: torch.Tensor  # [B, reward_len]
+  deques: tuple              # one DequeState per reward component
+
+
+class AverageReturnMultiMetric(Metric):
+  """Per-component mean return of vector rewards ``[B, reward_len]``: one
+  deque per component, all pushed with the same done mask. The result is
+  ``[reward_len]``."""
+  name = "AverageReturnMulti"
+
+  def __init__(self, reward_len: int, buffer_size: int = 10):
+    self.reward_len = reward_len
+    self.buffer_size = buffer_size
+
+  def init(self, batch_size: int, device=None):
+    return _MultiReturnState(
+        accumulator=torch.zeros((batch_size, self.reward_len),
+                                dtype=torch.float32, device=device),
+        deques=tuple(DequeState.create(self.buffer_size, device=device)
+                     for _ in range(self.reward_len)))
+
+  def update(self, state, traj):
+    not_boundary = (~traj.is_boundary()).to(torch.float32)
+    acc = state.accumulator + traj.reward * not_boundary[..., None]
+    done = traj.is_last()
+    deques = tuple(dq.push_batch(done, acc[:, i])
+                   for i, dq in enumerate(state.deques))
+    acc = torch.where(done[..., None], 0.0, acc)
+    return _MultiReturnState(accumulator=acc, deques=deques)
+
+  def result(self, state):
+    return torch.stack([dq.mean() for dq in state.deques])
+
+
+class ChosenActionHistogram(Metric):
+  """Counts of each discrete action over non-boundary frames
+  ``[num_actions]`` (int64). `result_kind` "counts" tells a summary
+  writer to draw it as a histogram."""
+  name = "ChosenActionHistogram"
+  result_kind = "counts"
+
+  def __init__(self, num_actions: int):
+    self.num_actions = num_actions
+
+  def init(self, batch_size: int, device=None):
+    return torch.zeros((self.num_actions,), dtype=torch.int64, device=device)
+
+  def update(self, state, traj):
+    # Boundary frames carry no chosen action. The one-hot is a comparison
+    # with an arange: `F.one_hot` checks its bounds with a host sync.
+    valid = ~traj.is_boundary()
+    actions = torch.arange(self.num_actions, device=state.device)
+    onehot = traj.action.to(torch.int64)[:, None] == actions
+    return state + (onehot & valid[:, None]).sum(dim=0)
+
+  def result(self, state):
+    return state
 
 
 def standard_collect_metrics(buffer_size: int = 10):

@@ -33,6 +33,7 @@ from agents_tpu_torch.networks.network import (Network, cast_linear,
                                                variance_scaling_)
 from agents_tpu_torch.networks.projection_networks import (
     NormalProjection, TanhNormalProjection, default_projection)
+from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
@@ -73,6 +74,7 @@ class ActorDistributionModule(Network):
                                is_leaf=array_spec._is_spec), network_state
 
 
+@register_factory
 def make_actor_distribution_network(
     input_spec, action_spec, conv_layer_params=(), fc_layer_params=(200, 100),
     activation: Callable = F.relu, continuous_projection=NormalProjection,
@@ -87,6 +89,7 @@ def make_actor_distribution_network(
       device, seeded_generator(device, generator))
 
 
+@register_factory
 def make_sac_actor_network(input_spec, action_spec,
                            fc_layer_params=(256, 256),
                            activation: Callable = F.relu,
@@ -155,6 +158,7 @@ class DeterministicActorModule(Network):
             network_state)
 
 
+@register_factory
 def make_deterministic_actor_network(
     input_spec, action_spec, fc_layer_params=(256, 256),
     activation: Callable = F.relu, dtype: torch.dtype = torch.float32,

@@ -1,6 +1,7 @@
 """Spec-driven encoder: preprocessing -> conv -> MLP.
 
-Port of ``agents_tpu/networks/encoding_network.py`` (`EncoderModule`).
+Port of ``agents_tpu/networks/encoding_network.py`` (`EncoderModule` and
+the registered factory `make_encoding_network`, :66-73).
 For each observation leaf, in order: the optional `preprocessing`, a cast
 to the compute dtype, the conv stack if the leaf is an image
 ``[B, H, W, C]``, and a flatten past the batch dim. The leaves are then
@@ -29,7 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from agents_tpu_torch.networks.network import cast_linear, variance_scaling_
+from agents_tpu_torch.networks.network import (Network, cast_linear,
+                                               seeded_generator,
+                                               variance_scaling_)
+from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
@@ -153,3 +157,31 @@ class EncoderModule(nn.Module):
       if self.dropout_rate:
         x = F.dropout(x, self.dropout_rate, training=training)
     return x, network_state
+
+
+class EncodingNetwork(Network):
+  """An `EncoderModule` as a network: ``(features, network_state)``."""
+
+  def __init__(self, input_spec, encoder: EncoderModule):
+    super().__init__(input_spec)
+    self.encoder = encoder
+
+  def forward(self, observation, step_type=None, network_state=(),
+              training: bool = False):
+    return self.encoder(observation, step_type, network_state, training)
+
+
+@register_factory
+def make_encoding_network(input_spec, conv_layer_params=(),
+                          fc_layer_params=(64, 64),
+                          activation: Callable = F.relu,
+                          dtype: torch.dtype = torch.float32, device="cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> EncodingNetwork:
+  """An `EncodingNetwork` on `device`, initialised from `generator` (a
+  fresh generator seeded 0 on the device when None)."""
+  device = resolve_device(device)
+  return EncodingNetwork(input_spec, EncoderModule(
+      input_spec, tuple(conv_layer_params), tuple(fc_layer_params),
+      activation, dtype=dtype, device=device,
+      generator=seeded_generator(device, generator)))

@@ -48,6 +48,7 @@ from agents_tpu_torch.networks.network import (Network, cast_linear,
 from agents_tpu_torch.networks.projection_networks import (NormalProjection,
                                                            default_projection)
 from agents_tpu_torch.networks.q_network import _head, num_actions
+from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.utils import nest_utils
@@ -291,6 +292,7 @@ def _lstm_state_spec(lstm_size: int):
           array_spec.ArraySpec((lstm_size,), np.float32, "lstm_h"))
 
 
+@register_factory
 def make_q_rnn_network(input_spec, action_spec, input_fc_layer_params=(40,),
                        lstm_size=40, output_fc_layer_params=(40,),
                        dtype: torch.dtype = torch.float32, device="cuda",
@@ -305,6 +307,7 @@ def make_q_rnn_network(input_spec, action_spec, input_fc_layer_params=(40,),
                     seeded_generator(device, generator))
 
 
+@register_factory
 def make_value_rnn_network(input_spec, input_fc_layer_params=(40,),
                            lstm_size=40, output_fc_layer_params=(40,),
                            dtype: torch.dtype = torch.float32, device="cuda",
@@ -317,6 +320,7 @@ def make_value_rnn_network(input_spec, input_fc_layer_params=(40,),
                         seeded_generator(device, generator))
 
 
+@register_factory
 def make_actor_distribution_rnn_network(
     input_spec, action_spec, input_fc_layer_params=(40,), lstm_size=40,
     output_fc_layer_params=(40,), continuous_projection=NormalProjection,

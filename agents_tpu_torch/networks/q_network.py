@@ -21,6 +21,7 @@ from agents_tpu_torch.networks.encoding_network import EncoderModule
 from agents_tpu_torch.networks.network import (Network, cast_linear,
                                                seeded_generator,
                                                uniform_symmetric_)
+from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
@@ -125,6 +126,7 @@ class CategoricalQModule(_EncodedQ):
     return logits.float(), network_state
 
 
+@register_factory
 def make_q_network(input_spec, action_spec, conv_layer_params=(),
                    fc_layer_params=(64, 64), activation: Callable = F.relu,
                    dueling: bool = False, dtype: torch.dtype = torch.float32,
@@ -139,6 +141,7 @@ def make_q_network(input_spec, action_spec, conv_layer_params=(),
              device, seeded_generator(device, generator))
 
 
+@register_factory
 def make_categorical_q_network(input_spec, action_spec, num_atoms: int = 51,
                                conv_layer_params=(), fc_layer_params=(64, 64),
                                activation: Callable = F.relu,

@@ -28,6 +28,7 @@ from agents_tpu_torch.networks.network import (Network, cast_linear,
                                                lecun_normal_,
                                                seeded_generator,
                                                uniform_symmetric_)
+from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
@@ -68,6 +69,7 @@ class ValueModule(Network):
     return v.squeeze(-1).float(), network_state
 
 
+@register_factory
 def make_value_network(input_spec, fc_layer_params=(64, 64),
                        conv_layer_params=(), activation: Callable = F.relu,
                        dtype: torch.dtype = torch.float32, device="cuda",
@@ -139,6 +141,7 @@ class CriticModule(Network):
     return q.squeeze(-1).float(), network_state
 
 
+@register_factory
 def make_critic_network(observation_spec, action_spec,
                         observation_fc_layer_params=(),
                         joint_fc_layer_params=(256, 256),

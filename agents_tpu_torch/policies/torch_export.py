@@ -1,0 +1,517 @@
+"""Runtime-independent policy export via `torch.export`.
+
+Port of ``agents_tpu/policies/stablehlo_export.py``: the JAX package
+serializes its jitted ``action`` to StableHLO with ``jax.export``; the
+port serializes the policy's ``action`` to a `torch.export`
+ExportedProgram, one per platform (``cpu`` always, ``cuda`` when asked
+for), batch-size polymorphic where the trace allows, plus
+
+  - ``params_flat.npz``        parameter tensors in flattened order
+                               (refreshable without re-export)
+  - ``exported_manifest.json`` the calling convention: leaf paths, shapes
+                               and dtypes of time step, state, action and
+                               params, the programs per platform, and the
+                               draw sites
+  - ``loader.py``              a loader written INTO the artifact that
+                               imports numpy and torch only, never
+                               `agents_tpu_torch`.
+
+Calling convention of each exported program (the JAX one, with the key
+replaced by the draws it would have made):
+
+  (flat_params, draw_inputs, flat_time_step, flat_state)
+      -> (flat_action, flat_next_state)
+
+``flat_time_step`` is (step_type, reward, discount, *observation leaves),
+leaves in ``jax.tree_util``'s order (dict keys sorted). The parameters
+are explicit inputs: each module of the params nest is called through
+``torch.func.functional_call`` with graph inputs in place of its
+parameters and buffers, so ``params_flat.npz`` swaps them.
+
+Randomness: a `torch.Generator` cannot be a graph input. The policy is
+first run with a draw source that logs every draw (kind, site, shape,
+bounds); twice, at two batch sizes, to find each draw's batch dim. The
+program then takes one input per logged draw and the policy draws from
+those inputs. The manifest lists the sites; the loader fills them from
+``numpy.random.default_rng(key_data)``. A greedy policy has no sites and
+ignores ``key_data``.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import os
+import tempfile
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from agents_tpu_torch.specs import array_spec
+from agents_tpu_torch.trajectories import time_step as ts
+from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils.draws import Draws
+
+PARAMS_NPZ = "params_flat.npz"
+MANIFEST = "exported_manifest.json"
+LOADER = "loader.py"
+EXAMPLE_BATCH = 3
+
+
+def program_file(platform: str) -> str:
+  return f"exported_action_{platform}.pt2"
+
+
+def atomic_publish(path: str, write_fn, mode: str = "w"):
+  """Write through a unique tmp file and a rename: pollers never read a
+  torn file, and two overlapping exporters cannot truncate each other's
+  half-written tmp; the last rename wins with a whole file."""
+  fd, tmp = tempfile.mkstemp(
+      dir=os.path.dirname(os.path.abspath(path)),
+      prefix=os.path.basename(path) + ".", suffix=".tmp")
+  try:
+    with os.fdopen(fd, mode) as f:
+      write_fn(f)
+    os.replace(tmp, path)
+  except BaseException:
+    if os.path.exists(tmp):
+      os.unlink(tmp)
+    raise
+
+
+def atomic_json_dump(obj, path: str):
+  """Atomically publish JSON (actors poll the manifests live)."""
+  atomic_publish(path, lambda f: json.dump(obj, f, indent=2))
+
+
+def _is_spec(x) -> bool:
+  return isinstance(x, array_spec.ArraySpec)
+
+
+def param_leaves(params, path: str = "") -> List[tuple]:
+  """(path, tensor) of every tensor of a params nest, in a fixed order: a
+  module's parameters then its buffers (``named_parameters``,
+  ``named_buffers``), a dict's values by sorted key, a tuple's or list's
+  items in order, a tensor itself. Numbers are no leaves: they are
+  constants of the program."""
+  if isinstance(params, nn.Module):
+    named = list(params.named_parameters()) + list(params.named_buffers())
+    return [(f"{path}{name}", t) for name, t in named]
+  if isinstance(params, torch.Tensor):
+    return [(path.rstrip("/") or "tensor", params)]
+  if isinstance(params, dict):
+    return [leaf for k in sorted(params)
+            for leaf in param_leaves(params[k], f"{path}{k}/")]
+  if isinstance(params, (tuple, list)):
+    return [leaf for i, v in enumerate(params)
+            for leaf in param_leaves(v, f"{path}{i}/")]
+  return []
+
+
+def _bind(params, tensors):
+  """`params` with each module replaced by a call of it through
+  ``torch.func.functional_call`` with, and each tensor replaced by, the
+  next of `tensors` (an iterator in `param_leaves`' order)."""
+  if isinstance(params, nn.Module):
+    bound = {name: next(tensors) for name, _ in param_leaves(params)}
+    return lambda *args, **kwargs: torch.func.functional_call(
+        params, bound, args, kwargs)
+  if isinstance(params, torch.Tensor):
+    return next(tensors)
+  if isinstance(params, dict):
+    bound = {k: _bind(params[k], tensors) for k in sorted(params)}
+    return {k: bound[k] for k in params}
+  if isinstance(params, (tuple, list)):
+    return type(params)(_bind(v, tensors) for v in params)
+  return params
+
+
+def _params_on(params, device: torch.device):
+  """`params` with every module and tensor on `device` (deep copies of
+  those that live elsewhere)."""
+  if isinstance(params, nn.Module):
+    leaves = param_leaves(params)
+    if not leaves or leaves[0][1].device == device:
+      return params
+    return copy.deepcopy(params).to(device)
+  if isinstance(params, torch.Tensor):
+    return params.detach().to(device)
+  if isinstance(params, dict):
+    return {k: _params_on(v, device) for k, v in params.items()}
+  if isinstance(params, (tuple, list)):
+    return type(params)(_params_on(v, device) for v in params)
+  return params
+
+
+def full_time_step_spec(policy):
+  tss = policy.time_step_spec
+  if isinstance(tss, ts.TimeStep):
+    return tss
+  # A policy built with an observation-spec-only time_step_spec.
+  return ts.time_step_spec(tss)
+
+
+def _numpy_dtype(dtype: torch.dtype) -> str:
+  return torch.empty((), dtype=dtype).numpy().dtype.name
+
+
+class _DrawLog:
+  """A draw source that logs each draw (kind, site, shape, dtype, bounds)
+  and returns a real draw from `source`."""
+
+  def __init__(self, source):
+    self.source = source
+    self.device = source.device
+    self.calls = []
+
+  def uniform(self, site, shape, low=0.0, high=1.0, dtype=torch.float32):
+    self.calls.append(("uniform", site, tuple(shape), dtype, float(low),
+                       float(high)))
+    return self.source.uniform(site, shape, low, high, dtype)
+
+  def randint(self, site, shape, low, high, dtype=torch.int64):
+    self.calls.append(("randint", site, tuple(shape), dtype, int(low),
+                       int(high)))
+    return self.source.randint(site, shape, low, high, dtype)
+
+  def normal(self, site, shape, dtype=torch.float32):
+    self.calls.append(("normal", site, tuple(shape), dtype, None, None))
+    return self.source.normal(site, shape, dtype)
+
+  def permutation(self, site, n):
+    raise NotImplementedError(f"draw site {site!r}: a permutation cannot "
+                              "be exported")
+
+  def gamma(self, site, concentration):
+    raise NotImplementedError(f"draw site {site!r}: gamma variates cannot "
+                              "be exported")
+
+
+class _InputDraws:
+  """Draws taken, in order, from the program's draw inputs; each call
+  must match the logged site."""
+
+  def __init__(self, sites, inputs, device):
+    self._items = iter(zip(sites, inputs))
+    self.device = device
+
+  def _next(self, kind, site):
+    expected, value = next(self._items)
+    if (expected["kind"], expected["site"]) != (kind, site):
+      raise RuntimeError(f"draw {kind}@{site} where the trace drew "
+                         f"{expected['kind']}@{expected['site']}")
+    return value
+
+  def uniform(self, site, shape, low=0.0, high=1.0, dtype=torch.float32):
+    return self._next("uniform", site)
+
+  def randint(self, site, shape, low, high, dtype=torch.int64):
+    return self._next("randint", site)
+
+  def normal(self, site, shape, dtype=torch.float32):
+    return self._next("normal", site)
+
+
+def _example_inputs(tss, state_spec, batch: int, device):
+  """Zero time-step leaves (MID steps) and zero state leaves at `batch`."""
+  ts_leaves = []
+  for i, s in enumerate(nest_utils.flatten_sorted(tss, is_leaf=_is_spec)):
+    x = torch.zeros((batch,) + tuple(s.shape),
+                    dtype=array_spec.torch_dtype(s.dtype), device=device)
+    ts_leaves.append(x + ts.StepType.MID if i == 0 else x)
+  state_leaves = [
+      torch.zeros((batch,) + tuple(s.shape),
+                  dtype=array_spec.torch_dtype(s.dtype), device=device)
+      for s in nest_utils.flatten_sorted(state_spec, is_leaf=_is_spec)]
+  return ts_leaves, state_leaves
+
+
+class _ActionProgram(nn.Module):
+  """The function that is exported:
+  (flat_params, draw_inputs, flat_time_step, flat_state)
+      -> (flat_action, flat_next_state)."""
+
+  def __init__(self, policy, params, sites, device):
+    super().__init__()
+    self._policy = policy
+    self._params = [params]   # a list: not registered as a submodule
+    self._sites = sites
+    self._device = device
+    self._tss = full_time_step_spec(policy)
+
+  def forward(self, flat_params, draw_inputs, flat_ts, flat_state):
+    policy = self._policy
+    params = _bind(self._params[0], iter(flat_params))
+    time_step = nest_utils.unflatten_sorted(self._tss, flat_ts,
+                                            is_leaf=_is_spec)
+    state = (nest_utils.unflatten_sorted(policy.state_spec, flat_state,
+                                         is_leaf=_is_spec)
+             if flat_state else ())
+    draws = _InputDraws(self._sites, draw_inputs, self._device)
+    step = policy.action(params, time_step, state, draws)
+    return (list(nest_utils.flatten_sorted(step.action)),
+            list(nest_utils.flatten_sorted(step.state)))
+
+
+def _log_draws(policy, params, tss, batch, device):
+  ts_leaves, state_leaves = _example_inputs(tss, policy.state_spec, batch,
+                                            device)
+  log = _DrawLog(Draws(0, device))
+  time_step = nest_utils.unflatten_sorted(tss, ts_leaves, is_leaf=_is_spec)
+  state = (nest_utils.unflatten_sorted(policy.state_spec, state_leaves,
+                                       is_leaf=_is_spec)
+           if state_leaves else ())
+  with torch.no_grad():
+    policy.action(params, time_step, state, log)
+  return log.calls
+
+
+def draw_sites(policy, params, device) -> List[dict]:
+  """The draws `policy.action` makes, in order: kind, site, shape with
+  None at the batch dim, dtype and bounds."""
+  tss = full_time_step_spec(policy)
+  a = _log_draws(policy, params, tss, EXAMPLE_BATCH - 1, device)
+  b = _log_draws(policy, params, tss, EXAMPLE_BATCH, device)
+  if [c[:2] for c in a] != [c[:2] for c in b]:
+    raise ValueError("the policy draws at different sites for different "
+                     "batch sizes; it cannot be exported")
+  sites = []
+  for (kind, site, shape_a, dtype, low, high), call_b in zip(a, b):
+    shape_b = call_b[2]
+    if len(shape_a) != len(shape_b):
+      raise ValueError(f"draw site {site!r} changes rank with the batch")
+    batch_dims = [i for i, (x, y) in enumerate(zip(shape_a, shape_b))
+                  if x != y]
+    if len(batch_dims) > 1:
+      raise ValueError(f"draw site {site!r} has more than one batch dim")
+    sites.append({
+        "kind": kind, "site": site,
+        "shape": [None if i in batch_dims else d
+                  for i, d in enumerate(shape_b)],
+        "dtype": _numpy_dtype(dtype), "low": low, "high": high})
+  return sites
+
+
+def _draw_examples(sites, batch, device):
+  out = []
+  for s in sites:
+    shape = tuple(batch if d is None else d for d in s["shape"])
+    dtype = array_spec.torch_dtype(s["dtype"])
+    out.append(torch.zeros(shape, dtype=dtype, device=device)
+               if s["kind"] != "randint" else
+               torch.full(shape, s["low"], dtype=dtype, device=device))
+  return out
+
+
+def _export_one(policy, params, sites, device, batch_size):
+  """The ExportedProgram of `policy.action` on `device`."""
+  params = _params_on(params, device)
+  tss = full_time_step_spec(policy)
+  batch = EXAMPLE_BATCH if batch_size is None else int(batch_size)
+  ts_leaves, state_leaves = _example_inputs(tss, policy.state_spec, batch,
+                                            device)
+  flat_params = [t.detach() for _, t in param_leaves(params)]
+  draws = _draw_examples(sites, batch, device)
+  args = (flat_params, draws, ts_leaves, state_leaves)
+  dynamic_shapes = None
+  if batch_size is None:
+    b = torch.export.Dim("b", min=1)
+    dynamic_shapes = (
+        [None] * len(flat_params),
+        [{s["shape"].index(None): b} if None in s["shape"] else None
+         for s in sites],
+        [{0: b}] * len(ts_leaves), [{0: b}] * len(state_leaves))
+  program = _ActionProgram(policy, params, sites, device)
+  with torch.no_grad():
+    return torch.export.export(program, args, dynamic_shapes=dynamic_shapes,
+                               strict=False)
+
+
+def write_params_npz(export_dir: str, params):
+  """Atomically write the flat-params npz the programs consume: the single
+  source of the ``p{i}`` / `param_leaves` order contract shared by
+  `export_action` and `PolicySaver.save_checkpoint`'s refreshes, so a
+  concurrent loader's `refresh_params` never sees a partial zip."""
+  flat = [t.detach().cpu().numpy() for _, t in param_leaves(params)]
+  atomic_publish(
+      os.path.join(export_dir, PARAMS_NPZ),
+      lambda f: np.savez(f, **{f"p{i}": x for i, x in enumerate(flat)}),
+      mode="wb")
+
+
+class PlatformExportError(RuntimeError):
+  """The policy exported on the CPU but not on another platform."""
+
+
+def export_action(policy, params, export_dir: str,
+                  batch_size: Optional[int] = None,
+                  platforms: Sequence[str] = ("cpu",)) -> dict:
+  """Export ``policy.action`` to `export_dir` once per platform; returns
+  the manifest.
+
+  ``batch_size=None`` exports a symbolic leading dim (``Dim("b",
+  min=1)``); an int pins it (the fallback for a policy whose trace
+  rejects a symbolic batch). Every platform must export, or nothing of
+  this call is published: a failure raises, as `PlatformExportError`
+  when the CPU program exported and another did not.
+  """
+  platforms = list(platforms)
+  leaves = param_leaves(params)
+  device = leaves[0][1].device if leaves else torch.device(platforms[0])
+  sites = draw_sites(policy, params, device)
+  programs = {}
+  for p in sorted(platforms, key=lambda p: p != "cpu"):
+    try:
+      programs[p] = _export_one(policy, params, sites, torch.device(p),
+                                batch_size)
+    except Exception as e:
+      if "cpu" in programs:
+        raise PlatformExportError(
+            f"{type(policy).__name__} exports on the CPU but not on "
+            f"{p}") from e
+      raise
+  os.makedirs(export_dir, exist_ok=True)
+  for platform, program in programs.items():
+    atomic_publish(os.path.join(export_dir, program_file(platform)),
+                   lambda f, program=program: torch.export.save(program, f),
+                   mode="wb")
+  write_params_npz(export_dir, params)
+
+  tss = full_time_step_spec(policy)
+  ts_specs = nest_utils.flatten_sorted(tss, is_leaf=_is_spec)
+  ts_names = ["step_type", "reward", "discount"]
+
+  def describe(specs, names=()):
+    names = list(names) + [None] * len(specs)
+    return [{"shape": [None] + list(s.shape),
+             "dtype": np.dtype(s.dtype).name, "name": names[i] or s.name}
+            for i, s in enumerate(specs)]
+
+  manifest = {
+      "format": "torch.export ExportedProgram, calling convention "
+                "(flat_params, draw_inputs, flat_time_step, flat_state) -> "
+                "(flat_action, flat_next_state)",
+      "platforms": platforms,
+      "programs": {p: program_file(p) for p in platforms},
+      "batch": "polymorphic" if batch_size is None else int(batch_size),
+      "num_params_leaves": len(leaves),
+      "params_leaf_paths": [path for path, _ in leaves],
+      "params_leaves": [{"shape": list(t.shape),
+                         "dtype": _numpy_dtype(t.dtype)} for _, t in leaves],
+      "time_step_leaves": describe(ts_specs, ts_names),
+      "state_leaves": describe(nest_utils.flatten_sorted(
+          policy.state_spec, is_leaf=_is_spec)),
+      "action_leaves": describe(nest_utils.flatten_sorted(
+          policy.action_spec, is_leaf=_is_spec)),
+      "draw_sites": sites,
+  }
+  atomic_json_dump(manifest, os.path.join(export_dir, MANIFEST))
+  atomic_publish(os.path.join(export_dir, LOADER),
+                 lambda f: f.write(LOADER_SRC))
+  return manifest
+
+
+# The loader written into every artifact: numpy and torch only, so any
+# process (a serving binary, a bare interpreter) can run the policy.
+LOADER_SRC = '''\
+"""Self-contained loader for a torch.export policy artifact.
+
+Dependencies: numpy and torch. It imports no framework. Usage:
+
+    import loader
+    policy = loader.ExportedPolicy(os.path.dirname(loader.__file__))
+    action_leaves, next_state = policy.action(observation_leaves)
+
+The program runs on "cuda" when the artifact has one and a card is
+present, else on "cpu"; `platform=` picks one.
+"""
+import json
+import os
+
+import numpy as np
+import torch
+
+
+class ExportedPolicy:
+
+  def __init__(self, artifact_dir, platform=None):
+    self.dir = artifact_dir
+    with open(os.path.join(artifact_dir, "exported_manifest.json")) as f:
+      self.manifest = json.load(f)
+    if platform is None:
+      platform = ("cuda" if "cuda" in self.manifest["platforms"]
+                  and torch.cuda.is_available() else "cpu")
+    if platform not in self.manifest["platforms"]:
+      raise ValueError(f"no {platform} program in {artifact_dir}: "
+                       f"{self.manifest['platforms']}")
+    self.platform = platform
+    self.device = torch.device(platform)
+    path = os.path.join(artifact_dir, self.manifest["programs"][platform])
+    self._program = torch.export.load(path).module()
+    self.refresh_params()
+
+  def refresh_params(self):
+    """Re-read params_flat.npz (written atomically by the exporter)."""
+    z = np.load(os.path.join(self.dir, "params_flat.npz"))
+    self.params = [torch.from_numpy(z[f"p{i}"]).to(self.device)
+                   for i in range(self.manifest["num_params_leaves"])]
+
+  def initial_state(self, batch_size):
+    return [np.zeros([batch_size] + d["shape"][1:], d["dtype"])
+            for d in self.manifest["state_leaves"]]
+
+  def make_time_step(self, observation_leaves, step_type=None):
+    """The flat time step (step_type, reward, discount, *observation) in
+    manifest order, defaulting to MID steps."""
+    descs = self.manifest["time_step_leaves"]
+    n_obs = len(observation_leaves)
+    batch = np.shape(observation_leaves[0])[0]
+    out = []
+    for d in descs[:len(descs) - n_obs]:
+      shape = [batch] + d["shape"][1:]
+      if d.get("name") == "step_type":
+        arr = np.full(shape, 1 if step_type is None else step_type,
+                      d["dtype"])
+      elif d.get("name") == "discount":
+        arr = np.ones(shape, d["dtype"])
+      else:
+        arr = np.zeros(shape, d["dtype"])
+      out.append(arr)
+    return out + [np.asarray(o) for o in observation_leaves]
+
+  def draw_inputs(self, batch_size, key_data):
+    """One array per draw site of the manifest, drawn from
+    numpy.random.default_rng(key_data)."""
+    rng = np.random.default_rng(np.asarray(key_data, np.uint32).tolist())
+    out = []
+    for d in self.manifest["draw_sites"]:
+      shape = [batch_size if s is None else s for s in d["shape"]]
+      if d["kind"] == "uniform":
+        x = d["low"] + rng.random(shape) * (d["high"] - d["low"])
+      elif d["kind"] == "randint":
+        x = rng.integers(d["low"], d["high"], size=shape)
+      else:
+        x = rng.standard_normal(shape)
+      out.append(np.asarray(x, d["dtype"]))
+    return out
+
+  def _call(self, flat_ts, state, draws):
+    to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)
+                     for x in xs]
+    with torch.no_grad():
+      acts, next_state = self._program(self.params, to(draws), to(flat_ts),
+                                       to(state))
+    return ([a.cpu().numpy() for a in acts],
+            [s.cpu().numpy() for s in next_state])
+
+  def action(self, observation_leaves, state=None, step_type=None,
+             key_data=None):
+    batch = np.shape(observation_leaves[0])[0]
+    flat_ts = self.make_time_step(observation_leaves, step_type)
+    if state is None:
+      state = self.initial_state(batch)
+    if key_data is None:
+      key_data = np.zeros((2,), np.uint32)
+    return self._call(flat_ts, state, self.draw_inputs(batch, key_data))
+'''

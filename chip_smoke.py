@@ -29,8 +29,27 @@ phase.
                   Prints ms/iteration and env-steps/s, and the device-busy
                   share from a short profiled window.
   4. learn        the same run continued to 6000 iterations; the last-20
-                  AverageReturn must reach 195.
+                  AverageReturn must reach 195 (`DQN_CARTPOLE_REFERENCE_LIVE`;
+                  the bars come from the port's copy of the windows).
   5. eval         greedy `evaluate` over exactly 30 episodes.
+  5a. learner_export  the trained state into the port's `Learner` under a
+                  temporary root_dir (checkpoints and a
+                  `PolicyCheckpointTrigger` every 500) for 1,000 iterations;
+                  a fresh loop and Learner on the directory resume at 1,000
+                  bit for bit; the greedy artifact's `loader.py` in a child
+                  that imports numpy and torch only acts on the 4,096 rows'
+                  observations on "cuda" and "cpu" as the live greedy policy
+                  does (rows whose top two Q values lie within 1e-5
+                  excepted); `load_policy(dir)` alone scores at least the
+                  `eval` bar over exactly 30 episodes. Prints the save and
+                  params-only save seconds, the artifacts' bytes, and the
+                  program's ms per call at B=1 and B=4096 beside the eager
+                  greedy policy's.
+  5b. eval_job    `examples/eval_job_torch.py`'s loop in a child
+                  (``chip_smoke.py --eval-job ROOT``) over random envs with
+                  CartPole's specs: it evaluates the export, the parent
+                  refreshes its params at a higher train step, and the
+                  child evaluates again; both train steps reported.
   6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
                   SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
                   deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
@@ -98,7 +117,8 @@ phase.
                   step types, tensors on the card, finite losses.
  15. ppo_learn    the same loop continued, checked every 10 iterations, to
                   a last-20 AverageReturn of 195 within 150 iterations
-                  (`PPO_CARTPOLE_LIVE`, ``return_windows.py:98``), then
+                  (`PPO_CARTPOLE_LIVE` of the port's copy of the windows,
+                  ``agents_tpu_torch/benchmark/return_windows.py``), then
                   greedy eval over exactly 30 episodes on 10 fresh rows.
  16. ppo_schulman17  the example's --preset=schulman17_pendulum (B=1,
                   T=2049, 10 x 32 minibatches of 64, tanh, std 0.35, Adam
@@ -311,7 +331,9 @@ phase.
                   pushed frame drained once with equal bytes, no sample
                   before 512 items, the ratio inside its error buffer,
                   each collector's pulled steps advancing and untorn (CRC),
-                  no sync inside a train call.
+                  no sync inside a train call, the learner's `PolicySaver`
+                  exports (collect and greedy, "cpu" and "cuda" programs)
+                  at each publish's step, advancing.
  44. host_replay  `PyUniformReplayBuffer` and `PyHashedReplayBuffer` as
                   `bench.py:host_atari_replay_probe` drives them (84x84x4
                   uint8, capacity cut from 1M frames to 100k): fill
@@ -333,6 +355,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -361,12 +384,12 @@ SAC_RTOL = SAC_ATOL = 1e-5
 # points are half their earlier depth, to keep the whole script well inside
 # its time limit with the recurrent phases (PERF.md §6, "Depth cut").
 SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 5, 25, 3
-SAC_LEARN_ITERATIONS, SAC_LEARN_CHUNK, SAC_LEARN_GATE = 8000, 250, -250.0
+SAC_LEARN_CHUNK = 250
 PPO_PARITY_ITERATIONS = 2
 PPO_PARITY_SCHULMAN17 = dict(rollout_length=257, num_minibatches=4)
 PPO_RTOL, PPO_ATOL, PPO_MOMENT_RTOL = 1e-4, 1e-5, 1e-3
 PPO_WARMUP, PPO_TIMED_WINDOWS, PPO_WINDOW, PPO_PROFILED = 2, 5, 2, 1
-PPO_LEARN_ITERATIONS, PPO_LEARN_CHUNK, PPO_LEARN_GATE = 150, 10, 195.0
+PPO_LEARN_CHUNK = 10
 SCHULMAN17_TIMED = 2
 REINFORCE_TIMED = 5
 TD3_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
@@ -409,6 +432,14 @@ class Clock:
 
 
 CLOCK = Clock()
+
+
+def live_window(name):
+  """A live-run bar (`LiveWindow`: a return to reach within a step
+  budget) from the port's copy of the JAX package's windows,
+  ``agents_tpu_torch/benchmark/return_windows.py``."""
+  from agents_tpu_torch.benchmark import return_windows
+  return getattr(return_windows, name)
 
 
 def emit(phase, **fields):
@@ -763,13 +794,15 @@ def phase_main_and_learn(card):
     iterations += n
   results = {k: float(v) for k, v in loop.results(state).items()}
   learn_s = time.perf_counter() - t0
-  ok = results["AverageReturn"] >= 195.0 and bool(torch.isfinite(losses).all())
+  gate = live_window("DQN_CARTPOLE_REFERENCE_LIVE").min_return
+  ok = results["AverageReturn"] >= gate and bool(torch.isfinite(losses).all())
   emit("learn", card=card, iterations=iterations,
        last20_average_return=results["AverageReturn"], metrics=results,
        seconds=learn_s,
        ms_per_iteration=learn_s * 1e3 / (iterations - learn_start), ok=ok)
   if not ok:
-    fail("learn", f"last-20 AverageReturn {results['AverageReturn']} < 195")
+    fail("learn", f"last-20 AverageReturn {results['AverageReturn']} < "
+         f"{gate}")
   return loop, state
 
 
@@ -787,6 +820,285 @@ def phase_eval(loop, state, card):
        seconds=time.perf_counter() - t0, ok=ok)
   if not ok:
     fail("eval", f"counted {episodes} episodes, asked for 30")
+
+
+EXPORT_INTERVAL, EXPORT_ITERATIONS, EXPORT_TIE = 500, 1000, 1e-5
+EXPORT_TIMED_CALLS = 50
+EVAL_JOB_TIMEOUT_S = 180
+
+# The child of `learner_export`: numpy and torch only, the artifact's own
+# loader, on "cuda" and on "cpu"; it times the program alone (inputs on
+# the card) at B=1 and B=4096.
+ARTIFACT_CHILD = """
+import importlib.util, json, sys, time
+import numpy as np
+import torch
+directory, obs_path, out_path, calls = sys.argv[1:5]
+spec = importlib.util.spec_from_file_location(
+    "artifact_loader", directory + "/loader.py")
+loader = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(loader)
+obs = np.load(obs_path)
+out, ms = {}, {}
+for platform in ("cuda", "cpu"):
+  policy = loader.ExportedPolicy(directory, platform=platform)
+  (out[platform],), _ = policy.action([obs])
+  if platform != "cuda":
+    continue
+  for b in (1, obs.shape[0]):
+    flat_ts = [torch.as_tensor(x).to("cuda")
+               for x in policy.make_time_step([obs[:b]])]
+    run = lambda: policy._program(policy.params, [], flat_ts, [])
+    for _ in range(5):
+      run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(int(calls)):
+      run()
+    torch.cuda.synchronize()
+    ms[f"program_b{b}"] = (time.perf_counter() - t0) * 1e3 / int(calls)
+    t0 = time.perf_counter()
+    for _ in range(int(calls)):
+      policy.action([obs[:b]])
+    ms[f"loader_action_b{b}"] = (time.perf_counter() - t0) * 1e3 / int(calls)
+np.savez(out_path, **out)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "agents_tpu", "agents_tpu_torch", "jax", "jaxlib", "flax"))
+print(json.dumps({"ms": ms, "leaked": leaked,
+                  "torch": torch.__version__}))
+"""
+
+
+def greedy_ms(policy, params, observation, calls=EXPORT_TIMED_CALLS):
+  """ms per eager call of `policy.action` on `observation` (on the card)."""
+  import torch
+
+  from agents_tpu_torch.trajectories import time_step as ts
+
+  b = observation.shape[0]
+  step = ts.TimeStep(
+      step_type=torch.ones(b, dtype=torch.int32, device="cuda"),
+      reward=torch.zeros(b, device="cuda"),
+      discount=torch.ones(b, device="cuda"), observation=observation)
+  with torch.no_grad():
+    for _ in range(5):
+      policy.action(params, step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+      policy.action(params, step)
+    torch.cuda.synchronize()
+  return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def phase_learner_export(loop, state, card):
+  """The trained bench-point state into the port's `Learner` under a
+  temporary root_dir: checkpoints and a `PolicyCheckpointTrigger` every
+  500 of 1,000 iterations; a fresh Learner resumes at 1,000 bit for bit;
+  the greedy artifact acts in a numpy-and-torch-only child on "cuda" and
+  "cpu" as the live policy does; `load_policy(dir)` alone evaluates 30
+  episodes to the `eval` bar. Returns the root_dir, the greedy
+  directory's train step and the loop state, for `eval_job`."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.eval import metric_utils
+  from agents_tpu_torch.metrics import torch_metrics
+  from agents_tpu_torch.policies.policy_saver import (PolicySaver,
+                                                      load_manifest,
+                                                      load_policy)
+  from agents_tpu_torch.train import Learner, PolicyCheckpointTrigger
+  from agents_tpu_torch.train.checkpointer import capture
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils.draws import Draws
+
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix="learner_export_", dir=RUNS_DIR)
+  agent = loop.agent
+  holder = {}
+  trigger = PolicyCheckpointTrigger(
+      root, agent, lambda: holder["learner"].state.agent_state,
+      EXPORT_INTERVAL)
+  t0 = time.perf_counter()
+  learner = holder["learner"] = Learner(
+      root, loop=loop, initial_state=state, triggers=[trigger],
+      checkpoint_interval=EXPORT_INTERVAL, summary_interval=EXPORT_INTERVAL)
+  while learner.global_step < EXPORT_ITERATIONS:
+    loss = learner.run(EXPORT_INTERVAL)
+  torch.cuda.synchronize()
+  run_s = time.perf_counter() - t0
+  ckpt_dir = learner.checkpointer.directory
+  steps = learner.checkpointer.all_steps()
+  ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"{steps[-1]}.pt"))
+
+  # A fresh loop and Learner on the same directory resume at 1,000.
+  t_resume = time.perf_counter()
+  loop2 = build_loop("cuda", B_MAIN, **MAIN)
+  learner2 = Learner(root, loop=loop2, initial_state=loop2.init(seed=1),
+                     checkpoint_interval=EXPORT_INTERVAL)
+  torch.cuda.synchronize()
+  resume_s = time.perf_counter() - t_resume
+  mismatches = nest_mismatches(capture(learner.state),
+                               capture(learner2.state))
+  resumed_step = learner2.global_step
+  del learner2, loop2
+
+  # A whole save and a params-only refresh of each of the trigger's three
+  # policies, timed directly into a directory of their own (the trigger's
+  # own saves ran inside `learner.run`).
+  agent_state = learner.state.agent_state
+  trio = (("greedy_policy", agent.policy, agent.policy_params),
+          ("collect_policy", agent.collect_policy,
+           agent.collect_policy_params),
+          ("policy", agent.policy.wrapped, agent.policy_params))
+  save_seconds = {"save": {}, "save_checkpoint": {}}
+  for name, policy, params_of in trio:
+    saver = PolicySaver(policy, train_step=EXPORT_ITERATIONS)
+    timed_dir = os.path.join(root, "timed", name)
+    for kind in ("save", "save_checkpoint"):
+      t0 = time.perf_counter()
+      getattr(saver, kind)(timed_dir, params_of(agent_state))
+      save_seconds[kind][name] = time.perf_counter() - t0
+
+  # The greedy artifact in a numpy-and-torch-only child.
+  greedy_dir = os.path.join(root, "policies", "greedy_policy")
+  manifest = load_manifest(greedy_dir)
+  q_net = agent.policy_params(learner.state.agent_state)
+  obs = learner.state.driver_state.time_step.observation
+  obs_path = os.path.join(root, "observations.npy")
+  np.save(obs_path, obs.cpu().numpy())
+  out_path = os.path.join(root, "artifact_actions.npz")
+  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+  t_child = time.perf_counter()
+  child = subprocess.run(
+      [sys.executable, "-c", ARTIFACT_CHILD, greedy_dir, obs_path, out_path,
+       str(EXPORT_TIMED_CALLS)], capture_output=True, text=True, timeout=300,
+      env=env, cwd=root)
+  child_s = time.perf_counter() - t_child
+  if child.returncode != 0:
+    fail("learner_export", "the artifact's child failed: "
+         + child.stderr[-2000:])
+  report = json.loads(child.stdout.strip().splitlines()[-1])
+  artifact = np.load(out_path)
+  b = obs.shape[0]
+  step = ts.TimeStep(step_type=torch.ones(b, dtype=torch.int32, device="cuda"),
+                     reward=torch.zeros(b, device="cuda"),
+                     discount=torch.ones(b, device="cuda"), observation=obs)
+  with torch.no_grad():
+    live = agent.policy.action(q_net, step).action.cpu().numpy()
+    q = q_net(obs)[0].cpu().numpy()
+  top2 = np.sort(q, axis=-1)[:, -2:]
+  clear = (top2[:, 1] - top2[:, 0]) > EXPORT_TIE
+  differ = {p: int((artifact[p][clear] != live[clear]).sum())
+            for p in ("cuda", "cpu")}
+  eager_ms = {f"b{n}": greedy_ms(agent.policy, q_net, obs[:n])
+              for n in (1, b)}
+
+  # load_policy(dir) alone, on the device CartPole.
+  t_eval = time.perf_counter()
+  saved = load_policy(greedy_dir)
+  metrics = (torch_metrics.AverageReturnMetric(30),
+             torch_metrics.AverageEpisodeLengthMetric(30),
+             torch_metrics.NumberOfEpisodes())
+  out = metric_utils.evaluate_torch_env_episodes(
+      loop.env, saved.policy, saved.params, Draws(101, "cuda"), 30, 2000,
+      metrics)
+  episodes = int(out["NumberOfEpisodes"])
+  eval_return = float(out["AverageReturn"])
+  eval_s = time.perf_counter() - t_eval
+  gate = live_window("DQN_CARTPOLE_REFERENCE_LIVE").min_return
+  artifact_bytes = {
+      name: sum(os.path.getsize(os.path.join(root, "policies", name, f))
+                for f in os.listdir(os.path.join(root, "policies", name)))
+      for name in sorted(os.listdir(os.path.join(root, "policies")))}
+  ok = (math.isfinite(loss) and steps == [EXPORT_INTERVAL, EXPORT_ITERATIONS]
+        and resumed_step == EXPORT_ITERATIONS and not mismatches
+        and manifest["torch_export"] == "batch-polymorphic"
+        and manifest["policy_config"] is not None
+        and not report["leaked"] and not any(differ.values())
+        and episodes == 30 and eval_return >= gate)
+  emit("learner_export", card=card, batch_size=B_MAIN,
+       iterations=EXPORT_ITERATIONS, checkpoint_interval=EXPORT_INTERVAL,
+       export_interval=EXPORT_INTERVAL, run_seconds=run_s,
+       ms_per_iteration=run_s * 1e3 / EXPORT_ITERATIONS,
+       checkpoints=steps, checkpoint_bytes=ckpt_bytes,
+       resumed_at=resumed_step, resume_seconds=resume_s,
+       resume_mismatches=mismatches[:10],
+       export=manifest["torch_export"], export_train_step=
+       manifest["train_step"], save_seconds=save_seconds["save"],
+       save_checkpoint_seconds=save_seconds["save_checkpoint"],
+       artifact_bytes=artifact_bytes, child_seconds=child_s,
+       child_modules_leaked=report["leaked"], child_torch=report["torch"],
+       rows=b, rows_clear_of_ties=int(clear.sum()), tie=EXPORT_TIE,
+       actions_differing_from_live=differ,
+       exported_ms=report["ms"], eager_greedy_ms=eager_ms,
+       reloaded_eval_episodes=episodes, reloaded_eval_return=eval_return,
+       gate=gate, eval_seconds=eval_s, ok=ok)
+  if not ok:
+    fail("learner_export", "a learner, export or reload check failed")
+  return root, manifest["train_step"], learner.state
+
+
+def eval_job_child(root):
+  """`examples/eval_job_torch.py`'s loop on "cuda" over random envs with
+  CartPole's specs (the card's machine has no gymnasium), 2 evals."""
+  from agents_tpu_torch.environments.classic import CartPole
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from examples import eval_job_torch
+
+  cartpole = CartPole()
+  seeds = iter(range(100))
+  eval_job_torch.main(
+      [f"--root_dir={root}", "--max_evals=2", "--eval_episodes=5",
+       "--poll_secs=0.1"],
+      make_env=lambda: RandomPyEnvironment(
+          cartpole.observation_spec(), cartpole.action_spec(),
+          max_duration=50, seed=next(seeds)))
+
+
+def phase_eval_job(loop, state, card, root, train_step):
+  """The eval job in a child process against `learner_export`'s export:
+  it evaluates the greedy policy at `train_step`, the parent refreshes
+  the export's params at a higher train step, and the child evaluates
+  again and exits."""
+  import threading
+
+  from agents_tpu_torch.policies.policy_saver import PolicySaver
+
+  greedy_dir = os.path.join(root, "policies", "greedy_policy")
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--eval-job", root],
+      stdout=subprocess.PIPE, text=True)
+  watchdog = threading.Timer(EVAL_JOB_TIMEOUT_S, proc.kill)
+  watchdog.start()
+  evals, refresh_s, refreshed = [], None, train_step + 1
+  try:
+    for line in proc.stdout:
+      if not line.startswith("{"):
+        continue
+      rec = json.loads(line)
+      if "train_step" not in rec:
+        continue
+      evals.append(rec)
+      if len(evals) == 1:
+        t_refresh = time.perf_counter()
+        PolicySaver(loop.agent.policy, train_step=refreshed).save_checkpoint(
+            greedy_dir, loop.agent.policy_params(state.agent_state))
+        refresh_s = time.perf_counter() - t_refresh
+    code = proc.wait(timeout=60)
+  finally:
+    watchdog.cancel()
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
+  ok = (code == 0 and [e["train_step"] for e in evals]
+        == [train_step, refreshed])
+  emit("eval_job", card=card, evals=evals, exit_code=code,
+       refresh_seconds=refresh_s, seconds=time.perf_counter() - t0, ok=ok)
+  shutil.rmtree(root, ignore_errors=True)
+  if not ok:
+    fail("eval_job", f"the child reported {evals}, exit {code}")
 
 
 def conv_forward_flops(size, frames, num_actions, convs, fc):
@@ -1173,18 +1485,20 @@ def phase_sac_learn(card):
   from examples.sac_pendulum_torch import LIVE, Config
   from examples.sac_pendulum_torch import build_loop as sac_loop
 
+  window = live_window("SAC_PENDULUM_LIVE")
+  budget, gate = window.step_budget, window.min_return
   t0 = time.perf_counter()
   cfg = Config(**LIVE)
   loop = sac_loop(cfg)
   state = loop.init(seed=cfg.seed,
                     initial_collect_steps=cfg.initial_collect_steps)
   iterations, ret, points = 0, -math.inf, []
-  while iterations < SAC_LEARN_ITERATIONS:
+  while iterations < budget:
     state, losses = loop.run(state, SAC_LEARN_CHUNK)
     iterations += SAC_LEARN_CHUNK
     ret = float(loop.results(state)["AverageReturn"])
     points.append([iterations, ret])
-    if ret >= SAC_LEARN_GATE:
+    if ret >= gate:
       break
   learn_s = time.perf_counter() - t0
   t_eval = time.perf_counter()
@@ -1193,20 +1507,20 @@ def phase_sac_learn(card):
   eval_return = float(out["AverageReturn"])
   torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
-  ok = ret >= SAC_LEARN_GATE and finite and episodes == 30
+  ok = ret >= gate and finite and episodes == 30
   emit("sac_learn", card=card, batch_size=cfg.env_batch_size,
        sample_batch_size=cfg.sample_batch_size,
        train_steps_per_iteration=cfg.train_steps_per_iteration,
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
        iterations=iterations, last20_average_return=ret,
-       gate=SAC_LEARN_GATE, points=points, losses_finite=finite,
+       gate=gate, points=points, losses_finite=finite,
        log_alpha=float(state.agent_state.log_alpha.detach()),
        ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
        eval_episodes=episodes, eval_average_return=eval_return,
        eval_seconds=time.perf_counter() - t_eval,
        seconds=time.perf_counter() - t0, ok=ok)
   if not ok:
-    fail("sac_learn", f"last-20 return {ret} (gate {SAC_LEARN_GATE}), "
+    fail("sac_learn", f"last-20 return {ret} (gate {gate}), "
          f"{episodes} eval episodes of 30")
 
 
@@ -1505,10 +1819,12 @@ def phase_ppo_learn(card, cfg, loop, state, iterations):
 
   from examples.ppo_cartpole_torch import evaluate
 
+  window = live_window("PPO_CARTPOLE_LIVE")
+  budget, gate = window.step_budget, window.min_return
   t0 = time.perf_counter()
   ret = float(loop.results(state)["AverageReturn"])
   points = [[iterations, ret]]
-  while ret < PPO_LEARN_GATE and iterations < PPO_LEARN_ITERATIONS:
+  while ret < gate and iterations < budget:
     state, losses = loop.run(state, PPO_LEARN_CHUNK)
     iterations += PPO_LEARN_CHUNK
     ret = float(loop.results(state)["AverageReturn"])
@@ -1518,19 +1834,19 @@ def phase_ppo_learn(card, cfg, loop, state, iterations):
   out = evaluate(cfg, loop, state, cfg.seed + 101, 30)
   episodes = int(out["NumberOfEpisodes"])
   torch.cuda.synchronize()
-  ok = ret >= PPO_LEARN_GATE and episodes == 30
+  ok = ret >= gate and episodes == 30
   emit("ppo_learn", card=card, batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, iterations=iterations,
-       last20_average_return=ret, gate=PPO_LEARN_GATE,
-       budget=PPO_LEARN_ITERATIONS, points=points, learn_seconds=learn_s,
+       last20_average_return=ret, gate=gate,
+       budget=budget, points=points, learn_seconds=learn_s,
        eval_episodes=episodes, eval_envs=cfg.num_eval_envs,
        eval_average_return=float(out["AverageReturn"]),
        eval_average_episode_length=float(out["AverageEpisodeLength"]),
        eval_seconds=time.perf_counter() - t_eval,
        seconds=time.perf_counter() - t0, ok=ok)
   if not ok:
-    fail("ppo_learn", f"last-20 return {ret} (gate {PPO_LEARN_GATE} within "
-         f"{PPO_LEARN_ITERATIONS} iterations), {episodes} eval episodes of 30")
+    fail("ppo_learn", f"last-20 return {ret} (gate {gate} within "
+         f"{budget} iterations), {episodes} eval episodes of 30")
 
 
 def phase_ppo_schulman17(card):
@@ -4487,12 +4803,12 @@ def ingest_leg(card, name, samples_per_insert):
   defaults fed by `INGEST_COLLECTORS` collector processes, for
   `INGEST_LEG_STEPS` train steps; its numbers and gates."""
   import secrets
-  import zlib
 
   import numpy as np
   import torch
 
   from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from agents_tpu_torch.policies.policy_saver import load_manifest
   from agents_tpu_torch.train.variable_container import VariableContainer
   from examples import sac_train_job_torch as job
   from examples.sac_collect_job_torch import snapshot_crc32
@@ -4500,15 +4816,16 @@ def ingest_leg(card, name, samples_per_insert):
   tag = f"{os.getpid()}_{secrets.token_hex(3)}"
   rings = [f"cs_ingest_{tag}_{i}" for i in range(INGEST_COLLECTORS)]
   shm = f"cs_weights_{tag}"
+  root = os.path.join(RUNS_DIR, f"ingest_{name}_{tag}")
   argv = [f"--rings={','.join(rings)}", f"--weights_shm={shm}",
-          f"--total_train_steps={INGEST_LEG_STEPS}", f"--root_dir={RUNS_DIR}"]
+          f"--total_train_steps={INGEST_LEG_STEPS}", f"--root_dir={root}"]
   if samples_per_insert:
     argv.append(f"--samples_per_insert={samples_per_insert}")
   args = job.parse_args(argv)
   env = RandomPyEnvironment(*pendulum_specs())
   learner = job.Learner(args, env.time_step_spec(), env.action_spec())
   lim = learner.limiter
-  blocks, diffs, at_sample, crcs = [], [], [], {}
+  blocks, diffs, at_sample, crcs, exported = [], [], [], {}, []
   drain, train_call, publish = (learner.drain, learner.train_call,
                                 learner.publish)
 
@@ -4534,6 +4851,8 @@ def ingest_leg(card, name, samples_per_insert):
     publish()
     crcs[learner.train_steps] = snapshot_crc32(
         learner.collect_params().state_dict())
+    exported.append({d: load_manifest(os.path.join(root, "policies", d))[
+        "train_step"] for d in ("collect_policy", "greedy_policy")})
 
   learner.drain, learner.train_call, learner.publish = (
       checked_drain, checked_train_call, checked_publish)
@@ -4585,6 +4904,20 @@ def ingest_leg(card, name, samples_per_insert):
         proc.kill()
         proc.wait()
     learner.close()
+  programs = {d: sorted(f for f in os.listdir(os.path.join(root, "policies", d))
+                        if f.endswith(".pt2"))
+              for d in ("collect_policy", "greedy_policy")}
+  export_modes = {d: load_manifest(os.path.join(root, "policies", d))[
+      "torch_export"] for d in programs}
+  shutil.rmtree(root, ignore_errors=True)
+  # Each publish exports both policies at its step; the steps advance.
+  exports_ok = (
+      [e["collect_policy"] for e in exported] == sorted(crcs)
+      and [e["greedy_policy"] for e in exported] == sorted(crcs)
+      and len(exported) >= 2 and exported[-1]["collect_policy"] > 0
+      and all(p == ["exported_action_cpu.pt2", "exported_action_cuda.pt2"]
+              for p in programs.values())
+      and all(m == "batch-polymorphic" for m in export_modes.values()))
   ingested = check_ingested(blocks + leftovers,
                             [r["pushed_items"] for r in reports])
   pulls_ok = all(
@@ -4599,7 +4932,7 @@ def ingest_leg(card, name, samples_per_insert):
     ratio_ok = (max(diffs) <= lim.max_diff
                 and min(s[0] for s in at_sample) - chunk >= lim.min_diff)
   ok = (ingested["ok"] and pulls_ok and not sampled_early and ratio_ok
-        and learner.train_steps == INGEST_LEG_STEPS)
+        and exports_ok and learner.train_steps == INGEST_LEG_STEPS)
   return {
       "leg": name, "limiter": type(lim).__name__,
       "samples_per_insert": samples_per_insert or None,
@@ -4624,7 +4957,9 @@ def ingest_leg(card, name, samples_per_insert):
       "collector_pulls": [[s for s, _ in r["pulls"]] for r in reports],
       "pulls_untorn_and_advancing": pulls_ok,
       "collector_ticks": [r["ticks"] for r in reports],
-      "ingest": ingested, "ok": ok}
+      "export_train_steps": exported, "export_programs": programs,
+      "export_modes": export_modes, "exports_advancing": exports_ok,
+      "export_s": seconds["export"], "ingest": ingested, "ok": ok}
 
 
 def phase_ingest_sac(card):
@@ -4795,6 +5130,9 @@ def main(argv=()):
   if len(argv) == 2 and argv[0] == "--child":
     CHILD_PHASES[argv[1]](card)
     return 0
+  if len(argv) == 2 and argv[0] == "--eval-job":
+    eval_job_child(argv[1])
+    return 0
   print(card, flush=True)
   emit("device", torch=torch.__version__, cuda=torch.version.cuda,
        name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -4803,6 +5141,8 @@ def main(argv=()):
   phase_parity()
   loop, state = phase_main_and_learn(card)
   phase_eval(loop, state, card)
+  root, export_step, state = phase_learner_export(loop, state, card)
+  phase_eval_job(loop, state, card, root, export_step)
   del loop, state
   phase_conv_parity(card)
   phase_conv_main(card)

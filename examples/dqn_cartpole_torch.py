@@ -2,21 +2,28 @@
 
 The port's twin of ``examples/dqn_cartpole.py``: the same `Config`
 (plus `device`), the same fused loop (one collect step and one train step
-per iteration), greedy eval over `num_eval_episodes` at the end. It writes
-``train.jsonl`` (loss, AverageReturn, steps_per_sec every `log_interval`
-iterations, then EvalAverageReturn) and ``config.json`` under `root_dir`
-(``runs/dqn_cartpole_torch`` in the repository unless set), and prints the
-same final JSON line as the JAX example.
+per iteration) driven through the port's `Learner`, greedy eval over
+`num_eval_episodes` at the end. The `Learner` restores the whole loop
+state from the newest checkpoint under ``root_dir/train/checkpoints``
+when there is one, checkpoints every `checkpoint_interval` iterations (0
+or less: never) and once more at the end, and writes ``train.jsonl``
+through its `JsonlSummaryWriter` every `log_interval` iterations: loss,
+``loss_extra/*``, ``collect/*`` and steps_per_sec (iterations per
+second), beside the example's AverageReturn and, at the end,
+EvalAverageReturn. A resumed run appends to ``train.jsonl``; a fresh one
+starts it anew. ``config.json`` goes to `root_dir`
+(``runs/dqn_cartpole_torch`` in the repository unless set), and the last
+line printed is the JAX example's JSON line.
 
-As the JAX example does through its `Learner` (learner.py:83-102), it
-checkpoints the whole loop state under ``root_dir/train/checkpoints``
-every `checkpoint_interval` iterations and once more at the end, and
-starts from the newest checkpoint there when one exists, appending to
-``train.jsonl``; a `checkpoint_interval` of 0 or less turns this off.
+With ``--cfg.policy_interval=N`` (N > 0) a `PolicyCheckpointTrigger`
+exports ``root_dir/policies/{greedy_policy,collect_policy,policy}`` every
+N iterations (the whole artifact the first time, params only after),
+which ``examples/eval_job_torch.py`` polls.
 
 Usage:
   python examples/dqn_cartpole_torch.py [--device cuda|cpu] [--smoke]
-      [--cfg.num_iterations=20000] [--cfg.<field>=<value> ...]
+      [--cfg.policy_interval=1000] [--cfg.num_iterations=20000]
+      [--cfg.<field>=<value> ...]
 """
 import dataclasses
 import json
@@ -44,6 +51,7 @@ class Config:
   fc_layer_params: tuple = (100, 50)
   log_interval: int = 2000
   checkpoint_interval: int = 10000     # <= 0: no checkpoints
+  policy_interval: int = 0             # <= 0: no policy exports
   num_eval_episodes: int = 30
   seed: int = 0
   device: str = "cuda"
@@ -89,57 +97,55 @@ def build_loop(cfg: Config):
 
 
 def train_eval(cfg, build=build_loop):
-  """Train `build(cfg)`'s loop from its newest checkpoint under `root_dir`
-  (or from the start), log to ``root_dir/train.jsonl``, evaluate
-  greedily.
+  """Train `build(cfg)`'s loop through a `Learner` under `root_dir` (from
+  its newest checkpoint, or from the start), log to
+  ``root_dir/train.jsonl``, evaluate greedily. With ``cfg.policy_interval``
+  > 0, export the policy trio every `policy_interval` iterations.
 
   Returns (last AverageReturn of the collect deque, greedy eval return).
   """
-  from agents_tpu_torch.train import Checkpointer
+  from agents_tpu_torch.train import (JsonlSummaryWriter, Learner,
+                                      PolicyCheckpointTrigger)
 
   loop = build(cfg)
   state = loop.init(cfg.seed, initial_collect_steps=cfg.initial_collect_steps)
   os.makedirs(cfg.root_dir, exist_ok=True)
-  log_path = os.path.join(cfg.root_dir, "train.jsonl")
   # The pixel and SAC examples' Configs, like their JAX twins', have no
-  # checkpoint interval: they do not checkpoint.
-  interval = getattr(cfg, "checkpoint_interval", 0)
-  step, checkpointer = 0, None
-  if interval > 0:
-    checkpointer = Checkpointer(
-        os.path.join(cfg.root_dir, "train", "checkpoints"))
-    state = checkpointer.initialize_or_restore(state)
-    step = checkpointer.latest_step() or 0
+  # checkpoint or policy interval: they neither checkpoint nor export.
+  learner = Learner(cfg.root_dir, loop=loop, initial_state=state,
+                    checkpoint_interval=getattr(cfg, "checkpoint_interval",
+                                                0),
+                    summary_interval=cfg.log_interval)
+  log_path = os.path.join(cfg.root_dir, "train.jsonl")
+  if learner.global_step == 0 and os.path.exists(log_path):
+    os.remove(log_path)          # a fresh run starts its log anew
+  writer = JsonlSummaryWriter(log_path)
+  learner.summary_writer = writer
+  policy_interval = getattr(cfg, "policy_interval", 0)
+  if policy_interval > 0:
+    learner.triggers.append(PolicyCheckpointTrigger(
+        cfg.root_dir, loop.agent, lambda: learner.state.agent_state,
+        policy_interval))
 
-  def write(f, step, **values):
-    for key, value in values.items():
-      f.write(json.dumps({"step": step, key: value, "t": time.time()}) + "\n")
-    f.flush()
-
-  with open(log_path, "a" if step else "w") as f:
-    start, t0 = step, time.time()
-    saved = step - step % max(interval, 1)
-    avg_return = float(loop.results(state)["AverageReturn"])
-    while step < cfg.num_iterations:
-      n = min(cfg.log_interval, cfg.num_iterations - step)
-      state, losses = loop.run(state, n)
-      step += n
-      loss = float(losses[-1])
-      avg_return = float(loop.results(state)["AverageReturn"])
-      sps = (step - start) * cfg.env_batch_size / (time.time() - t0)
-      print(f"iter {step}: loss={loss:.4f} AverageReturn={avg_return:.1f} "
-            f"({sps:.0f} env-steps/s on {loop.device})", flush=True)
-      write(f, step, loss=loss, AverageReturn=avg_return, steps_per_sec=sps)
-      if checkpointer and step - saved >= interval:
-        checkpointer.save(step, state)
-        saved = step - step % interval
-    if checkpointer:
-      checkpointer.save(step, state)
-    eval_out = loop.evaluate(state, cfg.seed + 101,
-                             num_episodes=cfg.num_eval_episodes,
-                             max_steps=2000)
-    eval_return = float(eval_out["AverageReturn"])
-    write(f, step, EvalAverageReturn=eval_return)
+  start, t0 = learner.global_step, time.time()
+  avg_return = float(loop.results(learner.state)["AverageReturn"])
+  while learner.global_step < cfg.num_iterations:
+    n = min(cfg.log_interval, cfg.num_iterations - learner.global_step)
+    loss = learner.run(n)
+    avg_return = float(loop.results(learner.state)["AverageReturn"])
+    sps = ((learner.global_step - start) * cfg.env_batch_size
+           / (time.time() - t0))
+    print(f"iter {learner.global_step}: loss={loss:.4f} "
+          f"AverageReturn={avg_return:.1f} ({sps:.0f} env-steps/s on "
+          f"{loop.device})", flush=True)
+    writer.scalar("AverageReturn", avg_return, learner.global_step)
+  learner.checkpoint()
+  eval_out = loop.evaluate(learner.state, cfg.seed + 101,
+                           num_episodes=cfg.num_eval_episodes,
+                           max_steps=2000)
+  eval_return = float(eval_out["AverageReturn"])
+  writer.scalar("EvalAverageReturn", eval_return, learner.global_step)
+  writer.close()
   print(f"final greedy eval ({cfg.num_eval_episodes} episodes): "
         f"{eval_return:.1f}", flush=True)
   return avg_return, eval_return
@@ -150,14 +156,15 @@ SMOKE = dict(num_iterations=2000, log_interval=500)
 
 def parse_args(argv, cfg, smoke=SMOKE):
   """--smoke (the `smoke` fields), --device DEV and --cfg.<field>=<value>
-  overrides of the dataclass `cfg`. A tuple of tuples is written
-  ``32x8x4,64x4x2``."""
-  fields = {f.name: f for f in dataclasses.fields(cfg)}
+  overrides of the dataclass `cfg` (`agents_tpu_torch.utils.config`; a
+  tuple of tuples is written ``32x8x4,64x4x2``)."""
+  from agents_tpu_torch.utils import config as config_lib
+
   argv = list(argv)
   if "--smoke" in argv:
     argv.remove("--smoke")
     cfg = dataclasses.replace(cfg, **smoke)
-  i = 0
+  overrides, i = [], 0
   while i < len(argv):
     arg = argv[i]
     if arg == "--device":
@@ -167,33 +174,22 @@ def parse_args(argv, cfg, smoke=SMOKE):
     if arg.startswith("--device="):
       cfg = dataclasses.replace(cfg, device=arg.split("=", 1)[1])
     elif arg.startswith("--cfg.") and "=" in arg:
-      name, value = arg[len("--cfg."):].split("=", 1)
-      if name not in fields:
-        raise SystemExit(f"unknown config field {name!r}; valid: "
-                         f"{sorted(fields)}")
-      current = getattr(cfg, name)
-      if isinstance(current, tuple) and current and isinstance(
-          current[0], tuple):
-        value = tuple(tuple(int(v) for v in part.split("x"))
-                      for part in value.split(",") if part)
-      elif isinstance(current, tuple):
-        value = tuple(int(v) for v in value.split(",") if v)
-      elif isinstance(current, bool):
-        value = value.lower() in ("1", "true", "yes")
-      else:
-        value = type(current)(value)
-      cfg = dataclasses.replace(cfg, **{name: value})
+      overrides.append(arg)
     else:
       raise SystemExit(f"unknown argument {arg!r}")
     i += 1
-  return cfg
+  try:
+    return config_lib.apply_overrides(cfg, overrides)
+  except KeyError as e:
+    raise SystemExit(f"unknown config field: {e}") from e
 
 
 if __name__ == "__main__":
+  from agents_tpu_torch.utils import config as config_lib
+
   cfg = parse_args(sys.argv[1:], Config())
   os.makedirs(cfg.root_dir, exist_ok=True)
-  with open(os.path.join(cfg.root_dir, "config.json"), "w") as f:
-    json.dump(dataclasses.asdict(cfg), f, indent=2)
+  config_lib.save(cfg, os.path.join(cfg.root_dir, "config.json"))
   final, eval_return = train_eval(cfg)
   print(json.dumps({"final_average_return": final,
                     "eval_average_return": eval_return,

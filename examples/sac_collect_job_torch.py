@@ -11,17 +11,17 @@ backpressure); the learner's replay then holds independent 2-step items.
 
 The agent, the envs and the `JittedPyPolicy` live on the CPU, always:
 this process never touches the card. Weights arrive through the learner's
-shared-memory `VariableContainer` (`--weights_shm`); until the first pull,
-and for `--random_ticks` ticks, actions are uniform random. The JAX job
-can instead poll the learner's policy exports; the port's learner writes
-none yet (`PolicySaver` is ROADMAP A7), so without `--weights_shm` the
-collector plays random actions, and `--root_dir` is accepted for the
-command line's sake.
+shared-memory `VariableContainer` (`--weights_shm`) or, without it, as in
+the JAX job, from the learner's `PolicySaver` exports: every
+`--policy_poll_ticks` ticks the collector reads
+``root_dir/policies/collect_policy/policy_manifest.json`` and, when its
+train step changed, loads that export's params. Until the first weights,
+and for `--random_ticks` ticks, actions are uniform random.
 
 On SIGTERM the job finishes its tick, closes its ring handle and prints
-its last line (ticks, items pushed, and each weight snapshot it pulled as
-[step, CRC-32 of its bytes]), so a learner that stops it knows what was
-pushed.
+its last line (ticks, items pushed, and each weight snapshot it took, from
+the store or an export, as [step, CRC-32 of its bytes]), so a learner
+that stops it knows what was pushed.
 
 Usage:
   python examples/sac_collect_job_torch.py --root_dir=/tmp/dist_sac \\
@@ -113,6 +113,7 @@ def run_collector(args, make_env=None, log=print):
   from agents_tpu_torch.environments import suite_gym
   from agents_tpu_torch.environments.batched_py_environment import \
       BatchedPyEnvironment
+  from agents_tpu_torch.policies import policy_saver
   from agents_tpu_torch.policies.jitted_py_policy import JittedPyPolicy
   from agents_tpu_torch.replay_buffers.host_ingest import IngestClient
   from agents_tpu_torch.specs import array_spec
@@ -139,10 +140,24 @@ def run_collector(args, make_env=None, log=print):
   rng = np.random.RandomState(args.seed)
   weights_vc, last_step, pulls = None, -1, []
 
+  policy_dir = os.path.join(args.root_dir, "policies", "collect_policy")
+
+  def refresh_from_export() -> bool:
+    nonlocal last_step
+    if not os.path.exists(os.path.join(policy_dir, policy_saver.MANIFEST)):
+      return False                    # the learner has not exported yet
+    step = policy_saver.load_manifest(policy_dir)["train_step"]
+    if step != last_step:
+      policy_saver.load_params(actor, policy_dir)
+      py_policy.update_params(actor)
+      last_step = step
+      pulls.append([step, snapshot_crc32(actor.state_dict())])
+    return True
+
   def refresh_policy() -> bool:
     nonlocal weights_vc, last_step
     if not args.weights_shm:
-      return False
+      return refresh_from_export()
     if weights_vc is None:
       try:
         weights_vc = VariableContainer(args.weights_shm, actor)

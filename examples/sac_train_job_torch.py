@@ -12,12 +12,13 @@ paces it: `MinSize(--min_replay_items)`, or `SampleToInsertRatio` with
 `--samples_per_insert`. Collect jobs (`examples/sac_collect_job_torch.py`)
 attach to the rings by name.
 
-Weights reach the collectors through the shared-memory
-`VariableContainer` (`--weights_shm`) every `--export_interval_steps`
-train steps, and once at the start. The JAX learner also writes
-`PolicySaver` exports there; the port's does not yet (ROADMAP A7), so
-`--weights_shm` is the only way weights leave this job, and `--root_dir`
-is accepted for the command line's sake.
+Weights leave this job every `--export_interval_steps` train steps, and
+once at the start, two ways, as in the JAX job: through the shared-memory
+`VariableContainer` (`--weights_shm`), and as `PolicySaver` exports under
+``root_dir/policies/{collect_policy,greedy_policy}`` (the whole artifact
+at a directory's first export in this process, params and train step
+only after), which collectors without `--weights_shm` and
+``examples/eval_job_torch.py`` poll.
 
 It runs on "cuda" unless `--device` says otherwise. A train call makes no
 host sync; the host syncs are the H2D copy of each inserted block, the
@@ -51,7 +52,8 @@ from examples.sac_collect_job_torch import build_agent, env_specs  # noqa: E402
 
 def parse_args(argv=None):
   parser = argparse.ArgumentParser()
-  parser.add_argument("--root_dir", default="/tmp/agents_tpu/dist_sac")
+  parser.add_argument("--root_dir",
+                      default=os.path.join(_REPO, "runs", "dist_sac"))
   parser.add_argument("--rings", default="sac_ring_0")
   parser.add_argument("--env_name", default="Pendulum-v1")
   parser.add_argument("--ring_capacity", type=int, default=1 << 15)
@@ -131,11 +133,12 @@ class Learner:
   """The learner of `args` over host envs with `time_step_spec` and
   `action_spec`: rings, device replay, agent, limiter and weight store.
   `seconds` splits its time into drain (and decode), stage (and the H2D
-  insert), train calls and weight pushes."""
+  insert), train calls, weight pushes and policy exports."""
 
   def __init__(self, args, time_step_spec, action_spec):
     import torch
 
+    from agents_tpu_torch.policies.policy_saver import PolicySaver
     from agents_tpu_torch.replay_buffers import UniformReplay
     from agents_tpu_torch.replay_buffers.host_ingest import IngestServer
     from agents_tpu_torch.specs import array_spec
@@ -168,20 +171,33 @@ class Learner:
         VariableContainer.unlink_name(args.weights_shm)
       self.weights = VariableContainer(
           args.weights_shm, self.collect_params(), create=True)
+    policies = os.path.join(args.root_dir, "policies")
+    self.exports = (
+        (PolicySaver(self.agent.collect_policy),
+         os.path.join(policies, "collect_policy"), self.collect_params),
+        (PolicySaver(self.agent.policy),
+         os.path.join(policies, "greedy_policy"),
+         lambda: self.agent.policy_params(self.agent_state)))
     self.staged, self.staged_count = [], 0
     self.total_items, self.train_steps, self.last_export = 0, 0, 0
     self.loss = torch.zeros((), device=self.device)
-    self.seconds = {"drain": 0.0, "stage": 0.0, "train": 0.0, "push": 0.0}
+    self.seconds = {"drain": 0.0, "stage": 0.0, "train": 0.0, "push": 0.0,
+                    "export": 0.0}
 
   def collect_params(self):
     return self.agent.collect_policy_params(self.agent_state)
 
   def publish(self):
-    """Push the collect weights (one D2H copy) at the current step."""
+    """Push the collect weights (one D2H copy) at the current step, and
+    export the collect and greedy policies at it."""
     if self.weights is not None:
       t0 = time.perf_counter()
       self.weights.push(self.collect_params(), self.train_steps)
       self.seconds["push"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for saver, directory, params in self.exports:
+      saver.publish(directory, params(), self.train_steps)
+    self.seconds["export"] += time.perf_counter() - t0
 
   def drain(self) -> list:
     """Drain the rings as far as the limiter admits; returns the decoded

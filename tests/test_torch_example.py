@@ -75,7 +75,11 @@ def test_learning_artifact_matches_the_jax_run_and_solves_cartpole():
   assert ({k: v for k, v in torch_cfg.items() if k not in ignored}
           == {k: v for k, v in jax_cfg.items() if k not in ignored})
   assert set(torch_cfg) - set(jax_cfg) == {"device"}
-  assert {f.name for f in dataclasses.fields(Config)} == set(torch_cfg)
+  # policy_interval came after the run; its default (0) exports nothing
+  # and leaves training as it was.
+  assert ({f.name for f in dataclasses.fields(Config)}
+          == set(torch_cfg) | {"policy_interval"})
+  assert Config().policy_interval == 0
   records = _records(os.path.join(RESULTS, "dqn_cartpole_torch_s0.jsonl"))
   evals = [(r["step"], r["EvalAverageReturn"]) for r in records
            if "EvalAverageReturn" in r]

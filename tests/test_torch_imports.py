@@ -19,10 +19,19 @@ EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
             "sac_pendulum_torch.py", "ppo_cartpole_torch.py",
             "td3_pendulum_torch.py", "cql_sac_offline_torch.py",
             "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py",
-            "sac_train_job_torch.py", "sac_collect_job_torch.py")
-# The distributed SAC jobs build no `Config`: the learner is checked on its
-# own below, and the collector runs on the CPU by design.
-JOBS = ("sac_train_job_torch.py", "sac_collect_job_torch.py")
+            "sac_train_job_torch.py", "sac_collect_job_torch.py",
+            "eval_job_torch.py")
+# The distributed SAC jobs and the eval job build no `Config`: the learner
+# and the eval job are checked on their own below, and the collector runs
+# on the CPU by design.
+JOBS = ("sac_train_job_torch.py", "sac_collect_job_torch.py",
+        "eval_job_torch.py")
+# The export, eval and orchestration modules.
+ORCHESTRATION_MODULES = (
+    "utils.config", "networks.registry", "policies.registry",
+    "policies.torch_export", "policies.policy_saver", "policies.policy_utils",
+    "metrics.export_utils", "train.triggers", "train.train_utils",
+    "train.learner", "train.actor", "benchmark.return_windows")
 HOST_MODULES = (
     "environments.py_environment", "environments.test_envs",
     "environments.utils", "environments.wrappers",
@@ -76,7 +85,7 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "environments.classic.acrobot",
                "environments.classic.mountain_car",
                "environments.torch_wrappers", "networks.lstm_networks",
-               "train.checkpointer") + HOST_MODULES:
+               "train.checkpointer") + HOST_MODULES + ORCHESTRATION_MODULES:
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
   code = ("import importlib, json, sys\n"
@@ -335,5 +344,40 @@ def test_host_entry_points_raise_without_a_card(monkeypatch):
                 lambda: AsyncHostDeviceTrainLoop(env, agent, replay),
                 lambda: HostOnPolicyTrainLoop(env, agent),
                 lambda: JittedPyPolicy(agent.policy)):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      build()
+
+
+def test_export_and_eval_entry_points_raise_without_a_card(tmp_path,
+                                                          monkeypatch):
+  """`load_policy`, the eval job and `make_encoding_network` default to
+  "cuda" and raise without a card; a saver without a card exports the
+  CPU program alone."""
+  from agents_tpu_torch.environments.classic import CartPole
+  from agents_tpu_torch.networks import make_q_network
+  from agents_tpu_torch.networks.encoding_network import \
+      make_encoding_network
+  from agents_tpu_torch.policies import GreedyPolicy, QPolicy
+  from agents_tpu_torch.policies.policy_saver import (PolicySaver,
+                                                      load_policy)
+  from agents_tpu_torch.trajectories import time_step as ts
+  from examples import eval_job_torch
+
+  env = CartPole()
+  tss = ts.time_step_spec(env.observation_spec())
+  qnet = make_q_network(tss.observation, env.action_spec(),
+                        fc_layer_params=(4,), device="cpu")
+  export = tmp_path / "policies" / "greedy_policy"
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  PolicySaver(GreedyPolicy(QPolicy(tss, env.action_spec(), qnet))).save(
+      str(export), qnet)
+  assert json.load(open(export / "exported_manifest.json"))["platforms"] \
+      == ["cpu"]
+  for build in (lambda: load_policy(str(export)),
+                lambda: make_encoding_network(tss.observation),
+                lambda: eval_job_torch.run_eval_job(
+                    eval_job_torch.parse_args([f"--root_dir={tmp_path}",
+                                               "--max_evals=1"]),
+                    make_env=CartPole, log=lambda line: None)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
