@@ -9,11 +9,20 @@ Port of ``agents_tpu/agents/agent.py``:
 `experience` is a Trajectory nest shaped ``[B, T, ...]``. Unlike the JAX
 package, `train` updates the parameter and optimizer tensors of
 `agent_state` in place and returns a new state object that shares them.
+
+Data parallelism: a loop built with a mesh (`parallel.create_mesh`) sets
+the agent's `mesh`, and every train step's `apply_gradients` then
+averages the gradients over the mesh's ranks before clipping and the
+optimizer step, the all-reduce the JAX package's partitioner inserts.
+Each rank trains on an equal share of the global batch, so the average
+is the global batch's gradient.
 """
 from __future__ import annotations
 
 import abc
 from typing import Any, Optional, Tuple
+
+import torch
 
 from agents_tpu_torch.trajectories import trajectory as tj
 from agents_tpu_torch.utils import common, nest_utils
@@ -41,11 +50,28 @@ def first_transition(experience, agent_name: str):
           nest_utils.tree_map(first, transition.next_time_step))
 
 
-def apply_gradients(groups, gradient_clipping: Optional[float]) -> None:
-  """For each (gradients, parameters, optimizer): clip the gradients'
-  global norm if asked, set them and step the optimizer. Callers take
-  every group's gradients first, so no loss reads a stepped parameter."""
+def average_gradients(grads, mesh) -> None:
+  """Replace each gradient by its mean over `mesh`'s ranks, in place, with
+  one all-reduce of the flattened gradients."""
+  if mesh is None or not mesh.distributed:
+    return
+  grads = [g for g in grads if g is not None]
+  flat = torch.cat([g.reshape(-1) for g in grads])
+  mesh.all_reduce(flat).div_(mesh.size)
+  offset = 0
+  for g in grads:
+    g.copy_(flat[offset:offset + g.numel()].view_as(g))
+    offset += g.numel()
+
+
+def apply_gradients(groups, gradient_clipping: Optional[float],
+                    mesh=None) -> None:
+  """For each (gradients, parameters, optimizer): average the gradients
+  over `mesh` (a data-parallel group, or None), clip their global norm if
+  asked, set them and step the optimizer. Callers take every group's
+  gradients first, so no loss reads a stepped parameter."""
   for grads, params, optimizer in groups:
+    average_gradients(grads, mesh)
     if gradient_clipping is not None:
       common.clip_gradient_norms(grads, gradient_clipping)
     for p, g in zip(params, grads):
@@ -61,6 +87,8 @@ class Agent(abc.ABC):
     policy: eval/deployment policy.
     collect_policy: exploration policy.
     train_sequence_length: required T of training trajectories (or None).
+    mesh: the data-parallel group its train steps average gradients
+      over, or None; set by a loop built with a mesh.
   """
 
   time_step_spec = None
@@ -68,6 +96,7 @@ class Agent(abc.ABC):
   policy = None
   collect_policy = None
   train_sequence_length: Optional[int] = None
+  mesh = None
 
   @abc.abstractmethod
   def init(self) -> Any:

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices)
 from agents_tpu_torch.policies.actor_policy import ActorPolicy
 from agents_tpu_torch.policies.q_policy import QPolicy
 from agents_tpu_torch.policies.wrappers import EpsilonGreedyPolicy, GreedyPolicy
@@ -107,11 +108,7 @@ class BehavioralCloningAgent(Agent):
     s = agent_state
     loss = self.loss(s, experience, weights)
     params = list(s.network.parameters())
-    grads = torch.autograd.grad(loss, params)
-    if self.gradient_clipping is not None:
-      common.clip_gradient_norms(grads, self.gradient_clipping)
-    for p, g in zip(params, grads):
-      p.grad = g
-    s.optimizer.step()
+    apply_gradients([(torch.autograd.grad(loss, params), params, s.optimizer)],
+                    self.gradient_clipping, self.mesh)
     return (dataclasses.replace(s, train_step=s.train_step + 1),
             LossInfo(loss.detach(), ()))

@@ -308,8 +308,8 @@ class CqlSacAgent(SacAgent):
                    [s.log_cql_alpha], s.cql_alpha_optimizer)]
     # Every gradient is taken before any optimizer steps; the Lagrange
     # gradient is not clipped (nor is it in the JAX step).
-    apply_gradients(groups, self.gradient_clipping)
-    apply_gradients(lagrange, None)
+    apply_gradients(groups, self.gradient_clipping, self.mesh)
+    apply_gradients(lagrange, None, self.mesh)
 
     train_step = s.train_step + 1
     for source, target in ((s.critic1_network, s.target_critic1_network),

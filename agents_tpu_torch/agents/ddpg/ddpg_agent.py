@@ -172,7 +172,7 @@ class DdpgAgent(Agent):
         [(torch.autograd.grad(critic_loss, critic_params), critic_params,
           s.critic_optimizer),
          (torch.autograd.grad(actor_loss, actor_params), actor_params,
-          s.actor_optimizer)], self.gradient_clipping)
+          s.actor_optimizer)], self.gradient_clipping, self.mesh)
 
     train_step = s.train_step + 1
     for source, target in ((s.actor_network, s.target_actor_network),

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices)
 from agents_tpu_torch.policies.q_policy import QPolicy
 from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
                                                 EpsilonGreedyPolicy,
@@ -224,14 +225,11 @@ class DqnAgent(Agent):
   def train(self, agent_state: DqnAgentState, experience,
             weights=None) -> Tuple[DqnAgentState, LossInfo]:
     q_network = agent_state.q_network
-    optimizer = agent_state.optimizer
-    optimizer.zero_grad(set_to_none=True)
     loss, extra = self._loss(q_network, agent_state, experience, weights)
-    loss.backward()
-    if self.gradient_clipping is not None:
-      common.clip_gradient_norms([p.grad for p in q_network.parameters()],
-                                 self.gradient_clipping)
-    optimizer.step()
+    params = list(q_network.parameters())
+    apply_gradients([(torch.autograd.grad(loss, params, allow_unused=True),
+                      params, agent_state.optimizer)],
+                    self.gradient_clipping, self.mesh)
     train_step = agent_state.train_step + 1
     common.periodic_soft_update(
         train_step, self.target_update_period, q_network.parameters(),

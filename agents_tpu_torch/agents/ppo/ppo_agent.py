@@ -18,6 +18,10 @@ Port of `PPOAgent`, `PPOAgentState` and `PPOLossExtra` of
      one optimizer step per minibatch over the actor's, then the value
      network's parameters (optax's single optimizer over the tuple
      ``(actor, value)``), with optional global-norm gradient clipping;
+     with `num_minibatch_shards` n_sh > 1 (:96-103, :340-375) the items
+     are n_sh equal blocks, each shuffled on its own (one permutation per
+     shard per epoch, in shard order), and every minibatch takes an equal
+     slice of every shard;
   5. with an adaptive KL penalty, moves beta by 1.5x from the mean KL of
      the full batch under the final policy.
 
@@ -40,7 +44,16 @@ sync. Its permutations come from the `draws` passed in (the on-policy
 loop's), else from the agent state's ``Draws(31, device)``; the JAX agent
 draws them from `key` or ``fold_in(key(31), train_step)``.
 
-Not ported here: sharded minibatches (`num_minibatch_shards > 1`) raise.
+Data parallelism (an `OnPolicyTrainLoop` built with a mesh sets
+`agent.mesh`): each rank trains on its own rows, and its shards are its
+``n_sh / n`` consecutive blocks of the JAX package's n_sh, so a global
+minibatch is the ranks' local minibatches in rank order and no rollout
+data crosses ranks. What the JAX step computes over the whole rollout or
+minibatch is reduced with sums and counts, never as an average of the
+ranks' means: the normalizer updates, the advantage normalization, every
+masked mean of the loss (whose rank-local value is n times the rank's
+share of the global sum over the global count, so that the gradient
+average of `apply_gradients` is the global gradient) and the final KL.
 """
 from __future__ import annotations
 
@@ -50,7 +63,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices)
 from agents_tpu_torch.agents.ppo.ppo_policy import PPOPolicy
 from agents_tpu_torch.policies.wrappers import GreedyPolicy
 from agents_tpu_torch.trajectories import time_step as ts
@@ -138,10 +152,6 @@ class PPOAgent(Agent):
     self.device = resolve_device(device)
     check_network_devices(self.device, actor_network=actor_network,
                           value_network=value_network)
-    if num_minibatch_shards > 1:
-      raise NotImplementedError(
-          "num_minibatch_shards > 1 (sharded minibatches) is not ported "
-          "yet (ROADMAP A14)")
     self.time_step_spec = time_step_spec
     self.action_spec = action_spec
     self.optimizer_fn = optimizer_fn
@@ -259,12 +269,30 @@ class PPOAgent(Agent):
       return obs
     return self.obs_normalizer.normalize(agent_state.obs_norm_state, obs)
 
+  def _masked_mean(self, mask):
+    """x -> the masked mean of x over the (global) minibatch: n times this
+    rank's share of the global sum over the global count (n = 1 without a
+    mesh), so the ranks' averaged gradients are the global mean's."""
+    (count,) = self._global_sums(mask)
+    denom = torch.clamp(count, min=1.0)
+    size = 1 if self.mesh is None else self.mesh.size
+    return lambda x: size * torch.sum(x * mask) / denom  # noqa: E731
+
+  def _global_sums(self, *values):
+    """The sums of `values` (tensors) over every rank's items (one
+    all-reduce over a mesh)."""
+    sums = torch.stack([v.sum() for v in values])
+    if self.mesh is not None:
+      self.mesh.all_reduce(sums)
+    return sums
+
   def _loss(self, agent_state: PPOAgentState, batch):
     """(total, (PPOLossExtra, mean KL)) of one minibatch under the
     state's current networks. `batch` is (obs, step_type, actions,
     old_dist, old_values, returns, advantages, old_log_prob, mask)."""
     obs, step_type, actions, old_dist, old_values, returns, advantages, \
         old_log_prob, mask = batch
+    masked_mean = self._masked_mean(mask)
     obs = self._normalized(agent_state, obs)
     dist, _ = agent_state.actor_network(obs, step_type, ())
     values, _ = agent_state.value_network(obs, step_type, ())
@@ -279,10 +307,8 @@ class PPOAgent(Agent):
       # The plain surrogate: min() with a degenerate clip at 1 would zero
       # the gradient of about half the samples.
       pg_per_example = -ratio * advantages
-    denom = torch.clamp(mask.sum(), min=1.0)
-    pg_loss = torch.sum(pg_per_example * mask) / denom
-    clip_fraction = torch.sum(
-        (torch.abs(ratio - 1.0) > clipping).float() * mask) / denom
+    pg_loss = masked_mean(pg_per_example)
+    clip_fraction = masked_mean((torch.abs(ratio - 1.0) > clipping).float())
 
     if self.value_clipping is not None:
       clipped_values = old_values + torch.clamp(
@@ -291,22 +317,21 @@ class PPOAgent(Agent):
                                   torch.square(returns - clipped_values))
     else:
       value_error = torch.square(returns - values)
-    value_loss = self.value_pred_loss_coef * torch.sum(
-        value_error * mask) / denom
+    value_loss = self.value_pred_loss_coef * masked_mean(value_error)
 
     zero = torch.zeros((), device=mask.device)
     entropy_loss = zero
     if self.entropy_regularization > 0:
-      entropy_loss = -self.entropy_regularization * torch.sum(
-          common.entropy(dist) * mask) / denom
+      entropy_loss = -self.entropy_regularization * masked_mean(
+          common.entropy(dist))
 
     kl = _kl(old_dist, dist)
-    mean_kl = torch.sum(kl * mask) / denom
+    mean_kl = masked_mean(kl)
     kl_penalty = zero
     if self.kl_cutoff_factor > 0:
       cutoff = self.kl_cutoff_factor * self.adaptive_kl_target
-      kl_penalty = kl_penalty + self.kl_cutoff_coef * torch.sum(
-          torch.square(torch.clamp(kl - cutoff, min=0.0)) * mask) / denom
+      kl_penalty = kl_penalty + self.kl_cutoff_coef * masked_mean(
+          torch.square(torch.clamp(kl - cutoff, min=0.0)))
     kl_penalty = kl_penalty + agent_state.kl_beta * mean_kl
 
     total = pg_loss + value_loss + entropy_loss + kl_penalty
@@ -315,6 +340,49 @@ class PPOAgent(Agent):
         entropy_reg_loss=entropy_loss, kl_penalty_loss=kl_penalty,
         clip_fraction=clip_fraction)
     return total, (extra, mean_kl)
+
+  def _minibatch_index_fn(self, n_items: int, batch_size: int):
+    """draws -> one epoch's minibatch index tensors over this rank's
+    `n_items` items (frames, or sequences when recurrent) of
+    `batch_size` rows.
+
+    This rank's shards (all n_sh, or n_sh / n over a mesh of n) are equal
+    consecutive blocks of `per` items, each permuted on its own, and
+    minibatch m takes items ``[m*k, (m+1)*k)`` of every shard's
+    permutation, in shard order (the JAX package's ``[n_sh, per] ->
+    [n_mb, n_sh * k]``). With one shard that is one permutation of the
+    items cut into `num_minibatches`.
+    """
+    n_mb = self.num_minibatches
+    kind = "sequences" if self._recurrent else "frames"
+    n_sh, ranks = self.num_minibatch_shards, (
+        1 if self.mesh is None else self.mesh.size)
+    if n_sh % ranks:
+      raise ValueError(
+          f"num_minibatch_shards {n_sh} must be a multiple of the data "
+          f"axis size {ranks}: each rank shuffles its own shards")
+    local = n_sh // ranks
+    if n_items % local or (n_items // local) % n_mb:
+      raise ValueError(
+          f"{n_items * ranks} {kind} do not split into num_minibatch_shards "
+          f"{n_sh} x num_minibatches {n_mb}")
+    # Flat items are row-major, so shard blocks line up with the rows only
+    # when the rows split evenly over the shards.
+    if batch_size % local:
+      raise ValueError(
+          f"experience batch {batch_size * ranks} not divisible by "
+          f"num_minibatch_shards {n_sh}; set num_minibatch_shards to a "
+          "divisor of the rollout batch (normally the data axis size)")
+    per = n_items // local
+    k = per // n_mb
+    base = torch.arange(local, device=self.device)[:, None] * per
+
+    def sharded(draws):
+      perms = torch.stack([draws.permutation(PERMUTATION_SITE, per)
+                           for _ in range(local)]) + base   # [local, per]
+      return [perms[:, m * k:(m + 1) * k].reshape(-1) for m in range(n_mb)]
+
+    return sharded
 
   # -- train -----------------------------------------------------------------
   def train(self, agent_state: PPOAgentState, experience, weights=None,
@@ -326,11 +394,13 @@ class PPOAgent(Agent):
       if self.obs_normalizer is not None:
         agent_state = dataclasses.replace(
             agent_state, obs_norm_state=self.obs_normalizer.update(
-                agent_state.obs_norm_state, experience.observation))
+                agent_state.obs_norm_state, experience.observation,
+                mesh=self.mesh))
       if self.reward_normalizer is not None:
         agent_state = dataclasses.replace(
             agent_state, reward_norm_state=self.reward_normalizer.update(
-                agent_state.reward_norm_state, experience.reward))
+                agent_state.reward_norm_state, experience.reward,
+                mesh=self.mesh))
 
       # 2) Advantages and returns from the collect-time values.
       returns, advantages = self.compute_return_and_advantage(
@@ -360,34 +430,26 @@ class PPOAgent(Agent):
       old_log_prob = common.log_probability(old_dist, actions)
 
       if self.normalize_advantages:
-        denom = torch.clamp(mask.sum(), min=1.0)
-        adv_mean = torch.sum(advantages * mask) / denom
-        adv_var = torch.sum(torch.square(advantages - adv_mean) * mask) / denom
+        adv_sum, count = self._global_sums(advantages * mask, mask)
+        denom = torch.clamp(count, min=1.0)
+        adv_mean = adv_sum / denom
+        (adv_sq,) = self._global_sums(
+            torch.square(advantages - adv_mean) * mask)
+        adv_var = adv_sq / denom
         advantages = (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
 
-    n_mb = self.num_minibatches
-    if n_items % n_mb:
-      raise ValueError(
-          f"{n_items} {'sequences' if self._recurrent else 'frames'} do not "
-          f"split into {n_mb} minibatches")
-    size = n_items // n_mb
     flat_batch = (obs, step_type, actions, old_dist, old_values, returns,
                   advantages, old_log_prob, mask)
     params = [p for group in agent_state.optimizer.param_groups
               for p in group["params"]]
+    minibatches = self._minibatch_index_fn(n_items, b)
     for _ in range(self.num_epochs):
-      perm = draws.permutation(PERMUTATION_SITE, n_items)
-      shuffled = nest_utils.tree_map(lambda x: x[perm], flat_batch)
-      for m in range(n_mb):
-        mb = nest_utils.tree_map(lambda x: x[m * size:(m + 1) * size],
-                                 shuffled)
+      for idx in minibatches(draws):
+        mb = nest_utils.tree_map(lambda x: x[idx], flat_batch)
         loss, (extra, mean_kl) = self._loss(agent_state, mb)
-        grads = torch.autograd.grad(loss, params)
-        if self.gradient_clipping is not None:
-          common.clip_gradient_norms(grads, self.gradient_clipping)
-        for p, g in zip(params, grads):
-          p.grad = g
-        agent_state.optimizer.step()
+        apply_gradients([(torch.autograd.grad(loss, params), params,
+                          agent_state.optimizer)], self.gradient_clipping,
+                        self.mesh)
         if agent_state.lr_scheduler is not None:
           agent_state.lr_scheduler.step()
 
@@ -397,8 +459,9 @@ class PPOAgent(Agent):
       with torch.no_grad():
         dist_f, _ = agent_state.actor_network(
             self._normalized(agent_state, obs), step_type, ())
-        denom_f = torch.clamp(mask.sum(), min=1.0)
-        mean_kl = torch.sum(_kl(old_dist, dist_f) * mask) / denom_f
+        kl_sum, count = self._global_sums(_kl(old_dist, dist_f) * mask,
+                                          mask)
+        mean_kl = kl_sum / torch.clamp(count, min=1.0)
         too_high = mean_kl > self.adaptive_kl_target * (
             1.0 + self.adaptive_kl_tolerance)
         too_low = mean_kl < self.adaptive_kl_target * (

@@ -35,7 +35,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices)
 from agents_tpu_torch.policies.cem_policy import CEMPolicy
 from agents_tpu_torch.policies.wrappers import (EpsilonGreedyPolicy,
                                                 GaussianPolicy)
@@ -177,13 +178,11 @@ class QtOptAgent(Agent):
   def train(self, agent_state: QtOptAgentState, experience,
             weights=None) -> Tuple[QtOptAgentState, LossInfo]:
     s = agent_state
-    s.optimizer.zero_grad(set_to_none=True)
     loss, extra = self._loss(s.q_network, s, experience, weights)
-    loss.backward()
-    if self.gradient_clipping is not None:
-      common.clip_gradient_norms([p.grad for p in s.q_network.parameters()],
-                                 self.gradient_clipping)
-    s.optimizer.step()
+    params = list(s.q_network.parameters())
+    apply_gradients([(torch.autograd.grad(loss, params, allow_unused=True),
+                      params, s.optimizer)],
+                    self.gradient_clipping, self.mesh)
     train_step = s.train_step + 1
     # delayed_2 takes the old delayed, delayed the old target, and only
     # then the target follows the stepped critic.

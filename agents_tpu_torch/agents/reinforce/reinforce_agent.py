@@ -17,7 +17,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import Agent, check_network_devices
+from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+                                           check_network_devices)
 from agents_tpu_torch.policies.actor_policy import ActorPolicy
 from agents_tpu_torch.policies.wrappers import GreedyPolicy
 from agents_tpu_torch.trajectories import time_step as ts
@@ -150,12 +151,9 @@ class ReinforceAgent(Agent):
     loss, extra = self._loss(agent_state, experience, returns, mask)
     params = [p for group in agent_state.optimizer.param_groups
               for p in group["params"]]
-    grads = torch.autograd.grad(loss, params)
-    if self.gradient_clipping is not None:
-      common.clip_gradient_norms(grads, self.gradient_clipping)
-    for p, g in zip(params, grads):
-      p.grad = g
-    agent_state.optimizer.step()
+    apply_gradients([(torch.autograd.grad(loss, params), params,
+                      agent_state.optimizer)], self.gradient_clipping,
+                    self.mesh)
     extra = ReinforceLossExtra(
         policy_gradient_loss=extra.policy_gradient_loss.detach(),
         value_estimation_loss=extra.value_estimation_loss.detach())

@@ -248,7 +248,7 @@ class SacAgent(Agent):
     # the pre-step parameters, which the steps overwrite in place.
     apply_gradients([(torch.autograd.grad(loss, params), params, optimizer)
                      for loss, params, optimizer in groups],
-                    self.gradient_clipping)
+                    self.gradient_clipping, self.mesh)
 
     train_step = s.train_step + 1
     for source, target in ((s.critic1_network, s.target_critic1_network),

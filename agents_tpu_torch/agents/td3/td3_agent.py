@@ -220,7 +220,7 @@ class Td3Agent(Agent):
                      actor_params, s.actor_optimizer))
     # Both gradients are taken before either optimizer steps: the actor
     # loss reads critic 1 before its update.
-    apply_gradients(groups, self.gradient_clipping)
+    apply_gradients(groups, self.gradient_clipping, self.mesh)
 
     for source, target in (
         (s.actor_network, s.target_actor_network),

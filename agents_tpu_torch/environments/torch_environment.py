@@ -75,6 +75,11 @@ class BatchedTorchEnv:
   def time_step_spec(self):
     return self.env.time_step_spec()
 
+  def with_batch_size(self, batch_size: int) -> "BatchedTorchEnv":
+    """The same environment over `batch_size` rows (a data-parallel rank's
+    share)."""
+    return BatchedTorchEnv(self.env, batch_size, device=self.device)
+
   def reset(self, draws):
     return self.env.reset(draws, self.batch_size)
 

@@ -9,6 +9,13 @@ Port of ``agents_tpu/metrics/jax_metrics.py`` (`DequeState`,
 `result` readout, so a driver updates them with no host sync. Frames
 arrive batched [B]. Counters are int64 (torch's sum type) where the JAX
 package keeps int32.
+
+Over a data-parallel mesh (``update(state, traj, mesh)``, the loops built
+with a mesh) each rank sees its own rows, while the JAX package keeps the
+deques and counters replicated and feeds them from every row: a counter
+adds the sum over the ranks (one all-reduce), and a deque metric
+all-gathers each row's episode end and value in rank order, so every
+rank pushes what the JAX deque pushes. Per-row accumulators stay local.
 """
 from __future__ import annotations
 
@@ -83,15 +90,32 @@ class DequeState:
     return torch.where(n > 0, bottom, 0.0)
 
 
+def _row_sum(x, mesh):
+  """Sum over the rows of every rank."""
+  total = torch.sum(x, dim=0)
+  return total if mesh is None else mesh.all_reduce(total)
+
+
+def _every_row(done, values, mesh):
+  """(done, values) of every rank's rows, in rank order: one all-gather of
+  the two packed as float32 (values [B] or [B, k])."""
+  if mesh is None:
+    return done, values
+  v = values.reshape(values.shape[0], -1).float()
+  packed = mesh.all_gather_rows(torch.cat([done.float()[:, None], v], 1))
+  return (packed[:, 0] > 0.5,
+          packed[:, 1:].reshape((-1,) + tuple(values.shape[1:])))
+
+
 class Metric:
-  """Base: init(batch_size, device) -> state; update(state, traj) -> state;
-  result(state) -> device scalar."""
+  """Base: init(batch_size, device) -> state; update(state, traj[, mesh])
+  -> state; result(state) -> device scalar."""
   name: str = "metric"
 
   def init(self, batch_size: int, device=None):
     raise NotImplementedError
 
-  def update(self, state, traj: Trajectory):
+  def update(self, state, traj: Trajectory, mesh=None):
     raise NotImplementedError
 
   def result(self, state):
@@ -105,8 +129,8 @@ class EnvironmentSteps(Metric):
   def init(self, batch_size: int, device=None):
     return torch.zeros((), dtype=torch.int64, device=device)
 
-  def update(self, state, traj):
-    return state + torch.sum(~traj.is_boundary())
+  def update(self, state, traj, mesh=None):
+    return state + _row_sum(~traj.is_boundary(), mesh)
 
   def result(self, state):
     return state
@@ -119,8 +143,8 @@ class NumberOfEpisodes(Metric):
   def init(self, batch_size: int, device=None):
     return torch.zeros((), dtype=torch.int64, device=device)
 
-  def update(self, state, traj):
-    return state + torch.sum(traj.is_last())
+  def update(self, state, traj, mesh=None):
+    return state + _row_sum(traj.is_last(), mesh)
 
   def result(self, state):
     return state
@@ -150,11 +174,11 @@ class AverageReturnMetric(Metric):
   def _increment(self, traj, not_boundary):
     return traj.reward * not_boundary
 
-  def update(self, state, traj):
+  def update(self, state, traj, mesh=None):
     not_boundary = (~traj.is_boundary()).to(torch.float32)
     acc = state.accumulator + self._increment(traj, not_boundary)
     done = traj.is_last()
-    deque = state.deque.push_batch(done, acc)
+    deque = state.deque.push_batch(*_every_row(done, acc, mesh))
     acc = torch.where(done, 0.0, acc)
     return _ReturnAccumulatorState(accumulator=acc, deque=deque)
 
@@ -209,11 +233,12 @@ class AverageReturnMultiMetric(Metric):
         deques=tuple(DequeState.create(self.buffer_size, device=device)
                      for _ in range(self.reward_len)))
 
-  def update(self, state, traj):
+  def update(self, state, traj, mesh=None):
     not_boundary = (~traj.is_boundary()).to(torch.float32)
     acc = state.accumulator + traj.reward * not_boundary[..., None]
     done = traj.is_last()
-    deques = tuple(dq.push_batch(done, acc[:, i])
+    all_done, all_acc = _every_row(done, acc, mesh)
+    deques = tuple(dq.push_batch(all_done, all_acc[:, i])
                    for i, dq in enumerate(state.deques))
     acc = torch.where(done[..., None], 0.0, acc)
     return _MultiReturnState(accumulator=acc, deques=deques)
@@ -235,13 +260,13 @@ class ChosenActionHistogram(Metric):
   def init(self, batch_size: int, device=None):
     return torch.zeros((self.num_actions,), dtype=torch.int64, device=device)
 
-  def update(self, state, traj):
+  def update(self, state, traj, mesh=None):
     # Boundary frames carry no chosen action. The one-hot is a comparison
     # with an arange: `F.one_hot` checks its bounds with a host sync.
     valid = ~traj.is_boundary()
     actions = torch.arange(self.num_actions, device=state.device)
     onehot = traj.action.to(torch.int64)[:, None] == actions
-    return state + (onehot & valid[:, None]).sum(dim=0)
+    return state + _row_sum((onehot & valid[:, None]).to(torch.int64), mesh)
 
   def result(self, state):
     return state

@@ -25,8 +25,12 @@ priorities are updated in place: a state returned earlier shares them.
 
 The stratified uniforms come from one draw site, "per_u" of shape [S] in
 [0, 1), so a test can replay ``jax.random.uniform(key, (S,))``.
-`sample_sharded` (shard-local sampling over a device mesh) waits for the
-port's data parallelism and raises `NotImplementedError`.
+
+Over a data-parallel mesh (`sample_sharded`, `update_priorities_sharded`)
+each rank holds its own rows' storage and priorities, samples S/n windows
+by inverse CDF over its own priority mass, and max-normalizes the IS
+weights globally: one scalar all-reduce (MAX) per sample, and one per
+priority update to keep `max_priority` the global maximum on every rank.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from agents_tpu_torch.replay_buffers.uniform_replay import gather_windows
+from agents_tpu_torch.replay_buffers.uniform_replay import (check_shardable,
+                                                            gather_windows)
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.device import resolve_device
@@ -175,6 +180,14 @@ class PrioritizedReplay:
     PrioritizedBufferInfo); leaves are [S, ...] when `num_steps` is None,
     else [S, num_steps, ...]. Draws "per_u" ([S] uniforms) from `draws`.
     """
+    batch, info = self._sample(state, draws, sample_batch_size, num_steps,
+                               beta)
+    return batch, info._replace(
+        is_weights=info.is_weights / torch.clamp_min(info.is_weights.max(),
+                                                     1e-30))
+
+  def _sample(self, state, draws, sample_batch_size, num_steps, beta):
+    """`sample` with the raw IS weights ``(N * P(i))**-beta``."""
     n = 1 if num_steps is None else int(num_steps)
     if n > self.capacity:
       raise ValueError(
@@ -215,7 +228,6 @@ class PrioritizedReplay:
     w = torch.where(probs > 0,
                     torch.pow(n_valid * torch.clamp_min(probs, 1e-30),
                               -float(beta)), 0.0)
-    w = w / torch.clamp_min(w.max(), 1e-30)
 
     batch = self._gather(state.storage, t0, rows, n)
     if num_steps is None:
@@ -223,10 +235,36 @@ class PrioritizedReplay:
     return batch, PrioritizedBufferInfo(ids=t0, rows=rows,
                                         probabilities=probs, is_weights=w)
 
-  def sample_sharded(self, *args, **kwargs):
-    raise NotImplementedError(
-        "PrioritizedReplay.sample_sharded (shard-local sampling over a "
-        "device mesh) comes with the port's data parallelism, ROADMAP A8")
+  def local(self, num_shards: int) -> "PrioritizedReplay":
+    """The replay of one of `num_shards` equal shares of the env rows."""
+    check_shardable(self.batch_size, None, num_shards)
+    return PrioritizedReplay(self.data_spec, self.batch_size // num_shards,
+                             self.capacity, alpha=self.alpha,
+                             epsilon=self.epsilon, device=self.device)
+
+  def sample_sharded(self, state: PrioritizedReplayState, draws,
+                     sample_batch_size: int, mesh,
+                     num_steps: Optional[int] = None, beta: float = 0.4):
+    """This rank's share of a prioritized sample over a row-sharded buffer
+    (the JAX package's `sample_sharded`, :214-275).
+
+    `state` holds this rank's rows. The rank inverse-CDF samples S/n
+    windows from its own priority mass (shards are equal-mass strata:
+    probabilities divided by n), so no storage crosses ranks. The raw IS
+    weight ``(N_local * P_local)**-beta`` equals the global one under that
+    convention; the weights are normalized by their global max, the one
+    scalar all-reduce. Row ids come back global (offset by ``rank *
+    B/n``).
+    """
+    n = mesh.size
+    check_shardable(self.batch_size, sample_batch_size, n)
+    batch, info = self.local(n)._sample(state, draws, sample_batch_size // n,
+                                        num_steps, beta)
+    gmax = mesh.all_reduce(info.is_weights.max(), "max")
+    return batch, PrioritizedBufferInfo(
+        ids=info.ids, rows=info.rows + mesh.rank * (self.batch_size // n),
+        probabilities=info.probabilities / n,
+        is_weights=info.is_weights / torch.clamp_min(gmax, 1e-30))
 
   def _gather(self, storage, t0, rows, n):
     return gather_windows(storage, t0, rows, n, self.capacity,
@@ -255,3 +293,18 @@ class PrioritizedReplay:
     flat.scatter_reduce_(0, flat_idx, live_p, "amax", include_self=True)
     return dataclasses.replace(
         state, max_priority=torch.maximum(state.max_priority, live_p.max()))
+
+  def update_priorities_sharded(self, state: PrioritizedReplayState,
+                                info: PrioritizedBufferInfo,
+                                td_errors: torch.Tensor, mesh
+                                ) -> PrioritizedReplayState:
+    """`update_priorities` of this rank's rows from `sample_sharded`'s
+    info (global row ids); `max_priority` becomes the global maximum on
+    every rank (one scalar all-reduce), as the JAX package keeps it
+    replicated."""
+    n = mesh.size
+    local_info = info._replace(
+        rows=info.rows - mesh.rank * (self.batch_size // n))
+    state = self.local(n).update_priorities(state, local_info, td_errors)
+    return dataclasses.replace(
+        state, max_priority=mesh.all_reduce(state.max_priority.clone(), "max"))

@@ -1,8 +1,9 @@
 """On-device uniform replay: a ring buffer in device memory.
 
 Port of ``agents_tpu/replay_buffers/uniform_replay.py`` (`init`,
-`add_batch`, `add_sequence`, `sample`, `_gather`, `gather_all`, `clear`). Layout is
-time-major ``[capacity, B, ...]`` per leaf, as in the JAX package.
+`add_batch`, `add_sequence`, `sample`, `sample_sharded`, `_gather`,
+`gather_all`, `clear`). Layout is time-major ``[capacity, B, ...]`` per
+leaf, as in the JAX package.
 
 The frame count is a host Python int, where the JAX package keeps a traced
 int32 (and renormalises it, `renorm_count` :47). It is deterministic (+1
@@ -46,6 +47,16 @@ def gather_windows(storage, t0, rows, n: int, capacity: int,
     return out.reshape((t_idx.shape[0], n) + s.shape[2:])
 
   return nest_utils.tree_map(leaf_gather, storage)
+
+
+def check_shardable(batch_size: int, sample_batch_size: Optional[int],
+                    num_shards: int) -> None:
+  """Raise unless the env rows (and the sample) split evenly over
+  `num_shards`: only then is each shard's share of the gradient equal."""
+  if batch_size % num_shards or (sample_batch_size or 0) % num_shards:
+    raise ValueError(
+        f"batch_size {batch_size} and sample_batch_size {sample_batch_size} "
+        f"must both be divisible by the data axis size {num_shards}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +158,31 @@ class UniformReplay:
                        1.0 / (num_valid * self.batch_size),
                        dtype=torch.float32, device=self.device)
     return batch, BufferInfo(ids=t0, rows=rows, probabilities=probs)
+
+  def local(self, num_shards: int) -> "UniformReplay":
+    """The replay of one of `num_shards` equal shares of the env rows."""
+    check_shardable(self.batch_size, None, num_shards)
+    return UniformReplay(self.data_spec, self.batch_size // num_shards,
+                         self.capacity, device=self.device)
+
+  def sample_sharded(self, state: ReplayState, draws, sample_batch_size: int,
+                     mesh, num_steps: Optional[int] = None):
+    """This rank's share of a uniform sample over a row-sharded buffer.
+
+    `state` holds this rank's ``[capacity, B/n, ...]`` rows (see
+    `parallel.shard_loop_state`). Each rank samples S/n windows from its
+    own rows with its own `draws`, so no storage crosses ranks (the JAX
+    package's `shard_map` per shard, :215-265). Row ids come back global
+    (offset by ``rank * B/n``) and probabilities divided by n: stratified
+    by shard, each item's inclusion probability is `sample`'s.
+    """
+    n = mesh.size
+    check_shardable(self.batch_size, sample_batch_size, n)
+    batch, info = self.local(n).sample(state, draws, sample_batch_size // n,
+                                       num_steps)
+    return batch, BufferInfo(
+        ids=info.ids, rows=info.rows + mesh.rank * (self.batch_size // n),
+        probabilities=info.probabilities / n)
 
   def _gather(self, storage, t0, rows, n):
     return gather_windows(storage, t0, rows, n, self.capacity,

@@ -13,10 +13,13 @@ from agents_tpu_torch.train.triggers import (IntervalTrigger,
                                              PolicyCheckpointTrigger,
                                              StepPerSecondLogTrigger,
                                              StepPerSecondTracker)
+from agents_tpu_torch.utils.tb_writer import (MultiWriter,
+                                              TensorBoardEventWriter)
 
 __all__ = ["Actor", "AsyncHostDeviceTrainLoop", "Checkpointer",
            "DeviceState", "FusedTrainLoop", "HostDeviceTrainLoop",
            "HostOnPolicyTrainLoop", "IntervalTrigger", "JsonlSummaryWriter",
-           "Learner", "LoopState", "OnPolicyLoopState", "OnPolicyTrainLoop",
-           "PolicyCheckpointTrigger", "StepPerSecondLogTrigger",
-           "StepPerSecondTracker", "collect_metrics", "eval_metrics"]
+           "Learner", "LoopState", "MultiWriter", "OnPolicyLoopState",
+           "OnPolicyTrainLoop", "PolicyCheckpointTrigger",
+           "StepPerSecondLogTrigger", "StepPerSecondTracker",
+           "TensorBoardEventWriter", "collect_metrics", "eval_metrics"]

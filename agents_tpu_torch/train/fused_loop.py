@@ -21,17 +21,28 @@ go to ``agent.train(weights=...)``, and the loss's `td_error` goes back as
 the new priorities (the mean of |td| over its non-batch axes for a
 sequence loss). An agent whose loss has no `td_error` (C51: a
 cross-entropy) gets a warning, once per loop.
+
+Data parallelism (`mesh=`, the JAX loop's :68-73, :123-128, :158-163):
+`init` still builds the state for the global batch B, and
+`parallel.shard_loop_state` cuts it to this rank's B/n rows; `iteration`
+then steps those rows, samples through the replay's `sample_sharded`
+(shard-local, so no storage crosses ranks), and reduces what the JAX
+partitioner reduces implicitly: the agent averages its gradients over the
+mesh (`agent.mesh`), the reported loss scalars are the mean over the
+ranks, and the metric deques are fed from every rank's rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Tuple
 
 from agents_tpu_torch.drivers.torch_driver import DriverState, TorchDriver
 from agents_tpu_torch.eval import metric_utils
 from agents_tpu_torch.metrics import torch_metrics
-from agents_tpu_torch.replay_buffers.uniform_replay import UniformReplay
+from agents_tpu_torch.replay_buffers.uniform_replay import (UniformReplay,
+                                                            check_shardable)
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import check_devices, resolve_device
@@ -60,6 +71,9 @@ class FusedTrainLoop:
     sample_batch_size: replay sample size for training.
     train_steps_per_iteration: gradient steps per iteration.
     per_beta: the IS-weight exponent of a prioritized replay.
+    mesh: a `parallel.Mesh`: `iteration` then runs on this rank's share of
+      a state cut by `parallel.shard_loop_state` (see the module
+      docstring); the loop sets ``agent.mesh``.
     device: "cuda" unless the caller asks for "cpu"; env, agent and replay
       must live there too.
   """
@@ -68,7 +82,7 @@ class FusedTrainLoop:
                collect_steps_per_iteration: int = 1,
                sample_batch_size: int = 64,
                train_steps_per_iteration: int = 1, per_beta: float = 0.4,
-               device="cuda"):
+               mesh=None, device="cuda"):
     self.device = resolve_device(device)
     check_devices(self.device, env=env, agent=agent, replay=replay)
     self.env = env
@@ -80,9 +94,20 @@ class FusedTrainLoop:
     self.train_steps = train_steps_per_iteration
     self.prioritized = hasattr(replay, "update_priorities")
     self.per_beta = per_beta
+    self.mesh = mesh
     self._warned_no_td_error = False
     observers = [self.replay.add_batch] + [m.update for m in self.metrics]
     self.driver = TorchDriver(env, agent.collect_policy, observers=observers)
+    self._iteration_driver = self.driver
+    if mesh is not None:
+      check_shardable(env.batch_size, sample_batch_size, mesh.size)
+      agent.mesh = mesh
+      local_replay = replay.local(mesh.size)
+      self._iteration_driver = TorchDriver(
+          env.with_batch_size(env.batch_size // mesh.size),
+          agent.collect_policy,
+          observers=[local_replay.add_batch] + [
+              functools.partial(m.update, mesh=mesh) for m in self.metrics])
 
   def init(self, seed: int = 0, initial_collect_steps: int = 0,
            draws=None) -> LoopState:
@@ -100,10 +125,11 @@ class FusedTrainLoop:
       state = self.initial_collect(state, initial_collect_steps)
     return state
 
-  def _collect(self, state: LoopState, num_steps: int) -> LoopState:
+  def _collect(self, state: LoopState, num_steps: int,
+               driver=None) -> LoopState:
     params = self.agent.collect_policy_params(state.agent_state)
     obs_states = (state.replay_state,) + tuple(state.metric_states)
-    driver_state, obs_states = self.driver.run(
+    driver_state, obs_states = (driver or self.driver).run(
         params, state.driver_state, obs_states, state.draws, num_steps)
     return dataclasses.replace(state, driver_state=driver_state,
                                replay_state=obs_states[0],
@@ -113,22 +139,31 @@ class FusedTrainLoop:
     """Seed replay with the collect policy."""
     return self._collect(state, num_steps)
 
+  def _sample(self, replay_state, draws):
+    """(experience, info) of one train step: shard-local with a mesh."""
+    kwargs = dict(num_steps=self.agent.train_sequence_length)
+    if self.prioritized:
+      kwargs["beta"] = self.per_beta
+    if self.mesh is None:
+      return self.replay.sample(replay_state, draws, self.sample_batch_size,
+                                **kwargs)
+    return self.replay.sample_sharded(replay_state, draws,
+                                      self.sample_batch_size, self.mesh,
+                                      **kwargs)
+
   def iteration(self, state: LoopState) -> Tuple[LoopState, LossInfo]:
-    state = self._collect(state, self.collect_steps)
+    state = self._collect(state, self.collect_steps, self._iteration_driver)
     agent_state, replay_state = state.agent_state, state.replay_state
     for _ in range(self.train_steps):
+      experience, info = self._sample(replay_state, state.draws)
       if self.prioritized:
-        experience, info = self.replay.sample(
-            replay_state, state.draws, self.sample_batch_size,
-            num_steps=self.agent.train_sequence_length, beta=self.per_beta)
         agent_state, loss_info = self.agent.train(
             agent_state, experience, weights=info.is_weights)
         replay_state = self._update_priorities(replay_state, info, loss_info)
       else:
-        experience, _ = self.replay.sample(
-            replay_state, state.draws, self.sample_batch_size,
-            num_steps=self.agent.train_sequence_length)
         agent_state, loss_info = self.agent.train(agent_state, experience)
+    if self.mesh is not None:
+      loss_info = self.mesh.mean_scalars(loss_info)
     return dataclasses.replace(state, agent_state=agent_state,
                                replay_state=replay_state), loss_info
 
@@ -148,7 +183,10 @@ class FusedTrainLoop:
       return replay_state
     if td.dim() > 1:  # sequence losses: [S, T-1] -> per-item scalar
       td = td.abs().mean(dim=tuple(range(1, td.dim())))
-    return self.replay.update_priorities(replay_state, info, td)
+    if self.mesh is None:
+      return self.replay.update_priorities(replay_state, info, td)
+    return self.replay.update_priorities_sharded(replay_state, info, td,
+                                                 self.mesh)
 
   def run(self, state: LoopState, num_iterations: int):
     """`num_iterations` iterations; returns (state, losses [n] on device)."""

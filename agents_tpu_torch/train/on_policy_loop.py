@@ -8,14 +8,24 @@ An agent whose `train` takes `draws` (PPO's permutations) gets the loop's
 draw source. The agent's train step is a host int, so an iteration makes
 no host sync; `run(n)` returns the n losses as one device tensor, like
 `FusedTrainLoop.run`.
+
+With `mesh=` (data parallelism, like `FusedTrainLoop`'s): `init` builds the
+state for the global batch, `parallel.shard_loop_state` cuts it to this
+rank's rows, and `iteration` collects those rows and trains on them; the
+agent (``agent.mesh``) averages its gradients and reduces its
+whole-rollout statistics over the ranks, the reported loss scalars are
+the mean over the ranks, and the metric deques are fed from every rank's
+rows. PPO then needs `num_minibatch_shards` a multiple of the mesh's size.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Any, Tuple
 
 from agents_tpu_torch.drivers.torch_driver import DriverState, TorchDriver
+from agents_tpu_torch.replay_buffers.uniform_replay import check_shardable
 from agents_tpu_torch.utils import nest_utils
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import check_devices, resolve_device
@@ -38,21 +48,34 @@ class OnPolicyTrainLoop:
     agent: an on-policy Agent (its collect_policy drives collection).
     metrics: metrics updated during collection.
     rollout_length: T, the lockstep steps per iteration.
+    mesh: a `parallel.Mesh` (see the module docstring); the loop sets
+      ``agent.mesh``.
     device: "cuda" unless the caller asks for "cpu"; env and agent must
       live there too.
   """
 
   def __init__(self, env, agent, metrics=(), rollout_length: int = 128,
-               device="cuda"):
+               mesh=None, device="cuda"):
     self.device = resolve_device(device)
     check_devices(self.device, env=env, agent=agent)
     self.env = env
     self.agent = agent
     self.metrics = tuple(metrics)
     self.rollout_length = rollout_length
+    self.mesh = mesh
     self.driver = TorchDriver(env, agent.collect_policy,
                               observers=[m.update for m in self.metrics],
                               return_trajectories=True)
+    self._iteration_driver = self.driver
+    if mesh is not None:
+      check_shardable(env.batch_size, None, mesh.size)
+      agent.mesh = mesh
+      self._iteration_driver = TorchDriver(
+          env.with_batch_size(env.batch_size // mesh.size),
+          agent.collect_policy,
+          observers=[functools.partial(m.update, mesh=mesh)
+                     for m in self.metrics],
+          return_trajectories=True)
     self._train_takes_draws = "draws" in inspect.signature(
         agent.train).parameters
 
@@ -68,9 +91,10 @@ class OnPolicyTrainLoop:
         draws=draws)
 
   def collect(self, state: OnPolicyLoopState):
-    """One rollout: (state after it, experience [B, T, ...])."""
+    """One rollout: (state after it, experience [B, T, ...]); this rank's
+    rows with a mesh."""
     params = self.agent.collect_policy_params(state.agent_state)
-    driver_state, metric_states, frames = self.driver.run(
+    driver_state, metric_states, frames = self._iteration_driver.run(
         params, state.driver_state, state.metric_states, state.draws,
         self.rollout_length)
     experience = nest_utils.tree_map(lambda x: x.transpose(0, 1), frames)
@@ -86,6 +110,8 @@ class OnPolicyTrainLoop:
     else:
       agent_state, loss_info = self.agent.train(state.agent_state,
                                                 experience)
+    if self.mesh is not None:
+      loss_info = self.mesh.mean_scalars(loss_info)
     return dataclasses.replace(state, agent_state=agent_state), loss_info
 
   def run(self, state: OnPolicyLoopState, num_iterations: int):

@@ -32,6 +32,11 @@ def _sum(x, dims):
   return x.sum(dim=dims) if dims else x
 
 
+def _global_sum(x, mesh):
+  """`x` summed over the ranks of a data-parallel `mesh` (None: itself)."""
+  return x if mesh is None else mesh.all_reduce(x.clone())
+
+
 def _normalize(x, mean, var, epsilon, clip_value, center_mean):
   std = torch.sqrt(torch.clamp(var, min=0.0)) + epsilon
   x = x.float()
@@ -63,22 +68,29 @@ class StreamingTensorNormalizer:
     return StreamingNormalizerState(count=full(1e-8), mean_sum=full(0.0),
                                     var_sum=full(0.0))
 
-  def update(self, state: StreamingNormalizerState,
-             values) -> StreamingNormalizerState:
-    """Chan's exact parallel-variance combine of `values` into `state`."""
+  def update(self, state: StreamingNormalizerState, values,
+             mesh=None) -> StreamingNormalizerState:
+    """Chan's exact parallel-variance combine of `values` into `state`.
+
+    Over a data-parallel `mesh` the batch is every rank's `values`: its
+    sum and its squared deviations from the global batch mean are summed
+    over the ranks (two all-reduces per leaf), so every rank's state
+    takes the global batch."""
 
     def _upd(count, mean_sum, var_sum, x):
       dims = _outer_dims(x, mean_sum.dim())
-      n = math.prod(x.shape[d] for d in dims)
+      n = math.prod(x.shape[d] for d in dims) * (
+          1 if mesh is None else mesh.size)
       x = x.float()
-      batch_mean = _mean(x, dims)
-      batch_m2 = _sum(torch.square(x - batch_mean), dims)
+      batch_sum = _global_sum(_sum(x, dims), mesh)
+      batch_mean = batch_sum / n
+      batch_m2 = _global_sum(_sum(torch.square(x - batch_mean), dims), mesh)
       old_mean = mean_sum / torch.clamp(count, min=1e-8)
       new_count = count + n
       delta = batch_mean - old_mean
       new_var_sum = (var_sum + batch_m2
                      + torch.square(delta) * count * n / new_count)
-      return new_count, mean_sum + _sum(x, dims), new_var_sum
+      return new_count, mean_sum + batch_sum, new_var_sum
 
     outs = [_upd(*leaves) for leaves in zip(
         nest_utils.flatten(state.count), nest_utils.flatten(state.mean_sum),

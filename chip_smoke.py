@@ -27,14 +27,21 @@ phase.
                   fails on any host sync; tensors on the card, finite
                   losses, exact replay count, legal step-type transitions.
                   Prints ms/iteration and env-steps/s, and the device-busy
-                  share from a short profiled window.
+                  share from a short profiled window taken through the
+                  port's `profiling.trace`, inside `profiling.annotate`
+                  spans (the window, and the loop's `run` decorated) that
+                  must appear in the trace.
   4. learn        the same run continued to 6000 iterations; the last-20
                   AverageReturn must reach 195 (`DQN_CARTPOLE_REFERENCE_LIVE`;
                   the bars come from the port's copy of the windows).
   5. eval         greedy `evaluate` over exactly 30 episodes.
   5a. learner_export  the trained state into the port's `Learner` under a
-                  temporary root_dir (checkpoints and a
-                  `PolicyCheckpointTrigger` every 500) for 1,000 iterations;
+                  temporary root_dir (checkpoints, summaries through
+                  `MultiWriter(JsonlSummaryWriter, TensorBoardEventWriter)`
+                  and a `PolicyCheckpointTrigger` every 500) for 1,000
+                  iterations; the events file read back by the script's own
+                  reader (TFRecord framing, masked CRC-32C, every scalar
+                  equal to its JSONL line);
                   a fresh loop and Learner on the directory resume at 1,000
                   bit for bit; the greedy artifact's `loader.py` in a child
                   that imports numpy and torch only acts on the 4,096 rows'
@@ -50,6 +57,37 @@ phase.
                   CartPole's specs: it evaluates the export, the parent
                   refreshes its params at a higher train step, and the
                   child evaluates again; both train steps reported.
+  5c. data_parallel  (a) the bench point (B=4096, ring 512, sample 256,
+                  (100, 50), 100 collect steps) through `FusedTrainLoop(
+                  mesh=)` over a one-rank NCCL group: 20 warm-up and 100
+                  timed iterations (5 windows), ms/iteration beside
+                  `main`'s, collective bytes per iteration, whether an
+                  iteration is sync-free; (b) two gloo ranks on the card
+                  (`torch_dryrun.spawn_ranks`), 2,048 rows each, 3
+                  iterations of the fused DQN loop, of PER (alpha 0.6, beta
+                  0.4) and of sharded PPO (`examples/ppo_cartpole.py`'s
+                  config, 2 minibatch shards), each drawing from its own
+                  seeded generator; then one process over the global batch
+                  replaying the ranks' draws (PER sampled as 2 equal-mass
+                  shards): networks, Adam moments, normalizers, metric
+                  deques, replay rows and priorities per tensor to
+                  max|d| <= 1e-5 + 1e-4 max|ref|, integers exactly,
+                  replicated tensors bit-equal across ranks, and the bytes
+                  each iteration passes to `torch.distributed` under the
+                  gradient's bytes per optimizer step plus the optimizer
+                  state's plus the metric traffic, and no collective but
+                  the gradient's all-reduce (largest: the gradient's
+                  size) and the metric rows' all-gathers (at most 2 per
+                  row). PPO's whole run is held against a witness, the
+                  one process with every linear layer computed in the
+                  ranks' row blocks (the same values up to the GEMMs'
+                  rounding), and against the plain one process for its
+                  first 2 iterations; each iteration also from the
+                  ranks' state before it; per iteration, where the
+                  clipped surrogate's ratios part and which items change
+                  sides of the clip is printed. Which of gloo's
+                  collectives take CUDA tensors directly is probed and
+                  printed.
   6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
                   SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
                   deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
@@ -234,8 +272,8 @@ phase.
                   device ops per train step).
  31. ppo_rnn_main ``--preset=rnn`` (B=32, T=128, 10 epochs x 8 minibatches of
                   4 sequences, Adam 3e-4, LSTM actor and value at the
-                  factories' defaults): 1 warm-up and 5 windows of 2
-                  iterations under the sync debug mode, and the collect /
+                  factories' defaults): 1 warm-up and 5 windows of 1
+                  iteration under the sync debug mode, and the collect /
                   GAE / train split.
  32. checkpoint_resume  save, rebuild from the seed, restore and continue,
                   `torch.equal` to the run without a break in the losses
@@ -364,6 +402,9 @@ import time
 B_PARITY, B_MAIN = 64, 4096
 MAIN = dict(capacity=512, sample_batch_size=256, fc=(100, 50))
 TIMED_ITERATIONS, WARMUP_ITERATIONS, LEARN_ITERATIONS = 500, 50, 6000
+# The `profiling.annotate` spans `main` wraps around its profiled window
+# (a context manager) and the loop's `run` (a decorator).
+MAIN_SPANS = ("main.profile_window", "main.loop_run")
 TIMED_WINDOWS = 5
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
@@ -675,25 +716,28 @@ def check_step_types(loop, state):
   return bad, int((st == StepType.LAST).sum())
 
 
-def profile_call(fn, count, unit, name="profile_trace.json"):
-  """Run `fn()`, which does `count` `unit`s of work, under
-  `torch.profiler`: (its result, per-unit stats: wall and device-busy ms,
-  the busy share, device ops, trace events by category and the top device
-  ops), read from the chrome trace written under ``runs/``."""
+def profile_call(fn, count, unit, name="profile_trace.json", annotations=()):
+  """Run `fn()`, which does `count` `unit`s of work, under the port's
+  `profiling.trace` (`torch.profiler`, CPU and CUDA): (its result,
+  per-unit stats: wall and device-busy ms, the busy share, device ops,
+  trace events by category and the top device ops), read from the chrome
+  trace written under ``runs/<name without .json>/``. `fn` may open
+  `profiling.annotate` spans; the stats say which of `annotations` the
+  trace holds."""
   import torch
-  from torch.profiler import ProfilerActivity, profile
+
+  from agents_tpu_torch.utils import profiling
 
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  log_dir = os.path.join(RUNS_DIR, os.path.splitext(name)[0])
+  with profiling.trace(log_dir):
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-  os.makedirs(RUNS_DIR, exist_ok=True)
-  trace = os.path.join(RUNS_DIR, name)
-  prof.export_chrome_trace(trace)
-  with open(trace) as f:
-    events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+  with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+    all_events = json.load(f)["traceEvents"]
+  events = [e for e in all_events if e.get("ph") == "X"]
   # Device work only: kernels, copies and sets. Annotations on the device
   # timeline span work that is already counted; the union of the spans is
   # the busy time.
@@ -709,8 +753,11 @@ def profile_call(fn, count, unit, name="profile_trace.json"):
   categories = {}
   for e in events:
     categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
+  names = {e.get("name") for e in all_events}
   return result, {
       f"{unit}s": count,
+      **({"spans_in_trace": {s: s in names for s in annotations}}
+         if annotations else {}),
       f"wall_ms_per_{unit}": wall_us / 1e3 / count,
       f"device_ms_per_{unit}": busy_us / 1e3 / count,
       "device_busy_share": busy_us / wall_us,
@@ -722,11 +769,26 @@ def profile_call(fn, count, unit, name="profile_trace.json"):
               for op, (us, c) in top]}
 
 
-def profile_window(loop, state, iterations):
+def profile_window(loop, state, iterations, spans=()):
   """Device-busy share and the top device ops over `iterations` loop
-  iterations (`profile_call`)."""
-  (state, _), stats = profile_call(lambda: loop.run(state, iterations),
-                                   iterations, "iteration")
+  iterations (`profile_call`); with `spans` (outer, inner) the window is
+  wrapped in a `profiling.annotate` span and the loop's `run` in a
+  decorated one, and the stats say whether both reached the trace."""
+  from agents_tpu_torch.utils import profiling
+
+  run = loop.run
+  if spans:
+    outer, inner = spans
+    run = profiling.annotate(inner)(loop.run)
+
+    def window():
+      with profiling.annotate(outer):
+        return run(state, iterations)
+  else:
+    def window():
+      return run(state, iterations)
+  (state, _), stats = profile_call(window, iterations, "iteration",
+                                   annotations=spans)
   return state, stats
 
 
@@ -770,7 +832,8 @@ def phase_main_and_learn(card):
   replay_count = state.replay_state.count
   ok = (not off_card and finite and bad_transitions == 0
         and replay_count == expected_count)
-  state, prof = profile_window(loop, state, 50)
+  state, prof = profile_window(loop, state, 50, spans=MAIN_SPANS)
+  ok = ok and all(prof["spans_in_trace"].values())
   iterations += 50
   MAIN_POINT["ms_per_iteration"] = dt * 1e3 / TIMED_ITERATIONS
   emit("main", card=card, batch_size=B_MAIN, **{k: list(v) if isinstance(
@@ -891,6 +954,92 @@ def greedy_ms(policy, params, observation, calls=EXPORT_TIMED_CALLS):
   return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def _crc32c(data: bytes) -> int:
+  """CRC-32C (Castagnoli, reflected 0x82F63B78), bit by bit: the script's
+  own, independent of the writer's."""
+  crc = 0xFFFFFFFF
+  for byte in data:
+    crc ^= byte
+    for _ in range(8):
+      crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
+  return crc ^ 0xFFFFFFFF
+
+
+def _varint(buf, pos):
+  value, shift = 0, 0
+  while True:
+    b = buf[pos]
+    pos += 1
+    value |= (b & 0x7F) << shift
+    shift += 7
+    if not b & 0x80:
+      return value, pos
+
+
+def _proto_fields(buf):
+  """(field number, wire type, value) of a protobuf message: varints as
+  ints, 64- and 32-bit fields as raw bytes, length-delimited as bytes."""
+  pos, out = 0, []
+  while pos < len(buf):
+    key, pos = _varint(buf, pos)
+    field, wire = key >> 3, key & 7
+    if wire == 0:
+      value, pos = _varint(buf, pos)
+    elif wire == 1:
+      value, pos = buf[pos:pos + 8], pos + 8
+    elif wire == 5:
+      value, pos = buf[pos:pos + 4], pos + 4
+    elif wire == 2:
+      n, pos = _varint(buf, pos)
+      value, pos = buf[pos:pos + n], pos + n
+    else:
+      raise ValueError(f"wire type {wire}")
+    out.append((field, wire, value))
+  return out
+
+
+def read_event_file(path):
+  """A TensorBoard events file read back by the script alone: its TFRecord
+  framing (u64 length, masked CRC-32C of the length, payload, masked
+  CRC-32C of the payload) and each `Event` (1 wall_time, 2 step, 3
+  file_version, 5 summary of `Value`s {1 tag, 2 simple_value}). Returns
+  (records, CRC mismatches, file_version, [(step, tag, value)])."""
+  import struct
+
+  def masked(data):
+    crc = _crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+  data = open(path, "rb").read()
+  pos, records, bad, version, scalars = 0, 0, 0, None, []
+  while pos < len(data):
+    header = data[pos:pos + 8]
+    (length,), (hcrc,) = (struct.unpack("<Q", header),
+                          struct.unpack("<I", data[pos + 8:pos + 12]))
+    payload = data[pos + 12:pos + 12 + length]
+    (pcrc,) = struct.unpack("<I", data[pos + 12 + length:pos + 16 + length])
+    bad += (masked(header) != hcrc) + (masked(payload) != pcrc)
+    pos += 16 + length
+    records += 1
+    step = 0
+    for field, _, value in _proto_fields(payload):
+      if field == 2:
+        step = value
+      elif field == 3:
+        version = value.decode()
+      elif field == 5:
+        for _, _, v in _proto_fields(value):
+          tag, simple = None, None
+          for f, _, x in _proto_fields(v):
+            if f == 1:
+              tag = x.decode()
+            elif f == 2:
+              (simple,) = struct.unpack("<f", x)
+          if simple is not None:
+            scalars.append((step, tag, simple))
+  return records, bad, version, scalars
+
+
 def phase_learner_export(loop, state, card):
   """The trained bench-point state into the port's `Learner` under a
   temporary root_dir: checkpoints and a `PolicyCheckpointTrigger` every
@@ -907,7 +1056,9 @@ def phase_learner_export(loop, state, card):
   from agents_tpu_torch.policies.policy_saver import (PolicySaver,
                                                       load_manifest,
                                                       load_policy)
-  from agents_tpu_torch.train import Learner, PolicyCheckpointTrigger
+  from agents_tpu_torch.train import (JsonlSummaryWriter, Learner,
+                                      MultiWriter, PolicyCheckpointTrigger,
+                                      TensorBoardEventWriter)
   from agents_tpu_torch.train.checkpointer import capture
   from agents_tpu_torch.trajectories import time_step as ts
   from agents_tpu_torch.utils.draws import Draws
@@ -919,14 +1070,33 @@ def phase_learner_export(loop, state, card):
   trigger = PolicyCheckpointTrigger(
       root, agent, lambda: holder["learner"].state.agent_state,
       EXPORT_INTERVAL)
+  tb_dir = os.path.join(root, "tb")
+  writer = MultiWriter(JsonlSummaryWriter(os.path.join(root, "train.jsonl")),
+                       TensorBoardEventWriter(tb_dir))
   t0 = time.perf_counter()
   learner = holder["learner"] = Learner(
       root, loop=loop, initial_state=state, triggers=[trigger],
-      checkpoint_interval=EXPORT_INTERVAL, summary_interval=EXPORT_INTERVAL)
+      checkpoint_interval=EXPORT_INTERVAL, summary_writer=writer,
+      summary_interval=EXPORT_INTERVAL)
   while learner.global_step < EXPORT_ITERATIONS:
     loss = learner.run(EXPORT_INTERVAL)
   torch.cuda.synchronize()
   run_s = time.perf_counter() - t0
+  writer.close()
+  # The events file read back by the script's own reader, beside the JSONL
+  # lines the same writer wrote: every scalar in both, the same values.
+  (events_file,) = os.listdir(tb_dir)
+  records, crc_bad, file_version, tb_scalars = read_event_file(
+      os.path.join(tb_dir, events_file))
+  with open(os.path.join(root, "train.jsonl")) as f:
+    jsonl = [(r["step"], k, v) for r in map(json.loads, f)
+             for k, v in r.items() if k not in ("step", "t")]
+  tb_ok = (crc_bad == 0 and file_version == "brain.Event:2"
+           and records == len(tb_scalars) + 1
+           and len(tb_scalars) == len(jsonl) > 0
+           and all(s == js and t == jt and abs(v - jv) <= 1e-6 * max(
+               1.0, abs(jv)) for (s, t, v), (js, jt, jv) in zip(tb_scalars,
+                                                                jsonl)))
   ckpt_dir = learner.checkpointer.directory
   steps = learner.checkpointer.all_steps()
   ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"{steps[-1]}.pt"))
@@ -1012,7 +1182,7 @@ def phase_learner_export(loop, state, card):
                 for f in os.listdir(os.path.join(root, "policies", name)))
       for name in sorted(os.listdir(os.path.join(root, "policies")))}
   ok = (math.isfinite(loss) and steps == [EXPORT_INTERVAL, EXPORT_ITERATIONS]
-        and resumed_step == EXPORT_ITERATIONS and not mismatches
+        and tb_ok and resumed_step == EXPORT_ITERATIONS and not mismatches
         and manifest["torch_export"] == "batch-polymorphic"
         and manifest["policy_config"] is not None
         and not report["leaked"] and not any(differ.values())
@@ -1022,6 +1192,11 @@ def phase_learner_export(loop, state, card):
        export_interval=EXPORT_INTERVAL, run_seconds=run_s,
        ms_per_iteration=run_s * 1e3 / EXPORT_ITERATIONS,
        checkpoints=steps, checkpoint_bytes=ckpt_bytes,
+       tensorboard={"records": records, "crc_mismatches": crc_bad,
+                    "file_version": file_version,
+                    "scalars": len(tb_scalars), "jsonl_scalars": len(jsonl),
+                    "tags": sorted({t for _, t, _ in tb_scalars}),
+                    "ok": tb_ok},
        resumed_at=resumed_step, resume_seconds=resume_s,
        resume_mismatches=mismatches[:10],
        export=manifest["torch_export"], export_train_step=
@@ -1099,6 +1274,257 @@ def phase_eval_job(loop, state, card, root, train_step):
   shutil.rmtree(root, ignore_errors=True)
   if not ok:
     fail("eval_job", f"the child reported {evals}, exit {code}")
+
+
+# data_parallel: the bench point over a mesh (`bench.py:398-420`), and the
+# PPO CartPole point (`examples/ppo_cartpole.py`: B=32, T=128, 10 x 8
+# minibatches, (64, 64)) with 2 minibatch shards.
+DP_FUSED = dict(batch_size=B_MAIN, capacity=512, sample_batch_size=256,
+                fc=(100, 50))
+DP_PPO = dict(batch_size=32, rollout_length=128, num_epochs=10,
+              num_minibatches=8, num_minibatch_shards=2, fc=(64, 64))
+DP_INITIAL, DP_WARMUP, DP_TIMED, DP_ITERATIONS = 100, 20, 100, 3
+DP_RANKS, DP_SEED, DP_TIMEOUT_S = 2, 11, 600
+DP_PPO_HELD = 2   # PPO's whole-run iterations held to the plain process
+DP_PPO_CLIPPING = 0.2   # PPOClipAgent's importance_ratio_clipping
+
+
+def dp_rank(mesh, jobs):
+  """A gloo rank on the card: first which collectives gloo takes on CUDA
+  tensors as they are (each tried once, synchronised), then
+  `dryrun.run_jobs`, whose mesh hands gloo its CUDA tensors directly."""
+  import torch
+  import torch.distributed as dist
+
+  import torch_dryrun as dryrun
+
+  probe = {}
+  for kind, call in (
+      ("all_reduce", lambda t: dist.all_reduce(t)),
+      ("broadcast", lambda t: dist.broadcast(t, 0)),
+      ("all_gather", lambda t: dist.all_gather(
+          [torch.empty_like(t) for _ in range(mesh.size)], t))):
+    t = torch.full((4,), float(mesh.rank + 1), device="cuda")
+    try:
+      call(t)
+      torch.cuda.synchronize()
+      probe[kind] = "ok"
+    except (RuntimeError, ValueError) as e:
+      probe[kind] = f"{type(e).__name__}: {str(e)[:200]}"
+  return {"gloo_cuda_direct": probe, "jobs": dryrun.run_jobs(mesh, jobs)}
+
+
+def dp_compare(merged, reference):
+  """Tensors of the ranks' merged state that leave the reference: floats
+  per tensor past max|d| <= 1e-5 + 1e-4 max|ref| (the card-phase rule),
+  anything else unequal. Returns (mismatches, the largest float |d|)."""
+  import torch
+
+  bad, worst = [], 0.0
+  for key, want in reference.items():
+    got = merged.get(key)
+    if got is None or got.shape != want.shape:
+      bad.append(key)
+    elif want.is_floating_point():
+      if want.numel() == 0:
+        continue
+      d = float((got - want).abs().max())
+      worst = max(worst, d)
+      if d > 1e-5 + 1e-4 * float(want.abs().max()):
+        bad.append(key)
+    elif not torch.equal(got, want):
+      bad.append(key)
+  return bad, worst
+
+
+def phase_data_parallel(card):
+  """(a) The bench point through `FusedTrainLoop(mesh=)` over a one-rank
+  NCCL group, timed; (b) two gloo ranks on the card, 2,048 rows each, for
+  the fused DQN loop, PER and sharded PPO, each against one process over
+  the global batch and the ranks' draws."""
+  import functools
+
+  import torch
+  import torch.distributed as dist
+
+  import torch_dryrun as dryrun
+  from agents_tpu_torch.parallel import (create_mesh, distributed,
+                                         shard_loop_state)
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  workdir = tempfile.mkdtemp(prefix="data_parallel_", dir=RUNS_DIR)
+
+  # (a) One NCCL rank: every collective is a real NCCL call.
+  distributed.initialize(num_processes=1, process_id=0, backend="nccl",
+                         init_method="file://" + os.path.join(workdir,
+                                                              "nccl"))
+  try:
+    mesh = create_mesh(1, device="cuda")
+    loop = dryrun.build_fused_loop(mesh, device="cuda", **DP_FUSED)
+    state = loop.init(seed=0, initial_collect_steps=DP_INITIAL)
+    state = shard_loop_state(state, mesh, DP_FUSED["batch_size"],
+                             DP_FUSED["capacity"], draws=state.draws)
+    state, _ = loop.run(state, DP_WARMUP)
+    torch.cuda.synchronize()
+    try:
+      torch.cuda.set_sync_debug_mode("error")
+      state, _ = loop.run(state, 1)
+      sync_free = True
+    except RuntimeError:
+      sync_free = False
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+    mesh.reset_bytes()
+    window_ms = []
+    for _ in range(TIMED_WINDOWS):
+      t0 = time.perf_counter()
+      state, losses = loop.run(state, DP_TIMED // TIMED_WINDOWS)
+      torch.cuda.synchronize()
+      window_ms.append((time.perf_counter() - t0) * 1e3
+                       / (DP_TIMED // TIMED_WINDOWS))
+    nccl = {"ms_per_iteration": sum(window_ms) / len(window_ms),
+            "window_ms_per_iteration": window_ms,
+            "main_ms_per_iteration": MAIN_POINT.get("ms_per_iteration"),
+            "bytes_per_iteration": mesh.bytes_passed / DP_TIMED,
+            "collectives_per_iteration": mesh.calls / DP_TIMED,
+            "sync_free": sync_free,
+            "losses_finite": bool(torch.isfinite(losses).all())}
+    del loop, state
+  finally:
+    dist.destroy_process_group()
+  free_card()
+
+  # (b) Two gloo ranks on the card, then one process over the global batch
+  # replaying the ranks' draws (PER sampled as two equal-mass shards).
+  fused = functools.partial(dryrun.build_fused_loop, device="cuda",
+                            **DP_FUSED)
+  ppo = functools.partial(dryrun.build_ppo_loop, device="cuda",
+                          record_surrogate=True, **DP_PPO)
+  cases = {
+      "dqn": (fused, fused, DP_FUSED["batch_size"], DP_INITIAL),
+      "per": (functools.partial(fused, prioritized=True),
+              functools.partial(fused, reference_shards=DP_RANKS),
+              DP_FUSED["batch_size"], DP_INITIAL),
+      "ppo": (ppo, ppo, DP_PPO["batch_size"], 0)}
+  # PPO's state is small, so its ranks keep it before and after each
+  # iteration: each iteration is also held on its own (`step_from`).
+  jobs = [(build, DP_SEED, [DP_SEED] * DP_RANKS, DP_ITERATIONS, steps,
+           name == "ppo")
+          for name, (build, _, _, steps) in cases.items()]
+  t0 = time.perf_counter()
+  ranks = dryrun.spawn_ranks(dp_rank, DP_RANKS, (jobs,),
+                             os.path.join(workdir, "gloo"), backend="gloo",
+                             device="cuda", timeout_s=DP_TIMEOUT_S)
+  ranks_s = time.perf_counter() - t0
+  out, ok = {}, nccl["losses_finite"]
+  for j, (name, (_, reference, rows, steps)) in enumerate(cases.items()):
+    runs = [r["jobs"][j] for r in ranks]
+    merged, differ = dryrun.merge_snapshots([r["snapshot"] for r in runs])
+    records = dryrun.merge_records([r["records"] for r in runs],
+                                   rows // DP_RANKS)
+    one = dryrun.run_rank(None, reference, runs[0]["init_records"],
+                          dryrun.concat_records(records), DP_ITERATIONS,
+                          steps, every_iteration=name == "ppo")
+    mismatches, worst = dp_compare(merged, one["snapshot"])
+    held = {"iterations": "the whole run from one start",
+            "mismatches": mismatches[:10], "largest_float_diff": worst}
+    if name == "ppo":
+      # 80 Adam steps an iteration amplify any change of float order, and
+      # on the card a GEMM over one rank's row block rounds its rows
+      # otherwise than over all rows. So PPO's whole run is held against
+      # a witness that is the one process with every linear layer in the
+      # ranks' row blocks, and against the plain one process for its
+      # first DP_PPO_HELD iterations; both clipped surrogates' traces
+      # against the ranks' are printed (`python torch_dryrun.py` runs
+      # more seeds and iterations), and each iteration is also held from
+      # the ranks' own state before it (`step_from`).
+      with dryrun.linear_in_row_blocks(DP_RANKS):
+        witness = dryrun.run_rank(None, reference, runs[0]["init_records"],
+                                  dryrun.concat_records(records),
+                                  DP_ITERATIONS, steps, every_iteration=True)
+      ends = [dryrun.merge_snapshots([r["snapshots"][i] for r in runs])[0]
+              for i in range(1, DP_ITERATIONS + 1)]
+      divergence = dryrun.divergence(ends, one["snapshots"][1:])
+      from_witness = dryrun.divergence(ends, witness["snapshots"][1:])
+      mismatches = [f"whole run, iteration {i}: {d['tensor']}"
+                    for i, d in enumerate(divergence, 1)
+                    if i <= DP_PPO_HELD and d["over_tolerance"] > 1] + [
+          f"whole run from the witness, iteration {i}: {d['tensor']}"
+          for i, d in enumerate(from_witness, 1) if d["over_tolerance"] > 1]
+      per_iteration = DP_PPO["num_epochs"] * DP_PPO["num_minibatches"]
+      traces = [r["surrogate"] for r in runs]
+      held.update(
+          mismatches=mismatches[:10], held_through_iteration=DP_PPO_HELD,
+          divergence_by_iteration=divergence,
+          from_witness_by_iteration=from_witness,
+          witness_by_iteration=dryrun.divergence(witness["snapshots"][1:],
+                                                 one["snapshots"][1:]),
+          surrogate=dryrun.surrogate_trace(traces, one["surrogate"],
+                                           DP_PPO_CLIPPING, per_iteration),
+          surrogate_from_witness=dryrun.surrogate_trace(
+              traces, witness["surrogate"], DP_PPO_CLIPPING, per_iteration))
+      starts = [dryrun.merge_snapshots([r["snapshots"][i] for r in runs])[0]
+                for i in range(DP_ITERATIONS + 1)]
+      stepped = dryrun.step_from(reference, runs[0]["init_records"],
+                                 starts[:-1], records, steps)
+      step_bad, step_worst = [], 0.0
+      for i, (_, snap) in enumerate(stepped):
+        bad, w = dp_compare(starts[i + 1], snap)
+        step_bad += [f"iteration {i + 1}: {k}" for k in bad]
+        step_worst = max(step_worst, w)
+      held = {"whole_run": held, "each_iteration": {
+          "iterations": "each from the ranks' state before it",
+          "mismatches": step_bad[:10], "largest_float_diff": step_worst}}
+      mismatches += step_bad
+    loss_d = max(abs(a - b) for r in runs
+                 for a, b in zip(r["losses"], one["losses"]))
+    snap = runs[0]["snapshot"]
+    nets = ((("agent.actor_network.", "agent.value_network."), 128,
+             DP_PPO["num_epochs"] * DP_PPO["num_minibatches"])
+            if name == "ppo" else (("agent.q_network.",), 1, 1))
+    param_bytes = sum(v.numel() * v.element_size() for k, v in snap.items()
+                      if k.startswith(nets[0]))
+    opt_bytes = sum(v.numel() * v.element_size() for k, v in snap.items()
+                    if k.startswith("agent.optimizer."))
+    # Per collect step: each deque metric's rows (done and value, float32)
+    # and each counter's int64 sum.
+    metric_rows = nets[1] * (rows // DP_RANKS * 8 * 2 + 2 * 8)
+    bound = nets[2] * param_bytes + opt_bytes + metric_rows
+    used = max(b for r in runs for b in r["bytes_per_iteration"])
+    largest = {}
+    for r in runs:
+      for kind, numel in r["largest_numel"].items():
+        largest[kind] = max(largest.get(kind, 0), numel)
+    # Only the gradient's all-reduce (and scalars) and the metric rows'
+    # all-gathers (done and value per row): nothing replay- or
+    # rollout-sized crosses ranks.
+    collectives_ok = (set(largest) == {"all_reduce", "all_gather"}
+                      and largest["all_reduce"] == param_bytes // 4
+                      and largest["all_gather"] <= rows // DP_RANKS * 2)
+    case_ok = (not mismatches and not differ and used <= bound
+               and collectives_ok
+               and all(math.isfinite(x) for x in one["losses"]))
+    ok = ok and case_ok
+    out[name] = {"held": held, "loss_diff": loss_d,
+                 "replicated_differing": differ[:10],
+                 "bytes_per_iteration": used, "bytes_bound": bound,
+                 "param_bytes": param_bytes, "optimizer_bytes": opt_bytes,
+                 "largest_collective_numel": largest,
+                 "gradient_numel": param_bytes // 4,
+                 "metric_rows_numel": rows // DP_RANKS * 2,
+                 "collectives_per_iteration": max(
+                     c for r in runs for c in r["calls_per_iteration"]),
+                 "losses": one["losses"], "ok": case_ok}
+  emit("data_parallel", card=card, nccl_one_rank=nccl,
+       gloo_two_ranks=out, ranks_seconds=ranks_s,
+       gloo_cuda_direct=[r["gloo_cuda_direct"] for r in ranks],
+       tolerance="max|d| <= 1e-5 + 1e-4 max|ref| per tensor; replicated "
+       "bit-equal across ranks", fused=DP_FUSED, ppo=DP_PPO,
+       iterations=DP_ITERATIONS, ok=ok)
+  if not ok:
+    fail("data_parallel", "a data-parallel check failed")
 
 
 def conv_forward_flops(size, frames, num_actions, convs, fc):
@@ -3170,7 +3596,8 @@ RNN_PARITY_B, RNN_PARITY_T = 64, 16
 RNN_DQN_PARITY_STEPS, RNN_DQN_PARITY_SAMPLE, RNN_SEQUENCE = 3, 256, 10
 RNN_RTOL, RNN_ATOL, RNN_ARGMAX_GAP = 1e-4, 1e-5, 1e-5
 RNN_DQN_WARMUP, RNN_DQN_WINDOWS, RNN_DQN_WINDOW, RNN_DQN_PROFILED = 5, 5, 20, 5
-PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 5, 2
+# Windows of one iteration, so that the whole script stays under 800 s.
+PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 5, 1
 # The JAX package's runs at this config reach 185.6, 157.5, 179.4, 160.5
 # and 108.65 over seeds 0-4 (`tests/test_torch_reference_bars.py ppo_rnn`):
 # all five clear the JAX test's 35, so the bar is `ppo_rnn_bar`'s, the worst
@@ -5144,6 +5571,8 @@ def main(argv=()):
   root, export_step, state = phase_learner_export(loop, state, card)
   phase_eval_job(loop, state, card, root, export_step)
   del loop, state
+  free_card()
+  phase_data_parallel(card)
   phase_conv_parity(card)
   phase_conv_main(card)
   free_card()

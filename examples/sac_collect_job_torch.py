@@ -19,9 +19,11 @@ train step changed, loads that export's params. Until the first weights,
 and for `--random_ticks` ticks, actions are uniform random.
 
 On SIGTERM the job finishes its tick, closes its ring handle and prints
-its last line (ticks, items pushed, and each weight snapshot it took, from
-the store or an export, as [step, CRC-32 of its bytes]), so a learner
-that stops it knows what was pushed.
+its last line (ticks, items pushed, each weight snapshot it took, from
+the store or an export, as [step, CRC-32 of its bytes], and each store
+poll up to the first snapshot as [tick, "no segment" | "empty" | [step,
+writes]]), so a learner that stops it knows what was pushed and when the
+collector first saw weights.
 
 Usage:
   python examples/sac_collect_job_torch.py --root_dir=/tmp/dist_sac \\
@@ -139,6 +141,9 @@ def run_collector(args, make_env=None, log=print):
                              device="cpu")
   rng = np.random.RandomState(args.seed)
   weights_vc, last_step, pulls = None, -1, []
+  # Each poll until the first snapshot: [tick, what the store held] ("no
+  # segment", "empty", or [step, writes] at the first pull).
+  first_polls, tick = [], 0
 
   policy_dir = os.path.join(args.root_dir, "policies", "collect_policy")
 
@@ -162,11 +167,17 @@ def run_collector(args, make_env=None, log=print):
       try:
         weights_vc = VariableContainer(args.weights_shm, actor)
       except OSError:
+        if not pulls:
+          first_polls.append([tick, "no segment"])
         return False                  # the learner has not created it yet
     out = weights_vc.pull()
     if out is None:
+      if not pulls:
+        first_polls.append([tick, "empty"])
       return False
     params, step = out
+    if not pulls:
+      first_polls.append([tick, [step, weights_vc.writes()]])
     if step != last_step:
       actor.load_state_dict(params)
       py_policy.update_params(actor)
@@ -183,7 +194,7 @@ def run_collector(args, make_env=None, log=print):
   have_policy = refresh_policy()
   time_step = env.reset()
   prev_frame = None
-  tick, pushed, t0 = 0, 0, time.time()
+  pushed, t0 = 0, time.time()
   try:
     while not stop and (args.total_ticks == 0 or tick < args.total_ticks):
       if tick % args.policy_poll_ticks == 0:
@@ -219,7 +230,7 @@ def run_collector(args, make_env=None, log=print):
     env.close()
   done = {"job": "collect", "done": True, "ring": args.ring, "ticks": tick,
           "pushed_items": pushed, "policy_train_step": last_step,
-          "pulls": pulls}
+          "pulls": pulls, "first_polls": first_polls}
   log(json.dumps(done))
   return done
 

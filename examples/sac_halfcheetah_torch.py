@@ -8,10 +8,13 @@ ticks and at the end through `JittedPyPolicy` and `compute`, and a full
 checkpoint (agent, optimizers, replay, draw sources, counters, metric
 states) every `checkpoint_interval_ticks` ticks through the port's
 `Checkpointer`; with `resume` a run restores the newest checkpoint under
-`root_dir` and continues toward its target. It writes ``train.jsonl``
-(appended across resumed runs) and ``config.json`` under `root_dir`
-(``runs/sac_halfcheetah_torch`` unless set) and prints a final JSON line.
-The JAX example's `PolicySaver` export is not ported yet.
+`root_dir` and continues toward its target. At the end it saves the
+greedy policy through the port's `PolicySaver` under
+``root_dir/policies/greedy_policy`` (as the JAX example does at
+:154-156; `policy_saver.load_policy` reloads it). It writes
+``train.jsonl`` (appended across resumed runs) and ``config.json`` under
+`root_dir` (``runs/sac_halfcheetah_torch`` unless set) and prints a final
+JSON line.
 
 It needs gymnasium and MuJoCo (`--smoke` runs a short, narrow config,
 e.g. on the CPU with ``--device cpu``).
@@ -140,6 +143,7 @@ def train_eval(cfg: Config):
   from agents_tpu_torch.eval import metric_utils
   from agents_tpu_torch.metrics import py_metrics
   from agents_tpu_torch.policies.jitted_py_policy import JittedPyPolicy
+  from agents_tpu_torch.policies.policy_saver import PolicySaver
   from agents_tpu_torch.train import Checkpointer
 
   loop, eval_env = build_loop(cfg)
@@ -201,6 +205,10 @@ def train_eval(cfg: Config):
   print(f"final greedy eval ({cfg.num_eval_episodes} episodes): "
         f"{final_eval:.0f}", flush=True)
   out["eval_average_return"] = final_eval
+
+  out["policy_dir"] = os.path.join(cfg.root_dir, "policies", "greedy_policy")
+  PolicySaver(agent.policy, train_step=out["train_steps"]).save(
+      out["policy_dir"], agent.policy_params(out["agent_state"]))
   return out
 
 
@@ -216,4 +224,5 @@ if __name__ == "__main__":
       "final_average_return": out["metrics"]["AverageReturn"],
       "eval_average_return": out["eval_average_return"],
       "trainer_drained": out["trainer_drained"], "seed": cfg.seed,
+      "policy_dir": out["policy_dir"],
   }))

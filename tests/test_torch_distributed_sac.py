@@ -35,7 +35,14 @@ def test_job_set_runs_its_smoke_on_the_cpu(tmp_path):
   """`--smoke --device cpu`: 200 train steps, items ingested, and both
   collectors stop on the learner's SIGTERM with a last line that shows
   they pulled weight snapshots through shared memory (the same bytes for
-  the same step in both)."""
+  the same step in both).
+
+  The store holds the newest snapshot only, so a collector's first pull
+  is whatever the store held at its first successful poll: step 0, unless
+  the learner had already pushed again. That happens under load: a
+  collector whose start is slow polls first after the other one has fed
+  the learner its 64 items and the learner has pushed step 56 (observed:
+  the first poll at tick 0 found step 56 after 2 writes)."""
   env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
   proc = subprocess.run(
       [sys.executable, os.path.join(ROOT, "examples",
@@ -55,7 +62,12 @@ def test_job_set_runs_its_smoke_on_the_cpu(tmp_path):
   for c in collect:
     assert c["pushed_items"] > 0
     steps = [s for s, _ in c["pulls"]]
-    assert steps == sorted(steps) and steps[0] == 0 and steps[-1] > 0
+    assert steps == sorted(steps) and steps[-1] > 0, c["pulls"]
+    # The first pull is the store's newest snapshot at that poll, and it
+    # is step 0 exactly when the learner had pushed only once by then.
+    _, (first_step, writes) = c["first_polls"][-1]
+    assert first_step == steps[0], (c["pulls"], c["first_polls"])
+    assert (steps[0] == 0) == (writes == 1), c["first_polls"]
     for step, crc in c["pulls"]:
       assert crc_by_step.setdefault(step, crc) == crc
 

@@ -2,7 +2,9 @@
 at smoke size on the CPU (gymnasium's MuJoCo HalfCheetah-v5 on the host),
 each run twice in one `root_dir`: the second run resumes from the first's
 last checkpoint toward a higher target, continuing its counters and its
-log. Each example's `Config` keeps its JAX counterpart's defaults.
+log. The SAC example's greedy policy, saved through `PolicySaver` at the
+end of each run, reloads and acts within the action bounds. Each
+example's `Config` keeps its JAX counterpart's defaults.
 """
 import dataclasses
 import json
@@ -42,6 +44,24 @@ def test_sac_halfcheetah_smoke_and_resume(tmp_path):
     lines = [json.loads(line) for line in f]
   evals = [line for line in lines if "EvalAverageReturn" in line]
   assert [e["step"] for e in evals] == [400, 600]
+  # The greedy policy of the resumed run, exported at its train step.
+  import numpy as np
+
+  from agents_tpu_torch.policies.policy_saver import (load_manifest,
+                                                      load_policy)
+  assert second["policy_dir"] == os.path.join(root, "policies",
+                                              "greedy_policy")
+  manifest = load_manifest(second["policy_dir"])
+  assert manifest["train_step"] == second["train_steps"]
+  saved = load_policy(second["policy_dir"], device="cpu")
+  from agents_tpu_torch.trajectories import time_step as ts
+  step = ts.TimeStep(step_type=np.ones((2,), np.int32),
+                     reward=np.zeros((2,), np.float32),
+                     discount=np.ones((2,), np.float32),
+                     observation=np.random.RandomState(0).randn(
+                         2, 17).astype(np.float32))
+  action = np.asarray(saved.action(step).action)
+  assert action.shape == (2, 6) and np.all(np.abs(action) <= 1.0)
 
 
 def test_ppo_halfcheetah_smoke_and_resume(tmp_path):

@@ -44,6 +44,15 @@ HOST_MODULES = (
     "replay_buffers.prioritized_replay", "replay_buffers.episodic_replay",
     "replay_buffers.py_uniform_replay", "replay_buffers.host_ingest",
     "train.variable_container", "utils.native_build")
+# TensorBoard, profiling, observers, composite arrays, the dm_env suites,
+# golden trajectories and data parallelism.
+SLICE_11_MODULES = (
+    "utils.tb_writer", "utils.observers", "utils.composite",
+    "utils.profiling", "environments.dm_env_wrapper", "environments.suites",
+    "environments.suite_dm_control", "environments.trajectory_replay",
+    "parallel.distributed", "parallel.mesh_utils")
+# The port's modules outside its package, beside `chip_smoke.py`.
+ROOT_MODULES = ("torch_dryrun",)
 
 
 def _port_modules():
@@ -55,7 +64,8 @@ def _port_sources():
   pkg = os.path.join(ROOT, "agents_tpu_torch")
   files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
            if f.endswith(".py")]
-  return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + [
+  return sorted(files) + [os.path.join(ROOT, f"{name}.py") for name in
+                          ("chip_smoke",) + ROOT_MODULES] + [
       os.path.join(ROOT, "examples", name) for name in EXAMPLES]
 
 
@@ -85,9 +95,11 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "environments.classic.acrobot",
                "environments.classic.mountain_car",
                "environments.torch_wrappers", "networks.lstm_networks",
-               "train.checkpointer") + HOST_MODULES + ORCHESTRATION_MODULES:
+               "train.checkpointer") + (HOST_MODULES + ORCHESTRATION_MODULES
+                                        + SLICE_11_MODULES):
     assert f"agents_tpu_torch.{name}" in modules
-  modules += [f"examples.{name[:-3]}" for name in EXAMPLES]
+  modules += [f"examples.{name[:-3]}" for name in EXAMPLES] + list(
+      ROOT_MODULES)
   code = ("import importlib, json, sys\n"
           f"for m in {modules!r}: importlib.import_module(m)\n"
           "print(json.dumps(sorted(sys.modules)))")
@@ -156,6 +168,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
       make_actor_distribution_rnn_network as make_actor_rnn
   from agents_tpu_torch.replay_buffers import (PrioritizedReplay,
                                                UniformReplay)
+  import torch_dryrun as dryrun
+  from agents_tpu_torch.parallel import create_mesh
   from agents_tpu_torch.replay_buffers.episodic_replay import EpisodicReplay
   from agents_tpu_torch.train import FusedTrainLoop, OnPolicyTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
@@ -239,7 +253,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                 lambda: FusedTrainLoop(env, agent, PrioritizedReplay(
                     tj.trajectory_spec(tss, asp), 4, 8, device="cpu")),
                 lambda: EpisodicReplay(tj.trajectory_spec(tss, asp), 4, 9,
-                                       5)):
+                                       5),
+                lambda: create_mesh(),
+                lambda: dryrun.build_fused_loop(batch_size=4, capacity=8,
+                                                sample_batch_size=4, fc=(8,)),
+                lambda: dryrun.build_ppo_loop(
+                    batch_size=4, rollout_length=3, num_epochs=1,
+                    num_minibatches=1, num_minibatch_shards=1, fc=(8,))):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
 

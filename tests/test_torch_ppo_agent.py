@@ -374,9 +374,12 @@ def test_ppo_agent_basics():
       state.value_network.parameters())
   actor, value = _torch_nets(True)
   obs, act = _specs(tspec, True)
-  with pytest.raises(NotImplementedError, match="A14"):
-    PPOAgent(tts.time_step_spec(obs), act, torch.optim.Adam, actor, value,
-             num_minibatch_shards=2, device="cpu")
+  # Sharded minibatches are ported (test_torch_ppo_shards.py): a shard
+  # count that does not split the 4 rows raises at train time.
+  sharded = PPOAgent(tts.time_step_spec(obs), act, torch.optim.Adam, actor,
+                     value, num_minibatch_shards=3, device="cpu")
+  with pytest.raises(ValueError, match="num_minibatch_shards"):
+    sharded.train(sharded.init(), to_torch(experience(0, True)))
   with pytest.raises(ValueError, match="lives on"):
     PPOAgent(tts.time_step_spec(obs), act, torch.optim.Adam, actor, value,
              device="meta")

@@ -200,9 +200,26 @@ def test_fused_loop_with_prioritized_replay_learns():
 
 
 def test_sample_sharded_waits_for_data_parallelism():
+  """Data parallelism has come: over a mesh of one rank (no process
+  group) `sample_sharded` is `sample` on the same draws, and rows that do
+  not split over the mesh raise. The 2-rank cases are in
+  `test_torch_parallel.py`."""
+  from agents_tpu_torch.parallel import Mesh, create_mesh
+
   rb = PrioritizedReplay(_spec(), batch_size=2, max_length=4, **CPU)
-  with pytest.raises(NotImplementedError, match="A8"):
-    rb.sample_sharded(rb.init(), Draws(0, "cpu"), 4, mesh=None)
+  state = rb.init()
+  for t in range(3):
+    state = rb.add_batch(state, _frame(t, 2),
+                         priorities=torch.tensor([1.0 + t, 0.5]))
+  _, a = rb.sample(state, Draws(5, "cpu"), 4, beta=0.5)
+  _, b = rb.sample_sharded(state, Draws(5, "cpu"), 4,
+                           create_mesh(device="cpu"), beta=0.5)
+  for x, y in zip(a, b):
+    assert torch.equal(x, y)
+  odd = PrioritizedReplay(_spec(), batch_size=3, max_length=4, **CPU)
+  with pytest.raises(ValueError, match="divisible"):
+    odd.sample_sharded(odd.init(), Draws(0, "cpu"), 4,
+                       Mesh(2, 0, "cpu"))
 
 
 # -- bit for bit and under the gap rule against the JAX class ------------------
