@@ -8,7 +8,11 @@ written for a leading batch dim directly: ``reset(draws, batch_size)`` and
 Auto-reset follows the JAX package (`BatchedJaxEnv.step`, :100-126): both
 branches are computed for every row, then selected with `where` on
 ``prev_time_step.is_last()``. The action given on a LAST step is discarded,
-and reset draws are made for all B rows on every step.
+and reset draws are made for all B rows on every step. An environment
+whose state carries env time (the bandits' round counter) defines
+``auto_reset(pre_step_state, draws)``, which the reset rows take in place
+of `reset` (`BatchedJaxEnv`'s hook, :76-82, :112-115), so the auto-reset
+does not rewind it to t=0.
 """
 from __future__ import annotations
 
@@ -89,7 +93,10 @@ class BatchedTorchEnv:
     Returns (new_state, new_time_step).
     """
     stepped_state, stepped_ts = self.env.step(state, action, draws)
-    reset_state, reset_ts = self.env.reset(draws, self.batch_size)
+    if hasattr(self.env, "auto_reset"):
+      reset_state, reset_ts = self.env.auto_reset(state, draws)
+    else:
+      reset_state, reset_ts = self.env.reset(draws, self.batch_size)
     needs_reset = prev_time_step.is_last()
     new_state = nest_utils.where(needs_reset, reset_state, stepped_state)
     new_ts = nest_utils.where(needs_reset, reset_ts, stepped_ts)

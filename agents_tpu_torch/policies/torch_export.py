@@ -187,6 +187,10 @@ class _DrawLog:
     raise NotImplementedError(f"draw site {site!r}: gamma variates cannot "
                               "be exported")
 
+  def beta(self, site, concentration1, concentration0):
+    raise NotImplementedError(f"draw site {site!r}: beta variates cannot "
+                              "be exported")
+
 
 class _InputDraws:
   """Draws taken, in order, from the program's draw inputs; each call

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +83,11 @@ class RaggedArray:
   lengths: torch.Tensor          # [B] int32
 
   @classmethod
-  def from_rows(cls, rows, l_max: int = None, device="cpu") -> "RaggedArray":
-    """Build from a python list of [l_i, ...] arrays (host-side)."""
+  def from_rows(cls, rows, l_max: int = None,
+                device="cuda") -> "RaggedArray":
+    """Build from a python list of [l_i, ...] arrays (host-side), on
+    `device` ("cuda" unless the caller asks for "cpu")."""
+    device = resolve_device(device)
     lengths = np.array([r.shape[0] for r in rows], np.int32)
     l_max = int(l_max or lengths.max(initial=0))
     tail = rows[0].shape[1:] if rows else ()

@@ -723,3 +723,81 @@ def py_metric_states_to_torch(saved) -> list:
     else:
       out.append({"count": int(np.asarray(st["count"]))})
   return out
+
+
+# -- bandits -----------------------------------------------------------------
+
+def dense_stack_params_to_state_dict(params: Mapping, module
+                                     ) -> "collections.OrderedDict":
+  """flax params whose only entries are ``Dense_0 .. Dense_n`` (the
+  bandits' `GlobalAndArmFeatureModule`, `HeteroscedasticQModule`, the
+  examples' dropout network) -> the `state_dict()` of `module`, whose
+  Linear layers, in registration order, are those Denses in creation
+  order."""
+  tree = params["params"]
+  denses = _layers(tree, "Dense")
+  names = [n for n, m in module.named_modules()
+           if isinstance(m, torch.nn.Linear)]
+  if len(tree) != len(denses) or len(denses) != len(names):
+    raise ValueError(f"{sorted(tree)} does not match the Linear layers "
+                     f"{names}")
+  out = collections.OrderedDict()
+  for name, dense in zip(names, denses):
+    _dense(out, name, dense)
+  return out
+
+
+def neural_linucb_params_to_state_dict(params: Mapping
+                                       ) -> "collections.OrderedDict":
+  """flax params of the JAX `NeuralLinUcbAgent`'s encoder with its reward
+  head ({"encoder": an `EncoderModule` tree, "Dense_0": the head}) -> the
+  port `EncoderWithRewardHead`'s `state_dict()` (its encoder an
+  `EncodingNetwork`)."""
+  tree = params["params"]
+  if set(tree) != {"encoder", "Dense_0"}:
+    raise ValueError(f"unexpected NeuralLinUCB entries: {sorted(tree)}")
+  inner = collections.OrderedDict()
+  _encoder(inner, tree["encoder"])
+  out = collections.OrderedDict(
+      (f"encoder.{k}", v) for k, v in inner.items())
+  _dense(out, "head", tree["Dense_0"])
+  return out
+
+
+def reward_net_agent_state_to_torch(state, params_to_state_dict) -> Dict:
+  """A JAX bandit `RewardNetAgentState` (numpy leaves, ``optax.adam``) in
+  port terms: "params" (the reward network's state dict, or with
+  constraints {"reward": ..., "constraints": (...)} of them), "adam"
+  (moments in the port's parameter order: the reward network's, then each
+  constraint network's) and "train_step". `params_to_state_dict` converts
+  one network's params; for constrained params it is a
+  {"reward": fn, "constraints": (fn, ...)} dict of them."""
+  if isinstance(params_to_state_dict, Mapping):
+    fns = (params_to_state_dict["reward"],) + tuple(
+        params_to_state_dict["constraints"])
+    trees = lambda t: (t["reward"],) + tuple(t["constraints"])  # noqa
+    params = {"reward": fns[0](state.params["reward"]),
+              "constraints": tuple(fn(p) for fn, p in zip(
+                  fns[1:], state.params["constraints"]))}
+  else:
+    fns, trees = (params_to_state_dict,), lambda t: (t,)
+    params = params_to_state_dict(state.params)
+  return {"params": params, "adam": _adam_of(state.opt_state, fns, trees),
+          "train_step": int(np.asarray(state.train_step))}
+
+
+def load_reward_net_agent_state(agent_state, converted: Dict):
+  """Load `reward_net_agent_state_to_torch`'s output into a port
+  `RewardNetAgentState` (in place) and return it with the converted train
+  step."""
+  params = agent_state.params
+  if isinstance(params, torch.nn.Module):
+    params.load_state_dict(converted["params"])
+  else:
+    params["reward"].load_state_dict(converted["params"]["reward"])
+    for module, sd in zip(params["constraints"],
+                          converted["params"]["constraints"]):
+      module.load_state_dict(sd)
+  _load_optimizer(agent_state.optimizer, converted["adam"])
+  return dataclasses.replace(agent_state,
+                             train_step=converted["train_step"])

@@ -101,6 +101,76 @@ Sites:
                                                           concentration1
                                                           variates, then the
                                                           concentration0 ones)
+  Bandit sites (`agents_tpu_torch.bandits`):
+  "bandit_context"      uniform [B, d] in [low, high)    (stationary and
+                                                          drifting bandit
+                                                          contexts)
+  "bandit_context_normal"
+                        normal [B, d]                    (piecewise
+                                                          linear-Gaussian
+                                                          contexts)
+  "random_bandit_context"
+                        normal [B, d]                    (RandomBandit)
+  "bandit_reward_noise" normal [B]                       (linear, wheel and
+                                                          random bandit
+                                                          rewards)
+  "bandit_bernoulli"    uniform [B]                      (Bernoulli arm
+                                                          rewards)
+  "linear_reward_noise" normal [*batch]                  (the reward
+                                                          callables of
+                                                          environment_
+                                                          utilities)
+  "context_sampling"    randint [*batch, d]              (context_sampling_fn)
+  "wheel_context"       uniform [R, B, 2] in [-1, 1)     (WheelBandit: R
+                                                          candidate
+                                                          contexts, the
+                                                          first inside the
+                                                          disk kept)
+  "classification_index"
+                        randint [B] in [0, N)            (dataset row)
+  "mushroom_poison"     uniform [B]                      (mushroom reward
+                                                          sampler)
+  "movielens_user"      randint [B] in [0, num_users)    (MovieLens user)
+  "movielens_movies"    uniform [B, num_movies]          (per-arm MovieLens:
+                                                          each row's movies
+                                                          in the order of
+                                                          its uniforms)
+  "action_mask"         uniform [B, K]                   (Bernoulli action
+                                                          mask)
+  "action_mask_fix"     randint [B] in [0, K)            (the arm enabled
+                                                          in an all-zero
+                                                          mask)
+  "ranking_perturb"     normal [B, S + i]                (ranking click
+                                                          model's score
+                                                          noise)
+  "ranking_choice"      uniform [B, S + i] in [tiny, 1)  (its click: Gumbel
+                                                          noise)
+  "ranking_click"       uniform [B, S]                   (positional-bias
+                                                          clicks)
+  "lints_eps"           normal [K, d]                    (linear Thompson
+                                                          sampling: one per
+                                                          call, shared by
+                                                          every row)
+  "bernoulli_ts_theta"  beta [B, K]                      (Bernoulli Thompson
+                                                          sampling's
+                                                          posterior draws,
+                                                          replayed as the
+                                                          beta variates
+                                                          themselves)
+  "dropout_keep"        uniform [B, width]               (dropout Thompson
+                                                          sampling: a unit
+                                                          is kept where its
+                                                          uniform is below
+                                                          1 - rate)
+  "mixture_choice"      uniform [B, N] in [tiny, 1)      (mixture agents'
+                                                          component: Gumbel
+                                                          noise)
+  "constraint_mask"     uniform [B, K]                   (constraints'
+                                                          Bernoulli
+                                                          feasibility mask)
+  Epsilon-greedy bandit policies (constrained greedy, NeuralLinUCB's
+  encoding phase) draw at "random_action" and "explore"; Falcon, Exp3 and
+  Boltzmann sample at "categorical".
   "replay_t0"           randint [S] in [0, num_valid)    (window start
                                                           offset)
   "replay_rows"         randint [S] in [0, B)            (env row)
@@ -158,6 +228,14 @@ class Draws:
     a = concentration.to(device=self.device, dtype=torch.float32)
     return torch._standard_gamma(a, generator=self.generator)
 
+  def beta(self, site: str, concentration1: torch.Tensor,
+           concentration0: torch.Tensor) -> torch.Tensor:
+    """Beta(concentration1, concentration0) variates of their broadcast
+    shape, as x / (x + y) of two standard-gamma variates."""
+    x = self.gamma(site, concentration1)
+    y = self.gamma(site, concentration0)
+    return x / (x + y)
+
 
 class ReplayDraws:
   """Replays recorded draws, one queue per site, in the order recorded.
@@ -203,6 +281,9 @@ class ReplayDraws:
   def gamma(self, site, concentration):
     return self._next(site, concentration.shape, concentration.dtype)
 
+  def beta(self, site, concentration1, concentration0):
+    return self._next(site, concentration1.shape, concentration1.dtype)
+
 
 class RecordingDraws:
   """Passes draws through from `source` and keeps a CPU copy of each."""
@@ -230,6 +311,10 @@ class RecordingDraws:
 
   def gamma(self, site, concentration):
     return self._keep(site, self.source.gamma(site, concentration))
+
+  def beta(self, site, concentration1, concentration0):
+    return self._keep(site, self.source.beta(site, concentration1,
+                                             concentration0))
 
 
 def as_draws(seed_or_draws, device):

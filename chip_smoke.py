@@ -87,7 +87,44 @@ phase.
                   clipped surrogate's ratios part and which items change
                   sides of the clip is printed. Which of gloo's
                   collectives take CUDA tensors directly is probed and
-                  printed.
+                  printed. (c) The fourth path, LinUCB's statistics summed
+                  over the ranks (`torch_dryrun.run_bandit`, the twin of
+                  `_dryrun_bandit_psum`): the bandit example's d=8, K=5
+                  agent trained on each rank's 128 of 256 rows for 3
+                  calls, against one process over all rows: A, b, n per
+                  tensor to the rule above, bit-equal across ranks, and
+                  per train call exactly one all-reduce of (K d^2 + K d +
+                  K) float32.
+  5d. bandit_parity  `examples/bandits_train_eval_torch.py` at its default
+                  config (B=256, d=8, K=5) for `linucb_stationary`,
+                  `lints_stationary`, `neural_eps_greedy`, `neural_linucb`
+                  and `ranking`: 98 rounds on "cpu" drawing from a recorded
+                  generator, then 4 more (straddling the end of
+                  NeuralLinUCB's encoding phase), each repeated on the card
+                  from the CPU's state before it with the CPU's draws
+                  (TF32 off).
+                  The collected rounds' first actions equal wherever the
+                  top two scores of the CPU's decision lie more than
+                  1e-5 max|score| apart (the ranking slate: at each of its
+                  picks), contexts, rewards, rounds and step types equal
+                  (floats rtol 1e-5 / atol 1e-6) on the rows whose actions
+                  agree, the metrics when all agree; the card's train step
+                  on the CPU's round from the CPU's state gives its loss,
+                  networks, Adam moments and A, b, n (rtol 1e-5 / atol
+                  1e-6).
+  5e. bandit_main the same five scenarios at B=256: 10 warm-up rounds, then
+                  5 windows of 20 rounds under the sync debug mode: ms per
+                  round and env-rows/s (the example's `rounds_per_s`),
+                  and a profiled window of 10 rounds (device ops per
+                  round, busy share, top ops).
+  5f. bandit_learn  `linucb_stationary` and `neural_eps_greedy` through the
+                  example's `train_eval` for its 1,000 rounds (seed 0):
+                  the last 200-round window's regret and suboptimal-arm
+                  share at or below the JAX package's bars
+                  (`BANDIT_LEARN_BARS`, its runs over seeds 0-4).
+  5g. bandit_scenarios  each of the example's 16 scenarios through
+                  `train_eval` for 20 rounds (windows of 10): finite
+                  metrics, the JSONL written.
   6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
                   SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
                   deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
@@ -1289,10 +1326,11 @@ DP_PPO_HELD = 2   # PPO's whole-run iterations held to the plain process
 DP_PPO_CLIPPING = 0.2   # PPOClipAgent's importance_ratio_clipping
 
 
-def dp_rank(mesh, jobs):
+def dp_rank(mesh, jobs, bandit_batches):
   """A gloo rank on the card: first which collectives gloo takes on CUDA
   tensors as they are (each tried once, synchronised), then
-  `dryrun.run_jobs`, whose mesh hands gloo its CUDA tensors directly."""
+  `dryrun.run_jobs`, whose mesh hands gloo its CUDA tensors directly, and
+  LinUCB's statistics over the ranks (`dryrun.run_bandit`)."""
   import torch
   import torch.distributed as dist
 
@@ -1311,7 +1349,10 @@ def dp_rank(mesh, jobs):
       probe[kind] = "ok"
     except (RuntimeError, ValueError) as e:
       probe[kind] = f"{type(e).__name__}: {str(e)[:200]}"
-  return {"gloo_cuda_direct": probe, "jobs": dryrun.run_jobs(mesh, jobs)}
+  return {"gloo_cuda_direct": probe, "jobs": dryrun.run_jobs(mesh, jobs),
+          "bandit": dryrun.run_bandit(mesh, bandit_batches,
+                                      DP_BANDIT["context_dim"],
+                                      DP_BANDIT["num_actions"])}
 
 
 def dp_compare(merged, reference):
@@ -1413,8 +1454,11 @@ def phase_data_parallel(card):
   jobs = [(build, DP_SEED, [DP_SEED] * DP_RANKS, DP_ITERATIONS, steps,
            name == "ppo")
           for name, (build, _, _, steps) in cases.items()]
+  bandit_batches = dryrun.bandit_batches(
+      DP_SEED, DP_BANDIT["batch_size"], DP_BANDIT["calls"],
+      DP_BANDIT["context_dim"], DP_BANDIT["num_actions"])
   t0 = time.perf_counter()
-  ranks = dryrun.spawn_ranks(dp_rank, DP_RANKS, (jobs,),
+  ranks = dryrun.spawn_ranks(dp_rank, DP_RANKS, (jobs, bandit_batches),
                              os.path.join(workdir, "gloo"), backend="gloo",
                              device="cuda", timeout_s=DP_TIMEOUT_S)
   ranks_s = time.perf_counter() - t0
@@ -1517,6 +1561,37 @@ def phase_data_parallel(card):
                  "collectives_per_iteration": max(
                      c for r in runs for c in r["calls_per_iteration"]),
                  "losses": one["losses"], "ok": case_ok}
+  # (c) LinUCB: the ranks' statistics against one process over all rows.
+  one = dryrun.run_bandit(None, bandit_batches, DP_BANDIT["context_dim"],
+                          DP_BANDIT["num_actions"], device="cuda")
+  runs = [r["bandit"] for r in ranks]
+  per_call = dryrun.bandit_statistics_bytes(DP_BANDIT["context_dim"],
+                                            DP_BANDIT["num_actions"])
+  bad, worst = [], 0.0
+  for name in ("a_mat", "b_vec", "num_samples"):
+    ref = one[name]
+    for r in runs:
+      d = max_diff(r[name], ref)
+      worst = max(worst, d)
+      if d > 1e-5 + 1e-4 * float(ref.abs().max()):
+        bad.append(name)
+      if not torch.equal(r[name], runs[0][name]):
+        bad.append(f"{name} differs across ranks")
+  bandit_ok = (not bad and all(
+      r["bytes_per_call"] == [per_call] * DP_BANDIT["calls"]
+      and r["calls_per_call"] == [1] * DP_BANDIT["calls"]
+      and r["largest_numel"] == {"all_reduce": per_call // 4}
+      and r["train_step"] == DP_BANDIT["calls"] for r in runs))
+  ok = ok and bandit_ok
+  out["linucb"] = {"mismatches": bad, "largest_float_diff": worst,
+                   "bytes_per_train_call": [r["bytes_per_call"]
+                                            for r in runs],
+                   "statistics_bytes": per_call,
+                   "collectives_per_train_call": [r["calls_per_call"]
+                                                  for r in runs],
+                   "largest_collective_numel": [r["largest_numel"]
+                                                for r in runs],
+                   "ok": bandit_ok, **DP_BANDIT}
   emit("data_parallel", card=card, nccl_one_rank=nccl,
        gloo_two_ranks=out, ranks_seconds=ranks_s,
        gloo_cuda_direct=[r["gloo_cuda_direct"] for r in ranks],
@@ -1525,6 +1600,304 @@ def phase_data_parallel(card):
        iterations=DP_ITERATIONS, ok=ok)
   if not ok:
     fail("data_parallel", "a data-parallel check failed")
+
+
+# -- bandits -------------------------------------------------------------------
+
+BANDIT_SCENARIOS = ("linucb_stationary", "lints_stationary",
+                    "neural_eps_greedy", "neural_linucb", "ranking")
+# Rounds the CPU runs alone first (the statistics and networks leave their
+# initial ties), so that the compared rounds straddle the end of
+# NeuralLinUCB's 100-round encoding phase.
+BANDIT_PARITY_WARMUP, BANDIT_PARITY_ROUNDS = 98, 4
+BANDIT_GAP = 1e-5        # of max|score|: decisions closer than this may part
+BANDIT_WARMUP, BANDIT_WINDOW, BANDIT_PROFILED = 10, 20, 10
+BANDIT_LEARN = ("linucb_stationary", "neural_eps_greedy")
+# The JAX example's runs at its default config over seeds 0-4
+# (`tests/test_torch_reference_bars.py bandit`, `bandit_bar`: the worst
+# seed plus a third of the spread): the largest regret and suboptimal-arm
+# share of the last 200-round window.
+BANDIT_LEARN_BARS = {
+    "linucb_stationary": {"regret": 0.0005521289228151242,
+                          "suboptimal_arms": 0.003795572789385915},
+    "neural_eps_greedy": {"regret": 0.24547086159388223,
+                          "suboptimal_arms": 0.1161718765894572},
+}
+BANDIT_SCENARIO_ROUNDS, BANDIT_SCENARIO_LOG = 20, 10
+# data_parallel (c): the example's LinUCB over two ranks.
+DP_BANDIT = dict(batch_size=256, calls=3, context_dim=8, num_actions=5)
+
+
+def bandit_config(device, **fields):
+  from examples import bandits_train_eval_torch as example
+  return example.Config(device=device, root_dir=os.path.join(
+      RUNS_DIR, "bandits"), **fields)
+
+
+def _score_gaps(scores):
+  """Per row, the gap between its two best scores over max|scores|."""
+  import torch
+
+  top2 = torch.topk(scores, 2, dim=-1).values
+  scale = float(scores.abs().max()) or 1.0
+  return (top2[:, 0] - top2[:, 1]) / scale
+
+
+def bandit_decision_gaps(scenario, agent, agent_state, time_step, records):
+  """The relative gap of each row's first-step decision, on the CPU's
+  state: the two best scores of the policy it acted with (the ranking
+  slate: the smallest over its picks)."""
+  import torch
+
+  from agents_tpu_torch.bandits.policies import linalg
+  from agents_tpu_torch.bandits.policies.linear_bandit_policy import \
+      ucb_scores
+  from agents_tpu_torch.bandits.specs.bandit_spec_utils import \
+      PER_ARM_FEATURE_KEY
+  from agents_tpu_torch.utils.draws import ReplayDraws
+
+  obs = time_step.observation
+  with torch.no_grad():
+    if scenario in ("linucb_stationary", "lints_stationary"):
+      draws = ReplayDraws({"lints_eps": records.get("lints_eps", [])[:1]},
+                          "cpu")
+      return _score_gaps(agent.policy._scores(agent_state, obs, draws))
+    if scenario == "neural_eps_greedy":
+      return _score_gaps(agent_state.params(obs)[0])
+    if scenario == "neural_linucb":
+      (feats, _), _ = agent_state.encoder_params(obs)
+      chol = linalg.cholesky(agent_state.a_mat)
+      theta = torch.cholesky_solve(agent_state.b_vec[..., None],
+                                   chol)[..., 0]
+      return _score_gaps(ucb_scores(chol, theta, feats, agent.alpha))
+    # ranking: the gap at each pick of `_RankingPolicy`.
+    policy = agent.policy
+    scores, _ = agent_state.params(obs)
+    arms = obs[PER_ARM_FEATURE_KEY]
+    unit = arms / (torch.linalg.vector_norm(arms, dim=-1, keepdim=True)
+                   + 1e-8)
+    chosen = torch.zeros_like(scores, dtype=torch.bool)
+    penalty, gaps = torch.zeros_like(scores), []
+    for _ in range(policy.slate_size):
+      eff = torch.where(chosen, -1e9, scores
+                        - policy.diversity_penalty * penalty)
+      gaps.append(_score_gaps(eff) * float(eff.abs().max())
+                  / float(scores.abs().max()))
+      idx = torch.argmax(eff, dim=-1)
+      picked = torch.gather(unit, 1, idx[:, None, None].expand(
+          -1, 1, unit.shape[-1]))
+      penalty = penalty + torch.abs(torch.sum(unit * picked, dim=-1))
+      chosen = chosen | torch.nn.functional.one_hot(
+          idx, scores.shape[-1]).bool()
+    return torch.stack(gaps).min(dim=0).values
+
+
+def phase_bandit_parity(card):
+  """Each scenario's rounds on the CPU from a recorded generator, each
+  repeated on the card from the CPU's state with the CPU's draws: the
+  collect (actions by the gap rule, the rest on the agreeing rows) and the
+  train step on the CPU's round."""
+  import torch
+
+  from agents_tpu_torch.utils import nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+  from examples import bandits_train_eval_torch as example
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  rtol, atol = 1e-5, 1e-6
+  out, ok = {}, True
+  for scenario in BANDIT_SCENARIOS:
+    cloop, _, _ = example.build_loop(bandit_config("cpu"), scenario)
+    gloop, _, _ = example.build_loop(bandit_config("cuda"), scenario)
+    draws = RecordingDraws(Draws(0, "cpu"))
+    cstate, _ = cloop.run(cloop.init(draws=draws), BANDIT_PARITY_WARMUP)
+    gstate = gloop.init(seed=0)
+    diffs, mismatched, parted, unclear = {}, [], 0, 0
+
+    def compare(tag, card_value, cpu_value):
+      a, b = card_value.detach().cpu(), cpu_value.detach().cpu()
+      if a.dtype.is_floating_point:
+        diffs[tag] = max_diff(a, b)
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+          mismatched.append(tag)
+      elif not torch.equal(a, b):
+        mismatched.append(tag)
+
+    for r in range(1, BANDIT_PARITY_ROUNDS + 1):
+      seen = record_counts(draws)
+      time_step = cstate.driver_state.time_step
+      c_after, c_exp = cloop.collect(cstate)   # leaves the agent as it was
+      records = new_records(draws, seen)
+      gaps = bandit_decision_gaps(scenario, cloop.agent, cstate.agent_state,
+                                  time_step, records)
+      # The card collects from the CPU's state with the CPU's draws (its
+      # agent loaded before the CPU's train step updates the CPU's
+      # networks in place).
+      gagent = load_agent_state(gstate.agent_state, cstate.agent_state)
+      gstate = dataclasses.replace(
+          gstate, agent_state=gagent,
+          driver_state=to_device(cstate.driver_state, "cuda"),
+          metric_states=to_device(cstate.metric_states, "cuda"),
+          draws=ReplayDraws(records, "cuda"))
+      g_after, g_exp = gloop.collect(gstate)
+      c_act = c_exp.action[:, 0].reshape(c_exp.action.shape[0], -1)
+      g_act = g_exp.action[:, 0].cpu().reshape(c_act.shape)
+      agree = (c_act == g_act).all(dim=-1)
+      clear = gaps > BANDIT_GAP
+      unclear += int((~clear).sum())
+      if not bool(agree[clear].all()):
+        mismatched.append(f"round{r}.actions")
+      parted += int((~agree).sum())
+      rows = agree.nonzero()[:, 0]
+      for i, (a, b) in enumerate(zip(nest_utils.flatten(g_exp),
+                                     nest_utils.flatten(c_exp))):
+        compare(f"round{r}.experience.{i}", a.cpu()[rows], b[rows])
+      compare(f"round{r}.env.round", g_after.driver_state.env_state.round,
+              c_after.driver_state.env_state.round)
+      for i, (a, b) in enumerate(zip(
+          nest_utils.flatten(g_after.driver_state.env_state.context),
+          nest_utils.flatten(c_after.driver_state.env_state.context))):
+        compare(f"round{r}.env.context.{i}", a, b)
+      if bool(agree.all()):
+        for i, (a, b) in enumerate(zip(nest_utils.flatten(
+            g_after.metric_states), nest_utils.flatten(
+                c_after.metric_states))):
+          compare(f"round{r}.metrics.{i}", a, b)
+      # The train step: the card's on the CPU's round, from the CPU's state.
+      c_agent, c_info = cloop.agent.train(c_after.agent_state, c_exp)
+      g_agent, g_info = gloop.agent.train(g_after.agent_state,
+                                          to_device(c_exp, "cuda"))
+      compare(f"round{r}.loss", g_info.loss, c_info.loss)
+      ctensors, gtensors = state_tensors(c_agent), state_tensors(g_agent)
+      if set(ctensors) != set(gtensors):
+        mismatched.append(f"round{r}.agent_state.names")
+      for k in ctensors:
+        compare(f"round{r}.{k}", gtensors[k], ctensors[k])
+      cstate = dataclasses.replace(c_after, agent_state=c_agent)
+      gstate = dataclasses.replace(g_after, agent_state=g_agent)
+    worst = max(diffs, key=diffs.get) if diffs else None
+    case_ok = not mismatched
+    ok = ok and case_ok
+    out[scenario] = {"rounds": BANDIT_PARITY_ROUNDS,
+                     "after_cpu_rounds": BANDIT_PARITY_WARMUP,
+                     "rows_with_unclear_decisions": unclear,
+                     "rows_whose_actions_parted": parted,
+                     "largest_float_diff": {"name": worst,
+                                            "abs": diffs.get(worst)},
+                     "compared": len(diffs), "mismatched": mismatched[:10],
+                     "ok": case_ok}
+    del cloop, gloop, cstate, gstate
+  emit("bandit_parity", card=card, scenarios=out,
+       batch_size=bandit_config("cpu").env_batch_size,
+       tolerance=f"floats rtol {rtol} / atol {atol}; actions equal where "
+       f"the CPU's top two scores lie more than {BANDIT_GAP} max|score| "
+       "apart", ok=ok)
+  if not ok:
+    fail("bandit_parity", "the card left the CPU")
+
+
+def phase_bandit_main(card):
+  """Each scenario at B=256: sync-free timed windows of rounds, env-rows per
+  second, and a profiled window."""
+  import torch
+
+  from examples import bandits_train_eval_torch as example
+
+  out, ok = {}, True
+  for scenario in BANDIT_SCENARIOS:
+    cfg = bandit_config("cuda")
+    loop, _, _ = example.build_loop(cfg, scenario)
+    state = loop.init(seed=0)
+    state, _ = loop.run(state, BANDIT_WARMUP)
+    torch.cuda.synchronize()
+    try:
+      state, losses, window_ms = timed_windows(
+          loop, state, BANDIT_WINDOW * TIMED_WINDOWS)
+      sync_free = True
+    except RuntimeError as e:
+      torch.cuda.set_sync_debug_mode(0)
+      sync_free, window_ms, losses = str(e)[:300], [], None
+    (state, _), profile = profile_call(
+        lambda: loop.run(state, BANDIT_PROFILED), BANDIT_PROFILED, "round",
+        name=f"bandit_{scenario}.json")
+    results = {k: float(v) for k, v in loop.results(state).items()}
+    ms = sorted(window_ms)[len(window_ms) // 2] if window_ms else None
+    case_ok = (sync_free is True and losses is not None
+               and bool(torch.isfinite(losses).all())
+               and all(math.isfinite(v) for v in results.values())
+               and state.agent_state.train_step
+               == BANDIT_WARMUP + BANDIT_WINDOW * TIMED_WINDOWS
+               + BANDIT_PROFILED)
+    ok = ok and case_ok
+    out[scenario] = {
+        "median_ms_per_round": ms, "window_ms_per_round": window_ms,
+        "env_rows_per_s": cfg.env_batch_size / ms * 1e3 if ms else None,
+        "sync_free": sync_free, "profile": profile, "metrics": results,
+        "ok": case_ok}
+    del loop, state
+  emit("bandit_main", card=card, batch_size=bandit_config("cuda")
+       .env_batch_size, windows=TIMED_WINDOWS,
+       rounds_per_window=BANDIT_WINDOW, scenarios=out, ok=ok)
+  if not ok:
+    fail("bandit_main", "a scenario was not sync-free or not finite")
+
+
+def phase_bandit_learn(card):
+  """`linucb_stationary` and `neural_eps_greedy` for the example's 1,000
+  rounds against the JAX package's bars."""
+  from examples import bandits_train_eval_torch as example
+
+  out, ok = {}, True
+  for scenario in BANDIT_LEARN:
+    cfg = bandit_config("cuda")
+    t0 = time.perf_counter()
+    _, records = example.train_eval(cfg, scenario)
+    last, bar = records[-1], BANDIT_LEARN_BARS[scenario]
+    case_ok = (last["round"] == cfg.num_rounds
+               and last["RegretMetric"] <= bar["regret"]
+               and last["SuboptimalArmsMetric"] <= bar["suboptimal_arms"])
+    ok = ok and case_ok
+    out[scenario] = {"records": records, "bar": bar,
+                     "seconds": time.perf_counter() - t0, "ok": case_ok}
+  emit("bandit_learn", card=card, scenarios=out, ok=ok)
+  if not ok:
+    fail("bandit_learn", "a scenario ended above the JAX package's bar")
+
+
+def phase_bandit_scenarios(card):
+  """Every scenario of the example through `train_eval` for a short run."""
+  from examples import bandits_train_eval_torch as example
+
+  out, ok = {}, True
+  for scenario in example.SCENARIOS:
+    cfg = bandit_config("cuda", num_rounds=BANDIT_SCENARIO_ROUNDS,
+                        log_interval=BANDIT_SCENARIO_LOG)
+    state, records = example.train_eval(cfg, scenario)
+    path = os.path.join(cfg.root_dir, f"{scenario}.jsonl")
+    with open(path) as f:
+      written = [json.loads(line) for line in f]
+    finite = all(math.isfinite(v) for rec in records for k, v in rec.items()
+                 if k != "scenario")
+    case_ok = (written == records and finite
+               and records[-1]["round"] == BANDIT_SCENARIO_ROUNDS
+               and state.agent_state.train_step == BANDIT_SCENARIO_ROUNDS)
+    ok = ok and case_ok
+    out[scenario] = {"last": records[-1], "ok": case_ok}
+  emit("bandit_scenarios", card=card, rounds=BANDIT_SCENARIO_ROUNDS,
+       scenarios=out, ok=ok)
+  if not ok:
+    fail("bandit_scenarios", "a scenario failed its short run")
+
+
+def bandit_phases(card):
+  """The bandit slice: parity, timing, learning and every scenario."""
+  phase_bandit_parity(card)
+  free_card()
+  phase_bandit_main(card)
+  phase_bandit_learn(card)
+  phase_bandit_scenarios(card)
+  free_card()
 
 
 def conv_forward_flops(size, frames, num_actions, convs, fc):
@@ -5573,6 +5946,7 @@ def main(argv=()):
   del loop, state
   free_card()
   phase_data_parallel(card)
+  bandit_phases(card)
   phase_conv_parity(card)
   phase_conv_main(card)
   free_card()

@@ -55,7 +55,7 @@ def test_shape_dispatch():
                                 np.asarray(jcomp.shape(j)))
   np.testing.assert_array_equal(comp.shape(torch.as_tensor(x)).numpy(),
                                 np.asarray(jcomp.shape(jnp.asarray(x))))
-  r = comp.RaggedArray.from_rows([np.zeros(2, np.float32)])
+  r = comp.RaggedArray.from_rows([np.zeros(2, np.float32)], device="cpu")
   assert comp.shape(r).tolist() == [1, 2]
 
 
@@ -107,8 +107,8 @@ def _rows():
 
 
 def test_ragged_from_rows_mask_splits_match_jax():
-  t, j = comp.RaggedArray.from_rows(_rows()), jcomp.RaggedArray.from_rows(
-      _rows())
+  t = comp.RaggedArray.from_rows(_rows(), device="cpu")
+  j = jcomp.RaggedArray.from_rows(_rows())
   np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
   np.testing.assert_array_equal(t.lengths.numpy(), np.asarray(j.lengths))
   np.testing.assert_array_equal(t.row_splits().numpy(),
@@ -120,9 +120,11 @@ def test_ragged_from_rows_mask_splits_match_jax():
 @pytest.mark.parametrize("op,arg", [("slice_to", 2), ("slice_from", 2),
                                     ("slice_to", 3), ("slice_from", 0)])
 def test_ragged_slicing_matches_jax(op, arg):
-  t = getattr(comp, op)(comp.RaggedArray.from_rows(_rows()), 1, arg)
+  t = getattr(comp, op)(comp.RaggedArray.from_rows(_rows(), device="cpu"),
+                        1, arg)
   j = getattr(jcomp, op)(jcomp.RaggedArray.from_rows(_rows()), 1, arg)
   np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
   np.testing.assert_array_equal(t.lengths.numpy(), np.asarray(j.lengths))
   with pytest.raises(ValueError):
-    getattr(comp, op)(comp.RaggedArray.from_rows(_rows()), 0, arg)
+    getattr(comp, op)(comp.RaggedArray.from_rows(_rows(), device="cpu"), 0,
+                      arg)

@@ -20,7 +20,7 @@ EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
             "td3_pendulum_torch.py", "cql_sac_offline_torch.py",
             "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py",
             "sac_train_job_torch.py", "sac_collect_job_torch.py",
-            "eval_job_torch.py")
+            "eval_job_torch.py", "bandits_train_eval_torch.py")
 # The distributed SAC jobs and the eval job build no `Config`: the learner
 # and the eval job are checked on their own below, and the collector runs
 # on the CPU by design.
@@ -51,6 +51,22 @@ SLICE_11_MODULES = (
     "utils.profiling", "environments.dm_env_wrapper", "environments.suites",
     "environments.suite_dm_control", "environments.trajectory_replay",
     "parallel.distributed", "parallel.mesh_utils")
+# The bandits (every module of `agents_tpu/bandits`).
+BANDIT_MODULES = (
+    "bandits.agents.linear_bandit_agent",
+    "bandits.agents.neural_bandit_agents",
+    "bandits.agents.mixture_and_ranking_agents",
+    "bandits.environments.bandit_envs",
+    "bandits.environments.dataset_utilities",
+    "bandits.environments.environment_utilities",
+    "bandits.environments.movielens",
+    "bandits.environments.nonstationary_envs",
+    "bandits.environments.structured_envs",
+    "bandits.metrics.bandit_metrics", "bandits.multi_objective.scalarizer",
+    "bandits.networks.global_and_arm_feature_network",
+    "bandits.policies.constraints", "bandits.policies.linalg",
+    "bandits.policies.linear_bandit_policy",
+    "bandits.specs.bandit_spec_utils")
 # The port's modules outside its package, beside `chip_smoke.py`.
 ROOT_MODULES = ("torch_dryrun",)
 
@@ -96,7 +112,7 @@ def test_port_imports_leave_jax_and_agents_tpu_unloaded():
                "environments.classic.mountain_car",
                "environments.torch_wrappers", "networks.lstm_networks",
                "train.checkpointer") + (HOST_MODULES + ORCHESTRATION_MODULES
-                                        + SLICE_11_MODULES):
+                                        + SLICE_11_MODULES + BANDIT_MODULES):
     assert f"agents_tpu_torch.{name}" in modules
   modules += [f"examples.{name[:-3]}" for name in EXAMPLES] + list(
       ROOT_MODULES)
@@ -399,5 +415,74 @@ def test_export_and_eval_entry_points_raise_without_a_card(tmp_path,
                     eval_job_torch.parse_args([f"--root_dir={tmp_path}",
                                                "--max_evals=1"]),
                     make_env=CartPole, log=lambda line: None)):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      build()
+
+
+def test_every_jax_module_has_a_port_twin():
+  """Each module of `agents_tpu` has a counterpart in the port, a `jax_*`
+  module counting as `torch_*` and `stablehlo_export` as `torch_export`;
+  the bandit packages export the JAX packages' names (a `Jax` in a name
+  counting as `Torch`)."""
+  import importlib
+  jax_root = os.path.join(ROOT, "agents_tpu")
+  missing = []
+  for d, _, files in os.walk(jax_root):
+    for f in files:
+      if not f.endswith(".py") or f == "__init__.py":
+        continue
+      rel = os.path.relpath(os.path.join(d, f), jax_root)
+      rel = os.path.join(os.path.dirname(rel), os.path.basename(rel)
+                         .replace("jax_", "torch_").replace(
+                             "stablehlo_export", "torch_export"))
+      if not os.path.exists(os.path.join(ROOT, "agents_tpu_torch", rel)):
+        missing.append(rel)
+  assert missing == []
+  for pkg in ("agents", "environments", "metrics", "multi_objective",
+              "policies"):
+    jax_names = set()
+    for node in ast.walk(ast.parse(open(os.path.join(
+        jax_root, "bandits", pkg, "__init__.py")).read())):
+      if (isinstance(node, (ast.Assign, ast.AugAssign))
+          and isinstance(node.value, ast.List)):
+        jax_names |= set(ast.literal_eval(node.value))
+    port = importlib.import_module(f"agents_tpu_torch.bandits.{pkg}")
+    assert set(port.__all__) == {n.replace("Jax", "Torch")
+                                 for n in jax_names}, pkg
+    for name in port.__all__:
+      assert hasattr(port, name), (pkg, name)
+
+
+def test_bandit_entry_points_raise_without_a_card(monkeypatch):
+  """The bandit environments, agents, networks and the example's loop
+  default to "cuda" and raise without a card; so does
+  `RaggedArray.from_rows`."""
+  import numpy as np
+
+  from agents_tpu_torch.bandits import agents, environments
+  from agents_tpu_torch.bandits.environments import environment_utilities
+  from agents_tpu_torch.bandits.networks import \
+      global_and_arm_feature_network as gaf
+  from agents_tpu_torch.bandits.specs import bandit_spec_utils
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils import composite
+  from examples import bandits_train_eval_torch as example
+
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  tss = ts.time_step_spec(array_spec.ArraySpec((2,), np.float32))
+  act = array_spec.BoundedArraySpec((), np.int32, 0, 2)
+  spec = bandit_spec_utils.create_per_arm_observation_spec(2, 2, 3)
+  for build in (
+      lambda: environments.StationaryStochasticBandit(np.eye(2)),
+      lambda: environments.BernoulliBandit([0.5, 0.5]),
+      lambda: environments.PiecewiseStationaryStochasticBandit(2, 2, 2, [1]),
+      lambda: environments.MovieLensPerArmBandit(np.ones((4, 4))),
+      lambda: environment_utilities.LinearNormalReward([1.0, 2.0]),
+      lambda: agents.LinUcbAgent(tss, act),
+      lambda: agents.Exp3Agent(tss, act),
+      lambda: gaf.make_global_and_arm_feature_network(spec),
+      lambda: example.build_loop(example.Config()),
+      lambda: composite.RaggedArray.from_rows([np.zeros(2, np.float32)])):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()

@@ -1,6 +1,5 @@
 """Data parallelism: the port's 2-rank gloo runs against the JAX package's
-runs on a 2-device mesh (`tests/test_parallel.py`'s paths, the bandit case
-excepted: bandits are not ported yet).
+runs on a 2-device mesh (`tests/test_parallel.py`'s paths).
 
 The three paths of `__graft_entry__.py:dryrun_multichip` (the fused DQN
 loop, sharded PPO, sharded PER) run in two spawned processes joined by
@@ -20,6 +19,11 @@ tensors are bit-equal across ranks; and the bytes each iteration passes
 to `torch.distributed` stay under the parameter and optimizer bytes plus
 the per-row metric traffic: the gradient's all-reduce, a few scalars and
 the metric rows' all-gathers, nothing replay- or rollout-sized.
+
+The fourth path, LinUCB's sufficient statistics summed over the data axis
+(`_dryrun_bandit_psum`, `test_parallel.py::test_bandit_psum_axis`), runs
+`torch_dryrun.run_bandit` on two gloo ranks against one process over the
+whole batch and the JAX agent's `shard_map` train over a 2-device mesh.
 """
 import dataclasses
 import functools
@@ -572,3 +576,59 @@ def test_sample_sharded_matches_uniform_semantics():
                              rtol=1e-6)
   assert math.isclose(float(torch.cat(probs).sum()) * 10 * b / s, 1.0,
                       rel_tol=1e-6)
+
+
+def test_bandit_psum_axis(tmp_path):
+  """(twin of test_parallel.py::test_bandit_psum_axis) LinUCB on two gloo
+  ranks, each training on its half of every batch, sums its statistics
+  over the ranks: A, b and n equal one process over the whole batch and
+  the JAX agent (``axis_name="data"``) under `shard_map` on a 2-device
+  mesh (float32 sums, rtol 1e-5 / atol 1e-6), bit-equal across the
+  ranks; each train call passes exactly one all-reduce of (K·d² + K·d +
+  K) float32 to `torch.distributed`."""
+  from functools import partial
+
+  from jax.experimental.shard_map import shard_map
+
+  from agents_tpu import specs as jspecs
+  from agents_tpu.bandits.agents import LinUcbAgent as JaxLinUcbAgent
+  from agents_tpu.trajectories import time_step as jts
+
+  d, k = dryrun.BANDIT_PSUM["context_dim"], dryrun.BANDIT_PSUM["num_actions"]
+  batches = dryrun.bandit_batches(0, 8, 3, d, k)
+  ranks = dryrun.spawn_ranks(dryrun.run_bandit, RANKS, (batches, d, k),
+                             str(tmp_path), backend="gloo", device="cpu",
+                             timeout_s=TIMEOUT_S)
+  one = dryrun.run_bandit(None, batches, d, k, device="cpu")
+
+  agent = JaxLinUcbAgent(jts.time_step_spec(jspecs.ArraySpec((d,),
+                                                             np.float32)),
+                         jspecs.BoundedArraySpec((), np.int32, 0, k - 1),
+                         axis_name="data")
+  mesh = jax_create_mesh(RANKS)
+  state = agent.init(jax.random.key(0))
+  for obs, action, reward in batches:
+    traj = jtj.Trajectory(
+        step_type=np.zeros((8,), np.int32), observation=obs, action=action,
+        policy_info=(), next_step_type=np.full((8,), 2, np.int32),
+        reward=reward, discount=np.ones((8,), np.float32))
+    dp_train = shard_map(
+        lambda st, tr: agent.train(st, tr)[0], mesh=mesh,
+        in_specs=(P(), jax.tree_util.tree_map(lambda _: P("data"), traj)),
+        out_specs=P(), check_rep=False)
+    state = jax.jit(dp_train)(state, traj)
+
+  per_call = dryrun.bandit_statistics_bytes(d, k)
+  for r in ranks:
+    for name in ("a_mat", "b_vec", "num_samples"):
+      assert torch.equal(r[name], ranks[0][name]), name
+      np.testing.assert_allclose(r[name].numpy(), one[name].numpy(),
+                                 rtol=1e-5, atol=1e-6, err_msg=name)
+      np.testing.assert_allclose(r[name].numpy(),
+                                 np.asarray(getattr(state, name)),
+                                 rtol=1e-5, atol=1e-6, err_msg=name)
+    assert r["train_step"] == one["train_step"] == len(batches)
+    assert r["bytes_per_call"] == [per_call] * len(batches)
+    assert r["calls_per_call"] == [1] * len(batches)
+    assert r["largest_numel"] == {"all_reduce": per_call // 4}
+  assert float(one["num_samples"].sum()) == 8 * len(batches)

@@ -41,6 +41,14 @@ by the port:
           return reaches -250. `host_sac_bar` turns the five seeds' runs
           into the bar; `run_host_sac(..., port=True)` runs the port's
           `HostDeviceTrainLoop` at the same config.
+  bandit  `agents_tpu`'s bandit example (`examples/bandits_train_eval.py`)
+          at its default `Config` (B=256, 1,000 rounds, d=8, K=5, noise
+          0.1, Adam 1e-2, (64, 64) reward nets) for the
+          `linucb_stationary` and `neural_eps_greedy` scenarios: the
+          regret and suboptimal-arm share of the last 200-round window.
+          `bandit_bar` turns the five seeds' runs into the bar of
+          `chip_smoke.py`'s `bandit_learn` (`BANDIT_BARS`);
+          `run_bandit(..., port=True)` runs the port's example.
   offline the pipeline of `examples/cql_sac_offline_torch.py` (the device
           Pendulum pipeline of `tests/test_cql_offline_e2e.py`): a brief
           SAC behaviour run, a 2,048 x 8 frame collect by
@@ -59,11 +67,12 @@ seeds, so five processes can run them side by side):
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
         [offline] [qtopt [--qtopt-seed=N ...]] [ppo_rnn]
-        [host_sac [--host-sac-seed=N ...]] [per]
+        [host_sac [--host-sac-seed=N ...]] [per] [bandit]
 
 (`ppo_rnn` takes about a minute a seed on one core; `host_sac` a minute or
 two; `host_sac_port` runs the port at `HOST_SAC` over the same seeds; `per`
-and `per_port` under a minute a seed.)
+and `per_port` under a minute a seed; `bandit` and `bandit_port` a few
+seconds a scenario and seed.)
 
 The tests below check that these runs are built from the port examples'
 configurations, so the bars are of the same configuration.
@@ -485,6 +494,71 @@ def per_bar(runs):
   return max(PER_GATE, min(finals) - (max(finals) - min(finals)) / 3.0)
 
 
+BANDIT_SCENARIOS = ("linucb_stationary", "neural_eps_greedy")
+# `bandit_bar` over the JAX example's runs, seeds 0-4 (`python
+# tests/test_torch_reference_bars.py bandit`): per scenario, the largest
+# regret and suboptimal-arm share a port run may end with. LinUCB's
+# regrets were 1.599e-4, -2.375e-4, 2.737e-5, -3.765e-4 and 3.200e-4
+# (suboptimal shares 7.23e-4 to 3.027e-3); the neural agent's 0.1443,
+# 0.1942, 0.1792, 0.2202 and 0.2026 (0.1042 to 0.1132).
+BANDIT_BARS = {
+    "linucb_stationary": {"regret": 0.0005521289228151242,
+                          "suboptimal_arms": 0.003795572789385915},
+    "neural_eps_greedy": {"regret": 0.24547086159388223,
+                          "suboptimal_arms": 0.1161718765894572},
+}
+
+
+def run_bandit(scenario, seed, port=False):
+  """The bandit example's default config for `scenario` from `seed` (the
+  JAX example's loop from ``key(seed)``; the port's example on the CPU):
+  the regret and suboptimal-arm share of its last `log_interval`
+  window."""
+  t0 = time.time()
+  if port:
+    from examples import bandits_train_eval_torch as example
+    with tempfile.TemporaryDirectory(prefix="bandit_bar_") as root_dir:
+      cfg = example.Config(seed=seed, device="cpu", root_dir=root_dir)
+      _, records = example.train_eval(cfg, scenario)
+    last = records[-1]
+  else:
+    import jax
+
+    from agents_tpu.bandits.metrics import (RegretMetric,
+                                            SuboptimalArmsMetric)
+    from agents_tpu.environments.jax_environment import BatchedJaxEnv
+    from agents_tpu.train import OnPolicyTrainLoop
+    from examples import bandits_train_eval as example
+    cfg = example.Config(seed=seed)
+    env1, agent = example.SCENARIOS[scenario](cfg)
+    metrics = (RegretMetric(env1.optimal_reward_fn),
+               SuboptimalArmsMetric(env1.optimal_action_fn))
+    loop = OnPolicyTrainLoop(BatchedJaxEnv(env1, cfg.env_batch_size),
+                             agent, metrics, rollout_length=2)
+    state = loop.init(jax.random.key(seed))
+    run = jax.jit(lambda s, n: loop.run(s, n), static_argnums=1)
+    for _ in range(cfg.num_rounds // cfg.log_interval):
+      state = state.replace(metric_states=tuple(
+          m.init(cfg.env_batch_size) for m in metrics))
+      state, _ = run(state, cfg.log_interval)
+    last = {k: float(v) for k, v in loop.results(state).items()}
+  return {"scenario": scenario, "seed": seed,
+          "regret": last["RegretMetric"],
+          "suboptimal_arms": last["SuboptimalArmsMetric"],
+          "seconds": time.time() - t0}
+
+
+def bandit_bar(runs):
+  """The `bandit_learn` bar of one scenario from the JAX runs over seeds
+  0-4: for the regret and for the suboptimal-arm share, the worst seed's
+  value plus a third of the spread across seeds (lower is better)."""
+  out = {}
+  for key in ("regret", "suboptimal_arms"):
+    vals = [r[key] for r in runs]
+    out[key] = max(vals) + (max(vals) - min(vals)) / 3.0
+  return out
+
+
 def normalized_score(ret, behavior_return, random_return):
   """D4RL's normalized score: 0 at random play, 1 at the behaviour
   policy (both greedy returns over the same episodes)."""
@@ -827,6 +901,41 @@ def test_per_bar_rule():
   assert per_bar(runs) == PER_GATE
 
 
+def test_bandit_bar_runs_the_example_config():
+  """The JAX bandit runs are the JAX example's default config, which the
+  port's example shares; a short run of each scenario gives finite
+  metrics in both packages."""
+  from examples import bandits_train_eval as jexample
+  from examples import bandits_train_eval_torch as texample
+
+  j = dataclasses.asdict(jexample.Config())
+  t = dataclasses.asdict(texample.Config())
+  assert {k: v for k, v in t.items() if k not in ("root_dir", "device")} \
+      == {k: v for k, v in j.items() if k != "root_dir"}
+  assert (j["env_batch_size"], j["num_rounds"], j["log_interval"]) == (
+      256, 1000, 200)
+  assert set(BANDIT_BARS) == set(BANDIT_SCENARIOS)
+  import chip_smoke
+  assert chip_smoke.BANDIT_LEARN_BARS == BANDIT_BARS
+
+
+def test_bandit_bar_rule():
+  runs = [{"regret": r, "suboptimal_arms": s}
+          for r, s in ((0.1, 0.2), (0.4, 0.1), (0.25, 0.3))]
+  bar = bandit_bar(runs)
+  assert math.isclose(bar["regret"], 0.4 + 0.3 / 3)
+  assert math.isclose(bar["suboptimal_arms"], 0.3 + 0.2 / 3)
+
+
+@pytest.mark.parametrize("scenario", BANDIT_SCENARIOS)
+def test_port_bandit_passes_the_jax_bar(scenario):
+  """The port's example on the CPU at the default config (seed 0) ends
+  within the JAX bar (a few seconds)."""
+  out = run_bandit(scenario, 0, port=True)
+  for key in ("regret", "suboptimal_arms"):
+    assert out[key] <= BANDIT_BARS[scenario][key], (key, out)
+
+
 @pytest.mark.slow
 def test_port_host_sac_passes_the_jax_bar():
   """The port's `HostDeviceTrainLoop` SAC at `HOST_SAC` on the CPU reaches
@@ -910,6 +1019,16 @@ if __name__ == "__main__":
       per_runs.append(run_per(seed, port=port))
       print(json.dumps({f"{mode}_seed": seed, **per_runs[-1]}), flush=True)
     print(json.dumps({f"{mode}_bar": per_bar(per_runs)}), flush=True)
+  for mode, port in (("bandit", False), ("bandit_port", True)):
+    if mode not in which:
+      continue
+    for scenario in BANDIT_SCENARIOS:
+      bandit_runs = []
+      for seed in range(5):
+        bandit_runs.append(run_bandit(scenario, seed, port=port))
+        print(json.dumps({mode: bandit_runs[-1]}), flush=True)
+      print(json.dumps({f"{mode}_bar": {scenario: bandit_bar(bandit_runs)}}),
+            flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)

@@ -5,7 +5,9 @@ package's dry run lives in `__graft_entry__.py` the same way): the CPU
 tests and the script's `data_parallel` phase import it. The port's twins of the first three paths of the JAX package's multi-chip
 dry run (``__graft_entry__.py:dryrun_multichip``): the fused DQN loop with
 its replay sharded on the env rows, sharded PPO (shard-local minibatches)
-and sharded PER (shard-local inverse-CDF sampling). `spawn_ranks` runs a
+and sharded PER (shard-local inverse-CDF sampling); and the twin of its
+fourth, LinUCB's sufficient statistics summed over the data axis
+(`_dryrun_bandit_psum`: `run_bandit`). `spawn_ranks` runs a
 function in n processes joined in one process group; `run_rank` builds a
 loop, shards its state over the mesh and runs a few iterations with
 injected or recorded draws, returning a snapshot of every tensor and the
@@ -512,6 +514,80 @@ def divergence(states: Sequence[Dict], references: Sequence[Dict]):
     out.append({"tensor": worst[2], "abs": worst[0],
                 "over_tolerance": worst[0] / worst[1]})
   return out
+
+
+# -- LinUCB's statistics over the data axis --------------------------------------
+
+# The JAX dry run's LinUCB: 2-dim contexts, 3 arms.
+BANDIT_PSUM = dict(context_dim=2, num_actions=3)
+
+
+def bandit_batches(seed: int, batch_size: int, num_batches: int,
+                   context_dim: int, num_actions: int):
+  """numpy (contexts [B, d], actions [B], rewards [B]) of `num_batches`
+  train calls: normal contexts and rewards, actions cycling over the
+  arms as in the JAX dry run."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  return [(rng.normal(size=(batch_size, context_dim)).astype(np.float32),
+           (np.arange(batch_size) % num_actions).astype(np.int32),
+           rng.normal(size=(batch_size,)).astype(np.float32))
+          for _ in range(num_batches)]
+
+
+def run_bandit(mesh, batches, context_dim: int, num_actions: int,
+               device=None):
+  """LinUCB trained on this rank's rows of each batch (every row without
+  a mesh), its statistics summed over the mesh's ranks in one all-reduce
+  per train call. Returns its final A, b, n (on the CPU) and, per train
+  call, the bytes and collectives passed to `torch.distributed` and the
+  largest tensor of each collective kind."""
+  import numpy as np
+
+  from agents_tpu_torch.bandits.agents import LinUcbAgent
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.trajectories import trajectory as tj
+
+  device = mesh.device if mesh is not None else device
+  agent = LinUcbAgent(
+      ts.time_step_spec(array_spec.ArraySpec((context_dim,), np.float32)),
+      array_spec.BoundedArraySpec((), np.int32, 0, num_actions - 1),
+      device=device)
+  agent.mesh = mesh
+  state = agent.init()
+  out = {"bytes_per_call": [], "calls_per_call": [], "largest_numel": {}}
+  for obs, action, reward in batches:
+    rows = slice(None)
+    if mesh is not None:
+      local = obs.shape[0] // mesh.size
+      rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+      mesh.reset_bytes()
+    to = lambda x: torch.as_tensor(x[rows], device=device)  # noqa: E731
+    n = obs[rows].shape[0]
+    traj = tj.Trajectory(
+        step_type=torch.zeros((n,), dtype=torch.int32, device=device),
+        observation=to(obs), action=to(action), policy_info=(),
+        next_step_type=torch.full((n,), 2, dtype=torch.int32, device=device),
+        reward=to(reward), discount=torch.ones((n,), device=device))
+    state, _ = agent.train(state, traj)
+    if mesh is not None:
+      out["bytes_per_call"].append(mesh.bytes_passed)
+      out["calls_per_call"].append(mesh.calls)
+      for kind, numel in mesh.largest_numel.items():
+        out["largest_numel"][kind] = max(out["largest_numel"].get(kind, 0),
+                                         numel)
+  out.update(a_mat=state.a_mat.cpu(), b_vec=state.b_vec.cpu(),
+             num_samples=state.num_samples.cpu(),
+             train_step=state.train_step)
+  return out
+
+
+def bandit_statistics_bytes(context_dim: int, num_actions: int) -> int:
+  """The bytes of one train call's summed statistics: (K d² + K d + K)
+  float32."""
+  k, d = num_actions, context_dim
+  return (k * d * d + k * d + k) * 4
 
 
 # -- n processes -----------------------------------------------------------------
