@@ -35,7 +35,8 @@ def is_atari_available() -> bool:
 def load_atari(game: str = "PongNoFrameskip-v4",
                max_episode_steps: Optional[int] = 108000 // 4,
                frame_stack: int = 4):
-  """DQN-paper preprocessing (suite_atari.py + atari_preprocessing.py)."""
+  """DQN-paper preprocessing (suite_atari.py + atari_preprocessing.py):
+  observations [84, 84, frame_stack] uint8."""
   if not is_atari_available():
     _missing("atari", "ale-py")
   import gymnasium as gym
@@ -44,9 +45,13 @@ def load_atari(game: str = "PongNoFrameskip-v4",
   from agents_tpu_torch.environments.gym_wrapper import GymWrapper
 
   env = gym.make(game, frameskip=1)
+  # grayscale_newaxis keeps each frame [84, 84, 1], so HistoryWrapper
+  # stacks the frames as channels: [84, 84, 4] uint8. (The JAX package
+  # leaves it at gymnasium's default, whose [84, 84] frames stack to
+  # [84, 336].)
   env = gym.wrappers.AtariPreprocessing(
       env, frame_skip=4, screen_size=84, grayscale_obs=True,
-      scale_obs=False)
+      grayscale_newaxis=True, scale_obs=False)
   py_env = GymWrapper(env)
   if max_episode_steps:
     py_env = wrappers.TimeLimit(py_env, max_episode_steps)

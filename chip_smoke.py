@@ -6,12 +6,15 @@ card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line
 with its wall time since the line before (`phase_seconds`); any failed
 phase exits non-zero before the last line. The phases run in the order
-below, except the six long learning runs: `sac_learn` runs last (after
-the host phases 34-39 and the replay phases 40-44), while
-`td3_learn`, `cql_offline` with `bc`, `qtopt_learn`, `ppo_rnn_learn` and
-`per_learn` run beside it in five child processes of this script
-(``chip_smoke.py --child NAME``) on the same card, after every timed
-phase.
+below, except the six long learning runs and five untimed phases:
+`sac_learn` runs after every timed phase (the host phases 34-39b and the
+replay phases 40-44 included), while `td3_learn`, `cql_offline` with
+`bc`, `qtopt_learn`, `ppo_rnn_learn` and `per_learn` run beside it in
+five child processes of this script (``chip_smoke.py --child NAME``) on
+the same card; after `sac_learn`, while the children finish, this process
+runs `bandit_learn`, `bandit_scenarios`, `discrete_parity`, `rnn_parity`
+and `parallel_env`, whose gates are exact or learning bars that repeat
+bit for bit and which time nothing.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -159,7 +162,7 @@ phase.
                   and replay on the device Pendulum: B=32, ring 4096,
                   sample 256, (256, 256), Adam 3e-4 x3, tau 0.005, gamma
                   0.99, reward scale 0.1, UTD 1.0 = 32 train steps per
-                  iteration, 64 collect steps): 5 warm-up and 25 timed
+                  iteration, 64 collect steps): 2 warm-up and 15 timed
                   iterations (5 windows) under the sync debug mode; exact
                   replay count, finite losses and log alpha, legal step
                   types, tensors on the card. Prints ms/iteration,
@@ -216,8 +219,8 @@ phase.
                   rtol 1e-5 / atol 1e-5; step types exactly).
  19. td3_main     the TD3 bench point (the example's defaults: B=32, ring
                   4096, sample 256, (256, 256), 32 train steps per
-                  iteration, 64 collect steps): 5 warm-up iterations, then 5
-                  windows of 5 under the sync debug mode (median
+                  iteration, 64 collect steps): 2 warm-up iterations, then 5
+                  windows of 3 under the sync debug mode (median
                   ms/iteration, train-steps/s, model TFLOP/s from
                   `td3_train_step_flops`), a 3-iteration profile (operator
                   records and device ops per train step, busy share, top
@@ -271,7 +274,7 @@ phase.
  26. qtopt_main   the QtOpt bench point (`--agent=qtopt` at the example's
                   defaults: B=32, ring 4096, sample 256, (256, 256) critic,
                   Adam 3e-4, 32 train steps per iteration, 64 collect
-                  steps): 5 warm-up iterations, 5 windows of 5 under the
+                  steps): 2 warm-up iterations, 5 windows of 3 under the
                   sync debug mode (median ms/iteration, train-steps/s,
                   model TFLOP/s from `qtopt_train_step_flops`), a
                   3-iteration profile, and CEM's share of a train step from
@@ -309,7 +312,7 @@ phase.
                   device ops per train step).
  31. ppo_rnn_main ``--preset=rnn`` (B=32, T=128, 10 epochs x 8 minibatches of
                   4 sequences, Adam 3e-4, LSTM actor and value at the
-                  factories' defaults): 1 warm-up and 5 windows of 1
+                  factories' defaults): 1 warm-up and 3 windows of 1
                   iteration under the sync debug mode, and the collect /
                   GAE / train split.
  32. checkpoint_resume  save, rebuild from the seed, restore and continue,
@@ -371,6 +374,40 @@ phase.
                   fresh loop object resumed toward 90: the restored state
                   `torch.equal` to the saved one, counters and metrics
                   continued.
+ 39a. atari_host  `examples/dqn_atari_torch.py`'s `train_eval` at its Config
+                  (B=8, a ring of 1,000,000 uint8 84x84x4 frames: 28.2 GB on
+                  the card, mnih15 + fc 512 in fp32, sample 32, 8 train steps
+                  per call, UTD 0.25, Adam 2.5e-4 eps 0.01) over 8 random
+                  envs with the repaired `load_atari` specs (Pong's 6
+                  actions, 500-step episodes), cut to 2,000 ticks, 500 of
+                  them random: the trainer drained, env steps exact, train
+                  steps <= 0.25 (env steps - min frames) + 8, every loss
+                  finite, epsilon at the last train step equal to
+                  `epsilon_fn`, on the collector over the run exactly one
+                  sync per policy tick (the action read) and one per tensor
+                  of a fresh agent state (the run's copy of the initial
+                  networks) and no other, the ring's dtype and bytes,
+                  the exported greedy program acting on 256 ring frames in a
+                  numpy-and-torch-only child on "cuda" and "cpu" as the live
+                  policy (rows within 1e-5 of a tie excepted). Prints
+                  env-steps/s, train-steps/s, the realized UTD, the tick with
+                  and without a train call in flight, peak memory.
+ 39b. offline_host  `examples/cql_sac_offline_host_torch.py`'s `train_eval`
+                  ("mixed") at its Config (B=32, actor (256, 256), critic
+                  (256, 256, 256), sample 256, 10 CQL samples, alpha 5.0, 64
+                  train steps per call, 10 eval envs) over random
+                  HalfCheetah-spec envs, each phase cut (16,384 behaviour
+                  env steps, 32,768 dataset frames, 192 BC of 384 offline
+                  steps, an eval at 256), then phase C
+                  again through `reuse_phase_ab`: the frames collected on
+                  disk and in both rings, every loss finite, 3 snapshots,
+                  both phase Cs equal bit for bit
+                  (every loss, the final params), no sync inside a phase-C
+                  train call, eval episodes exact, the export acting as the
+                  live policy (the state after the last train call) in a
+                  bare child (rtol 1e-5 / atol 1e-5).
+                  Prints each phase's rates, and phase C's ms per train step
+                  beside `cql_main`'s.
  40. per_parity   the PER fused DQN loop (B=64, ring 64, sample 32, (100, 50),
                   alpha 0.6, beta 0.4, TF32 off), card against CPU for 5
                   iterations, each from the CPU's state with the CPU's
@@ -425,6 +462,7 @@ phase.
  47. total        the script's wall time; then {"kernels": []}, and as the
                   last line {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -460,8 +498,10 @@ SAC_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
 SAC_RTOL = SAC_ATOL = 1e-5
 # The timed windows and profiles of the SAC, PPO, schulman17, TD3 and QtOpt
 # points are half their earlier depth, to keep the whole script well inside
-# its time limit with the recurrent phases (PERF.md §6, "Depth cut").
-SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 5, 25, 3
+# its time limit with the recurrent phases (PERF.md §6, "Depth cut"); the
+# SAC, TD3 and QtOpt points' warm-ups and windows were cut again, from 5
+# to 2 and from 5 to 3 iterations, beside the host example phases.
+SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 2, 15, 3
 SAC_LEARN_CHUNK = 250
 PPO_PARITY_ITERATIONS = 2
 PPO_PARITY_SCHULMAN17 = dict(rollout_length=257, num_minibatches=4)
@@ -474,7 +514,7 @@ TD3_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
                   train_steps_per_iteration=2, actor_fc_layers=(64, 64),
                   critic_joint_fc_layers=(64, 64))
 TD3_PARITY_INITIAL, TD3_PARITY_ITERATIONS = 16, 5
-TD3_WARMUP, TD3_TIMED_WINDOWS, TD3_WINDOW, TD3_PROFILED = 5, 5, 5, 3
+TD3_WARMUP, TD3_TIMED_WINDOWS, TD3_WINDOW, TD3_PROFILED = 2, 5, 3, 3
 DDPG_SYNC_FREE = 10
 TD3_LEARN_CHUNK, TD3_LEARN_GATE = 250, -250.0
 CQL_RTOL, CQL_ATOL = 1e-4, 1e-5
@@ -485,7 +525,7 @@ CQL_BC_GATE, CQL_OFFLINE_GATE, CQL_BEHAVIOR_GATE = -500.0, -700.0, -1000.0
 BC_SCORE_GATE = 0.8
 QTOPT_PARITY_B, QTOPT_PARITY_STEPS, QTOPT_PARITY_SAMPLE = 256, 3, 256
 QTOPT_RTOL, QTOPT_ATOL, QTOPT_GAP = 1e-4, 1e-5, 1e-5
-QTOPT_WARMUP, QTOPT_TIMED_WINDOWS, QTOPT_WINDOW, QTOPT_PROFILED = 5, 5, 5, 3
+QTOPT_WARMUP, QTOPT_TIMED_WINDOWS, QTOPT_WINDOW, QTOPT_PROFILED = 2, 5, 3, 3
 QTOPT_CEM_CALLS = 32
 QTOPT_LEARN_CHUNK, QTOPT_LEARN_GATE = 250, -250.0
 DISCRETE_B, DISCRETE_ENV_STEPS, DISCRETE_DQN_ITERATIONS = 64, 200, 3
@@ -969,6 +1009,29 @@ print(json.dumps({"ms": ms, "leaked": leaked,
 """
 
 
+def artifact_actions(phase, directory, obs, root, calls=10):
+  """The artifact in `directory` acting on the numpy `obs` in a child that
+  imports numpy and torch only (`ARTIFACT_CHILD`), on "cuda" and "cpu":
+  ({platform: actions}, the child's report, its seconds)."""
+  import numpy as np
+
+  obs_path = os.path.join(root, "observations.npy")
+  out_path = os.path.join(root, "artifact_actions.npz")
+  np.save(obs_path, obs)
+  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+  t0 = time.perf_counter()
+  child = subprocess.run(
+      [sys.executable, "-c", ARTIFACT_CHILD, directory, obs_path, out_path,
+       str(calls)], capture_output=True, text=True, timeout=300, env=env,
+      cwd=root)
+  seconds = time.perf_counter() - t0
+  if child.returncode != 0:
+    fail(phase, "the artifact's child failed: " + child.stderr[-2000:])
+  with np.load(out_path) as data:
+    actions = {p: data[p] for p in data.files}
+  return actions, json.loads(child.stdout.strip().splitlines()[-1]), seconds
+
+
 def greedy_ms(policy, params, observation, calls=EXPORT_TIMED_CALLS):
   """ms per eager call of `policy.action` on `observation` (on the card)."""
   import torch
@@ -1172,21 +1235,9 @@ def phase_learner_export(loop, state, card):
   manifest = load_manifest(greedy_dir)
   q_net = agent.policy_params(learner.state.agent_state)
   obs = learner.state.driver_state.time_step.observation
-  obs_path = os.path.join(root, "observations.npy")
-  np.save(obs_path, obs.cpu().numpy())
-  out_path = os.path.join(root, "artifact_actions.npz")
-  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-  t_child = time.perf_counter()
-  child = subprocess.run(
-      [sys.executable, "-c", ARTIFACT_CHILD, greedy_dir, obs_path, out_path,
-       str(EXPORT_TIMED_CALLS)], capture_output=True, text=True, timeout=300,
-      env=env, cwd=root)
-  child_s = time.perf_counter() - t_child
-  if child.returncode != 0:
-    fail("learner_export", "the artifact's child failed: "
-         + child.stderr[-2000:])
-  report = json.loads(child.stdout.strip().splitlines()[-1])
-  artifact = np.load(out_path)
+  artifact, report, child_s = artifact_actions(
+      "learner_export", greedy_dir, obs.cpu().numpy(), root,
+      EXPORT_TIMED_CALLS)
   b = obs.shape[0]
   step = ts.TimeStep(step_type=torch.ones(b, dtype=torch.int32, device="cuda"),
                      reward=torch.zeros(b, device="cuda"),
@@ -1891,12 +1942,12 @@ def phase_bandit_scenarios(card):
 
 
 def bandit_phases(card):
-  """The bandit slice: parity, timing, learning and every scenario."""
+  """The bandit slice's parity and timing; its learning and scenario runs
+  (`phase_bandit_learn`, `phase_bandit_scenarios`) are in
+  `UNTIMED_PHASES`."""
   phase_bandit_parity(card)
   free_card()
   phase_bandit_main(card)
-  phase_bandit_learn(card)
-  phase_bandit_scenarios(card)
   free_card()
 
 
@@ -3276,7 +3327,7 @@ def phase_cql_main(card):
   state, _, _ = steps(state, steps=CQL_WARMUP, windows=1)
   state, loss, window_ms = steps(state, steps=CQL_TIMED_WINDOWS * CQL_WINDOW,
                                  windows=CQL_TIMED_WINDOWS)
-  ms = statistics.median(window_ms)
+  ms = MAIN_POINT["cql_ms_per_train_step"] = statistics.median(window_ms)
   (state, _, _), prof = profile_call(
       lambda: steps(state, steps=CQL_PROFILED, windows=1), CQL_PROFILED,
       "train_step", name="profile_cql.json")
@@ -3969,8 +4020,9 @@ RNN_PARITY_B, RNN_PARITY_T = 64, 16
 RNN_DQN_PARITY_STEPS, RNN_DQN_PARITY_SAMPLE, RNN_SEQUENCE = 3, 256, 10
 RNN_RTOL, RNN_ATOL, RNN_ARGMAX_GAP = 1e-4, 1e-5, 1e-5
 RNN_DQN_WARMUP, RNN_DQN_WINDOWS, RNN_DQN_WINDOW, RNN_DQN_PROFILED = 5, 5, 20, 5
-# Windows of one iteration, so that the whole script stays under 800 s.
-PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 5, 1
+# Windows of one iteration, 3 of them, so that the whole script stays well
+# inside its limit.
+PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 3, 1
 # The JAX package's runs at this config reach 185.6, 157.5, 179.4, 160.5
 # and 108.65 over seeds 0-4 (`tests/test_torch_reference_bars.py ppo_rnn`):
 # all five clear the JAX test's 35, so the bar is `ppo_rnn_bar`'s, the worst
@@ -4619,26 +4671,46 @@ def sync_sac_loop(cfg, device, env_kwargs=None):
 SYNC_SITES = {}
 
 
-def count_syncs(fn):
-  """`fn()` under ``set_sync_debug_mode("warn")``: (its result, the number
-  of synchronizing CUDA operations it made). Each one's Python site
-  (file:line) is tallied in `SYNC_SITES`."""
+@contextlib.contextmanager
+def recorded_syncs(counts):
+  """Within it, ``set_sync_debug_mode("warn")``, and each synchronizing
+  CUDA operation counted into `counts` ({thread name: {file:line: n}}) in
+  the thread that made it."""
+  import threading
   import warnings
 
   import torch
 
-  with warnings.catch_warnings(record=True) as caught:
+  def record(message, category, filename, lineno, file=None, line=None):
+    del category, file, line
+    if "synchroniz" in str(message):
+      per = counts.setdefault(threading.current_thread().name, {})
+      site = f"{os.path.relpath(filename)}:{lineno}"
+      per[site] = per.get(site, 0) + 1
+
+  with warnings.catch_warnings():
     warnings.simplefilter("always")
+    warnings.showwarning = record
     torch.cuda.set_sync_debug_mode("warn")
     try:
-      result = fn()
+      yield counts
     finally:
       torch.cuda.set_sync_debug_mode(0)
-  syncs = [w for w in caught if "synchroniz" in str(w.message)]
-  for w in syncs:
-    site = f"{os.path.relpath(w.filename)}:{w.lineno}"
-    SYNC_SITES[site] = SYNC_SITES.get(site, 0) + 1
-  return result, len(syncs)
+
+
+def count_syncs(fn):
+  """`fn()` under ``set_sync_debug_mode("warn")``: (its result, the number
+  of synchronizing CUDA operations it made). Each one's Python site
+  (file:line) is tallied in `SYNC_SITES`."""
+  counts = {}
+  with recorded_syncs(counts):
+    result = fn()
+  total = 0
+  for sites in counts.values():
+    for site, n in sites.items():
+      SYNC_SITES[site] = SYNC_SITES.get(site, 0) + n
+      total += n
+  return result, total
 
 
 def phase_host_parity(card):
@@ -5045,15 +5117,460 @@ def phase_async_resume(card):
 
 
 def host_phases(card):
-  """The host environments and the three host-device loops."""
+  """The host environments and the three host-device loops; the parallel
+  env's phase (`phase_parallel_env`) is in `UNTIMED_PHASES`."""
   phase_host_parity(card)
   phase_host_sac_main(card)
   free_card()
   phase_async_sac_main(card)
   free_card()
   phase_host_ppo_main(card)
-  phase_parallel_env(card)
   phase_async_resume(card)
+  free_card()
+
+
+# -- the host examples: Atari DQN and the offline CQL-SAC pipeline -------------
+
+# `examples/dqn_atari_torch.py` at its Config (B=8, the 1M-frame ring, mnih15
+# + fc 512 in fp32, sample 32, 8 train steps per call, UTD 0.25) with the
+# run cut to 2,000 ticks over random envs with the Atari specs.
+ATARI_HOST = dict(total_env_steps=16_000, initial_collect_ticks=500,
+                  progress_every_ticks=1000)
+ATARI_EPISODE_STEPS = 500
+ATARI_EXPORT_ROWS = 256
+# `examples/cql_sac_offline_host_torch.py` at its Config (B=32, actor
+# (256, 256), critic (256, 256, 256), sample 256, 10 CQL samples, alpha
+# 5.0, 64 train steps per call, 10 eval envs), the "mixed" dataset, with
+# each phase cut.
+OFFLINE_HOST = dict(behavior_env_steps=16_384, dataset_frames=32_768,
+                    num_bc_steps=192, offline_train_steps=384,
+                    eval_interval=256, dataset_mix="mixed")
+OFFLINE_EXPORT_ROWS = 256
+OFFLINE_EXPORT_RTOL, OFFLINE_EXPORT_ATOL = 1e-5, 1e-5
+# Where `AsyncHostDeviceTrainLoop.run`, at its start, copies the initial
+# networks to the host (`capture`): one sync per tensor of a fresh agent
+# state, and no other main-thread sync of the run but the action reads.
+RUN_START_SYNC_FILE = "checkpointer.py"
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, wrap):
+  """Within it, `owner.name` is `wrap(the original)`; restored after."""
+  original = getattr(owner, name)
+  setattr(owner, name, wrap(original))
+  try:
+    yield
+  finally:
+    setattr(owner, name, original)
+
+
+def tensor_leaves(nest):
+  """The number of tensors in a nest of dicts, lists and tuples."""
+  import torch
+
+  if isinstance(nest, torch.Tensor):
+    return 1
+  if isinstance(nest, dict):
+    nest = list(nest.values())
+  if isinstance(nest, (list, tuple)):
+    return sum(tensor_leaves(v) for v in nest)
+  return 0
+
+
+@contextlib.contextmanager
+def recorded_losses(*agent_classes):
+  """Within it, each `train` of the agent classes keeps its loss tensor
+  (unread) in ``{class name: [loss, ...]}``; the classes are restored
+  after."""
+  losses = {cls.__name__: [] for cls in agent_classes}
+  originals = {cls: cls.train for cls in agent_classes}
+
+  def wrap(cls, train):
+    def recorded(self, agent_state, experience, *args, **kwargs):
+      agent_state, info = train(self, agent_state, experience, *args,
+                                **kwargs)
+      losses[cls.__name__].append(info.loss.detach())
+      return agent_state, info
+    return recorded
+
+  for cls, train in originals.items():
+    cls.train = wrap(cls, train)
+  try:
+    yield losses
+  finally:
+    for cls, train in originals.items():
+      cls.train = train
+
+
+def all_finite(tensors):
+  import torch
+  return bool(tensors) and bool(torch.isfinite(torch.stack(tensors)).all())
+
+
+def first_step(observation):
+  """A batch of FIRST time steps over `observation`, on its device."""
+  import torch
+
+  from agents_tpu_torch.trajectories import time_step as ts
+
+  b, device = observation.shape[0], observation.device
+  return ts.TimeStep(step_type=torch.zeros(b, dtype=torch.int32,
+                                           device=device),
+                     reward=torch.zeros(b, device=device),
+                     discount=torch.ones(b, device=device),
+                     observation=observation)
+
+
+def random_atari(seed):
+  """A seeded `RandomPyEnvironment` with the specs of the repaired
+  `suites.load_atari` (observation [84, 84, 4] uint8, Pong's 6 actions)
+  and 500-step episodes."""
+  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
+  from examples.dqn_atari_torch import atari_specs
+
+  return RandomPyEnvironment(*atari_specs(), episode_end_probability=0.0,
+                             max_duration=ATARI_EPISODE_STEPS, seed=seed)
+
+
+def phase_atari_host(card):
+  """`examples/dqn_atari_torch.py`'s `train_eval` at its full width, the
+  1M-frame uint8 ring on the card, over random Atari-spec envs."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.agents.dqn import DqnAgent
+  from agents_tpu_torch.policies.policy_saver import load_manifest
+  from agents_tpu_torch.train.checkpointer import capture
+  from examples import dqn_atari_torch as ex
+
+  t_phase = time.perf_counter()
+  free_card()
+  torch.cuda.reset_peak_memory_stats()
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix="atari_host_", dir=RUNS_DIR)
+  cfg = ex.Config(root_dir=root, **ATARI_HOST)
+  B, K = cfg.env_batch_size, cfg.train_steps_per_call
+  seeds = iter(range(10**6))
+  syncs, built = {}, {}
+
+  def recording(build_loop):
+    # The example's loop, timed, with the syncs of its `run` recorded (the
+    # export after the run syncs by design), and the tensors of a fresh
+    # agent state counted: the run copies those to the host at its start.
+    def build(*args, **kwargs):
+      t_build = time.perf_counter()
+      loop = build_loop(*args, **kwargs)
+      torch.cuda.synchronize()
+      built.update(loop=loop, seconds=time.perf_counter() - t_build,
+                   initial_tensors=tensor_leaves(capture(loop.agent.init())))
+      run = loop.run
+
+      def recorded_run(*a, **k):
+        with recorded_syncs(syncs):
+          return run(*a, **k)
+      loop.run = recorded_run
+      return loop
+    return build
+
+  with recorded_losses(DqnAgent) as losses, \
+      wrapped(ex, "build_loop", recording):
+    out = ex.train_eval(cfg, make_env=lambda: random_atari(next(seeds)))
+  loop, build_s = built["loop"], built["seconds"]
+  losses = losses["DqnAgent"]
+  ticks = cfg.total_env_steps // B
+  min_frames = cfg.initial_collect_ticks * B
+  policy_ticks = ticks - cfg.initial_collect_ticks
+  main_syncs = syncs.get("MainThread", {})
+  action_reads = sum(n for s, n in main_syncs.items()
+                     if "jitted_py_policy.py" in s)
+  run_start = {s: n for s, n in main_syncs.items()
+               if RUN_START_SYNC_FILE in s}
+  collector_other = {s: n for s, n in main_syncs.items()
+                     if "jitted_py_policy.py" not in s
+                     and RUN_START_SYNC_FILE not in s}
+  trainer_syncs = {t: n for t, n in syncs.items() if t != "MainThread"}
+  state, agent = out["agent_state"], loop.agent
+  epsilon = agent.collect_policy._epsilon(agent.collect_policy_params(state))
+  obs = loop._replay_state.storage.observation
+  ring_bytes = obs.numel() * obs.element_size()
+
+  # The exported greedy program against the live greedy policy, on the
+  # frames of the ring's first ticks.
+  frames = obs[:ATARI_EXPORT_ROWS // B].reshape(
+      (ATARI_EXPORT_ROWS,) + tuple(obs.shape[2:]))
+  actions, report, child_s = artifact_actions(
+      "atari_host", out["policy_dir"], frames.cpu().numpy(), root)
+  with torch.no_grad():
+    live = agent.policy.action(state.q_network,
+                               first_step(frames)).action.cpu().numpy()
+    q = state.q_network(frames)[0].cpu().numpy()
+  top2 = np.sort(q, axis=-1)[:, -2:]
+  clear = (top2[:, 1] - top2[:, 0]) > EXPORT_TIE
+  differ = {p: int((a.reshape(-1)[clear] != live[clear]).sum())
+            for p, a in actions.items()}
+  manifest = load_manifest(out["policy_dir"])
+  checks = {
+      "trainer_drained": out["trainer_drained"],
+      "env_steps_exact": out["env_steps"] == ticks * B,
+      "train_steps_within_utd": 0 < out["train_steps"]
+                                <= cfg.utd_ratio * (out["env_steps"]
+                                                    - min_frames) + K,
+      "every_train_step_recorded": len(losses) == out["train_steps"]
+                                   == state.train_step,
+      "losses_finite": all_finite(losses),
+      "epsilon_schedule": epsilon == ex.epsilon_fn(cfg)(state.train_step),
+      "one_sync_per_policy_tick": action_reads == policy_ticks,
+      "run_start_sync_per_initial_tensor": sum(run_start.values())
+                                           == built["initial_tensors"],
+      "no_other_collector_sync": not collector_other,
+      "ring_on_card_uint8": (obs.device.type == "cuda"
+                             and obs.dtype == torch.uint8
+                             and ring_bytes
+                             == cfg.replay_capacity_frames * 84 * 84 * 4),
+      "export_batch_polymorphic": manifest["torch_export"]
+                                  == "batch-polymorphic",
+      "export_acts_as_live": not any(differ.values())
+                             and not report["leaked"],
+      "train_jsonl_written": os.path.exists(os.path.join(root,
+                                                         "train.jsonl"))}
+  ok = all(checks.values())
+  wall = out["wall_s"]
+  emit("atari_host", card=card,
+       env=f"RandomPyEnvironment x {B} (load_atari specs: (84, 84, 4) "
+       "uint8, 6 actions)", batch_size=B,
+       replay_capacity_frames=cfg.replay_capacity_frames,
+       ring_per_row=cfg.replay_capacity_frames // B,
+       ring_observation_bytes=ring_bytes, conv=cfg.conv_layer_params,
+       fc=cfg.fc_layer_params, dtype="float32",
+       sample_batch_size=cfg.sample_batch_size, train_steps_per_call=K,
+       utd_ratio=cfg.utd_ratio, adam_epsilon=cfg.adam_epsilon,
+       cuts=["ALE -> RandomPyEnvironment with the repaired load_atari specs "
+             f"(Pong's 6 actions, {ATARI_EPISODE_STEPS}-step episodes)",
+             f"total_env_steps 12,500,000 -> {cfg.total_env_steps}",
+             f"initial_collect_ticks 2,500 -> {cfg.initial_collect_ticks}",
+             f"progress_every_ticks 2,000 -> {cfg.progress_every_ticks}"],
+       build_seconds=build_s, run_seconds=wall,
+       env_steps=out["env_steps"], train_steps=out["train_steps"],
+       env_steps_per_s=out["env_steps"] / wall,
+       train_steps_per_s=out["train_steps"] / wall,
+       utd_realized=out["train_steps"] / max(out["env_steps"] - min_frames,
+                                              1),
+       tick_ms_trainer_idle=out["tick_ms_trainer_idle"],
+       tick_ms_trainer_busy=out["tick_ms_trainer_busy"],
+       ticks_trainer_idle=out["ticks_trainer_idle"],
+       ticks_trainer_busy=out["ticks_trainer_busy"],
+       last_loss=out["last_loss"], epsilon_at_last_step=epsilon,
+       action_read_syncs=action_reads, policy_ticks=policy_ticks,
+       collector_other_syncs=collector_other, run_start_syncs=run_start,
+       initial_state_tensors=built["initial_tensors"],
+       trainer_thread_syncs=trainer_syncs, main_thread_syncs=main_syncs,
+       export_rows=ATARI_EXPORT_ROWS, rows_clear_of_ties=int(clear.sum()),
+       tie=EXPORT_TIE, actions_differing_from_live=differ,
+       export=manifest["torch_export"], exported_ms=report["ms"],
+       child_seconds=child_s, child_modules_leaked=report["leaked"],
+       peak_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+       checks=checks, seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("atari_host", f"Atari host checks failed: {checks}")
+
+
+def collect_frames_on_disk(data_dir, data_spec, collects):
+  """(the non-boundary frames of each collect in the dataset on disk, the
+  dataset's frames per row); the collects lie in order, `ticks` frames
+  of [B, ...] each."""
+  import numpy as np
+
+  from agents_tpu_torch.utils import dataset_io
+
+  step_types = np.concatenate([
+      np.asarray(shard.step_type) for shard in
+      dataset_io.load_trajectory_dataset(data_dir, data_spec)])
+  out, start = [], 0
+  for c in collects:
+    part = step_types[start:start + c["ticks"]]
+    out.append(int((part != 2).sum()))       # StepType.LAST: a boundary
+    start += c["ticks"]
+  return out, int(step_types.shape[0])
+
+
+def phase_offline_host(card):
+  """`examples/cql_sac_offline_host_torch.py`'s `train_eval` ("mixed") at
+  its full width over random HalfCheetah-spec envs, then phase C again
+  through `reuse_phase_ab` from its root."""
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.agents.cql import CqlSacAgent
+  from agents_tpu_torch.agents.sac import SacAgent
+  from agents_tpu_torch.eval import metric_utils
+  from agents_tpu_torch.metrics import py_metrics
+  from agents_tpu_torch.policies.jitted_py_policy import JittedPyPolicy
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.trajectories import trajectory as tj
+  from agents_tpu_torch.utils import dataset_io
+  from examples import cql_sac_offline_host_torch as ex
+
+  t_phase = time.perf_counter()
+  free_card()
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  base = tempfile.mkdtemp(prefix="offline_host_", dir=RUNS_DIR)
+  cfg = ex.Config(root_dir=os.path.join(base, "first"), **OFFLINE_HOST)
+  reuse = dataclasses.replace(cfg, root_dir=os.path.join(base, "reuse"),
+                              reuse_phase_ab=cfg.root_dir)
+  B = cfg.env_batch_size
+  runs = {}
+  for name, c in (("first", cfg), ("reuse", reuse)):
+    stats, chunk_syncs, live = {}, {}, {}
+
+    def recording(train_chunk):
+      # Each phase-C train call with its syncs recorded; the agent and the
+      # state of the last one are the live policy that phase C exports.
+      def chunk(cfg_, agent, agent_state, *args):
+        with recorded_syncs(chunk_syncs):
+          agent_state, loss = train_chunk(cfg_, agent, agent_state, *args)
+        live.update(agent=agent, state=agent_state)
+        return agent_state, loss
+      return chunk
+
+    t0 = time.perf_counter()
+    with recorded_losses(SacAgent, CqlSacAgent) as losses, \
+        wrapped(ex, "train_chunk", recording):
+      result = ex.train_eval(c, make_env=halfcheetah_factory(), stats=stats)
+    runs[name] = dict(result=result, stats=stats, chunk_syncs=chunk_syncs,
+                      live=live, losses=losses,
+                      seconds=time.perf_counter() - t0)
+  first, again = runs["first"], runs["reuse"]
+  a, b_, c_ = (first["stats"]["phase_a"], first["stats"]["phase_b"],
+               first["stats"]["phase_c"])
+
+  # The dataset on disk and both rings hold the frames collected.
+  obs_spec, act_spec = halfcheetah_specs()
+  data_spec = tj.trajectory_spec(ts.time_step_spec(obs_spec), act_spec)
+  data_dir = os.path.join(cfg.root_dir, "dataset")
+  per_collect, rows_frames = collect_frames_on_disk(data_dir, data_spec,
+                                                    b_["collects"])
+  ticks = sum(col["ticks"] for col in b_["collects"])
+  counts_ok = (rows_frames == ticks == dataset_io.dataset_num_frames(data_dir)
+               == c_["ring_count"] == again["stats"]["phase_c"]["ring_count"]
+               and all(col["frames"] <= n < col["frames"] + B
+                       for col, n in zip(b_["collects"], per_collect)))
+
+  # Phase C again from the same dataset and seed: the same losses at every
+  # step and the same final parameters, bit for bit.
+  cql_first, cql_again = (first["losses"]["CqlSacAgent"],
+                          again["losses"]["CqlSacAgent"])
+  losses_equal = len(cql_first) == len(cql_again) == \
+      cfg.offline_train_steps and all(
+          torch.equal(x, y) for x, y in zip(cql_first, cql_again))
+  greedy = {n: os.path.join(c.root_dir, "policies", "greedy_policy")
+            for n, c in (("first", cfg), ("reuse", reuse))}
+  saved = {n: torch.load(os.path.join(d, "params.pt"), weights_only=True)
+           for n, d in greedy.items()}
+  params_equal = sorted(saved["first"]) == sorted(saved["reuse"]) and all(
+      torch.equal(saved["first"][k], saved["reuse"][k])
+      for k in saved["first"])
+
+  # The exported greedy program against the live greedy policy (the
+  # agent's state after its last train call), in a bare process, on
+  # random observations.
+  agent = first["live"]["agent"]
+  live_params = agent.policy_params(first["live"]["state"])
+  obs = np.random.RandomState(3).randn(OFFLINE_EXPORT_ROWS,
+                                       HALFCHEETAH_OBS).astype(np.float32)
+  actions, report, child_s = artifact_actions(
+      "offline_host", greedy["first"], obs, base)
+  with torch.no_grad():
+    live = agent.policy.action(live_params, first_step(
+        torch.from_numpy(obs).cuda())).action.cpu().numpy()
+  export_diff = {p: float(np.max(np.abs(x - live))) for p, x in
+                 actions.items()}
+  export_ok = all(np.allclose(x, live, rtol=OFFLINE_EXPORT_RTOL,
+                              atol=OFFLINE_EXPORT_ATOL)
+                  for x in actions.values()) and not report["leaked"]
+
+  # A greedy eval of the live policy counts exactly the episodes asked.
+  eval_env = ex.build_env(cfg, make_env=halfcheetah_factory())[1]
+  counted = metric_utils.compute(
+      [py_metrics.AverageReturnMetric(cfg.num_eval_episodes),
+       py_metrics.NumberOfEpisodes()], eval_env,
+      JittedPyPolicy(agent.policy, live_params),
+      num_episodes=cfg.num_eval_episodes)
+  eval_env.close()
+  evals = [json.loads(line) for line in open(
+      os.path.join(cfg.root_dir, "offline.jsonl"))]
+  eval_losses = [r["cql_loss"] for r in evals if "cql_loss" in r]
+  checks = {
+      "frames_on_disk_and_in_rings": counts_ok,
+      "behavior_losses_finite": all_finite(first["losses"]["SacAgent"]),
+      "behavior_trained": a["train_steps"] > 0 and a["trainer_drained"],
+      "cql_losses_finite": all_finite(cql_first + cql_again),
+      "snapshots": len(a["snapshot_env_steps"]) == 3,
+      "reuse_losses_bit_for_bit": losses_equal,
+      "reuse_params_bit_for_bit": params_equal,
+      "no_sync_in_phase_c_train_calls": not first["chunk_syncs"]
+                                        and not again["chunk_syncs"],
+      "eval_episodes_exact": int(counted["NumberOfEpisodes"])
+                             == cfg.num_eval_episodes,
+      "eval_losses_read": len(eval_losses) == sum(
+          1 for step in range(cfg.train_steps_per_call,
+                              cfg.offline_train_steps + 1,
+                              cfg.train_steps_per_call)
+          if step % cfg.eval_interval < cfg.train_steps_per_call) and all(
+          math.isfinite(x) for x in eval_losses),
+      "result_keys": sorted(first["result"]) == sorted(again["result"]),
+      "export_acts_as_live": export_ok}
+  ok = all(checks.values())
+  steps_c = c_["train_steps"]
+  emit("offline_host", card=card,
+       env=f"random_halfcheetah x {B} (HalfCheetah-v5 specs, 1,000-step "
+       "episodes)", batch_size=B, actor=list(cfg.actor_fc_layers),
+       critic=list(cfg.critic_joint_fc_layers),
+       sample_batch_size=cfg.offline_batch_size,
+       num_cql_samples=cfg.num_cql_samples, cql_alpha=cfg.cql_alpha,
+       train_steps_per_call=cfg.train_steps_per_call,
+       num_eval_envs=cfg.num_eval_envs, dataset_mix=cfg.dataset_mix,
+       cuts=["HalfCheetah-v5 -> chip_smoke.random_halfcheetah (no MuJoCo on "
+             "the card's machine)"] + [
+                 f"{k} {getattr(ex.Config(), k)} -> {v}"
+                 for k, v in OFFLINE_HOST.items() if k != "dataset_mix"],
+       phase_a={"env_steps": a["env_steps"], "train_steps": a["train_steps"],
+                "wall_s": a["wall_s"],
+                "env_steps_per_s": a["env_steps"] / a["wall_s"],
+                "train_steps_per_s": a["train_steps"] / a["wall_s"],
+                "tick_ms_trainer_idle": a["tick_ms_trainer_idle"],
+                "tick_ms_trainer_busy": a["tick_ms_trainer_busy"],
+                "snapshot_env_steps": a["snapshot_env_steps"],
+                "seconds": a["seconds"]},
+       phase_b={"collects": b_["collects"], "seconds": b_["seconds"],
+                "frames_per_s": sum(col["ticks"] for col in b_["collects"])
+                * B / b_["seconds"],
+                "non_boundary_frames_per_collect": per_collect,
+                "frames_per_row_on_disk": rows_frames},
+       phase_c={"train_steps": steps_c, "train_seconds": c_["train_seconds"],
+                "ms_per_train_step": c_["train_seconds"] * 1e3 / steps_c,
+                "cql_main_ms_per_train_step": MAIN_POINT.get(
+                    "cql_ms_per_train_step"),
+                "ring_count": c_["ring_count"],
+                "reuse_ms_per_train_step": again["stats"]["phase_c"][
+                    "train_seconds"] * 1e3 / steps_c,
+                "seconds": c_["seconds"]},
+       eval_losses=eval_losses, result=first["result"],
+       reuse_result=again["result"],
+       run_seconds={n: r["seconds"] for n, r in runs.items()},
+       export_max_abs_diff=export_diff, export_rows=OFFLINE_EXPORT_ROWS,
+       exported_ms=report["ms"], child_seconds=child_s,
+       child_modules_leaked=report["leaked"],
+       counted_eval_episodes=int(counted["NumberOfEpisodes"]),
+       checks=checks, seconds=time.perf_counter() - t_phase, ok=ok)
+  if not ok:
+    fail("offline_host", f"offline host checks failed: {checks}")
+
+
+def host_example_phases(card):
+  """The Atari DQN and offline CQL-SAC host examples."""
+  phase_atari_host(card)
+  free_card()
+  phase_offline_host(card)
   free_card()
 
 
@@ -5882,15 +6399,21 @@ CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline,
                 "per_learn": phase_per_learn}
 
 
+# Phases that time nothing and whose gates repeat bit for bit, run beside
+# the learning children once `sac_learn` is done.
+UNTIMED_PHASES = (phase_bandit_learn, phase_bandit_scenarios,
+                  phase_discrete_parity, phase_rnn_parity, phase_parallel_env)
+
+
 def learning_phases(card):
   """`sac_learn` here while `td3_learn`, `cql_offline` + `bc`,
   `qtopt_learn`, `ppo_rnn_learn` and `per_learn` run in five child
   processes of this script on the same card. Each is a long run of small
   host-bound steps (the card idles over 90% of the time), so five at once
   take about as long as the longest on the host's cores; no timed phase
-  runs beside
-  them. Their lines are printed as each ends; a child that fails fails
-  the script, and no child outlives it."""
+  runs beside them, only, after `sac_learn`, the untimed phases of
+  `UNTIMED_PHASES`. The children's lines are printed as each ends; a child
+  that fails fails the script, and no child outlives it."""
   children = {
       name: subprocess.Popen(
           [sys.executable, os.path.abspath(__file__), "--child", name],
@@ -5898,6 +6421,9 @@ def learning_phases(card):
       for name in CHILD_PHASES}
   try:
     phase_sac_learn(card)
+    for phase in UNTIMED_PHASES:
+      phase(card)
+    free_card()
     for name, proc in children.items():
       out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
       sys.stdout.write(out)
@@ -5972,15 +6498,13 @@ def main(argv=()):
   phase_qtopt_parity(card)
   phase_qtopt_main(card)
   free_card()
-  phase_discrete_parity(card)
-  free_card()
-  phase_rnn_parity(card)
   phase_rnn_dqn_main(card)
   free_card()
   phase_ppo_rnn_main(card)
   phase_checkpoint_resume(card)
   free_card()
   host_phases(card)
+  host_example_phases(card)
   replay_phases(card)
   learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "

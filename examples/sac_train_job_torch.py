@@ -32,7 +32,9 @@ Usage (start this first, then N collect jobs):
       --rings=sac_ring_0,sac_ring_1 --env_name=Pendulum-v1 \\
       --weights_shm=sac_weights
 
-Smoke (spawns 2 collect jobs, trains 200 steps):
+Smoke (spawns 2 collect jobs, trains 200 steps; the collectors' stdout
+is piped and relayed line by line through the learner's one writer, so
+their long `done` records never interleave with another process's):
   python examples/sac_train_job_torch.py --smoke [--device cpu]
 """
 import argparse
@@ -42,6 +44,7 @@ import os
 import secrets
 import subprocess
 import sys
+import threading
 import time
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -284,11 +287,37 @@ class Learner:
       self.weights.unlink()
 
 
+def line_logger(stream=None):
+  """A `log(line)` that writes each line whole, with its newline, in one
+  locked write to `stream` (stdout unless given), from any thread."""
+  lock = threading.Lock()
+
+  def log(line):
+    with lock:
+      out = stream or sys.stdout
+      out.write(line + "\n")
+      out.flush()
+  return log
+
+
+def relay_lines(proc, log):
+  """A started thread that passes each line of `proc`'s piped stdout to
+  `log` whole: the children's long records then reach the job's stdout
+  through one writer, never interleaved with another process's."""
+  def relay():
+    for line in proc.stdout:
+      log(line.rstrip("\n"))
+
+  thread = threading.Thread(target=relay, daemon=True)
+  thread.start()
+  return thread
+
+
 def main(argv=None):
   args = parse_args(argv)
-  log = lambda line: print(line, flush=True)  # noqa: E731
+  log = line_logger()
   learner = Learner(args, *env_specs(args.env_name))
-  collectors = []
+  collectors, relays = [], []
   try:
     if args.smoke:
       for ring in args.rings.split(","):
@@ -299,7 +328,9 @@ def main(argv=None):
             f"--root_dir={args.root_dir}", f"--ring={ring}",
             f"--env_name={args.env_name}", "--env_batch_size=4",
             "--total_ticks=0", "--random_ticks=8", "--policy_poll_ticks=16",
-            f"--weights_shm={args.weights_shm}"]))
+            f"--weights_shm={args.weights_shm}"],
+            stdout=subprocess.PIPE, text=True))
+        relays.append(relay_lines(collectors[-1], log))
     # The initial weights at once, so collectors leave random play
     # without waiting for the first interval.
     learner.publish()
@@ -326,6 +357,8 @@ def main(argv=None):
       except subprocess.TimeoutExpired:
         p.kill()
         p.wait()
+    for thread in relays:
+      thread.join(timeout=30)
     learner.close()
   log(json.dumps({"job": "train", "done": True,
                   "train_steps": learner.train_steps,

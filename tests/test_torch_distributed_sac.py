@@ -72,6 +72,48 @@ def test_job_set_runs_its_smoke_on_the_cpu(tmp_path):
       assert crc_by_step.setdefault(step, crc) == crc
 
 
+# Two children and the parent each write these 64 KB records at once, the
+# parent through the job set's `line_logger` and the children through its
+# `relay_lines`: every line of the parent's stdout must be one whole record.
+RELAY_RECORDS, RELAY_BYTES = 20, 1 << 16
+RELAY_PARENT = """
+import json, subprocess, sys
+sys.path.insert(0, {root!r})
+from examples.sac_train_job_torch import line_logger, relay_lines
+child = ("import json\\n"
+         "for i in range({n}):\\n"
+         "  print(json.dumps({{'child': %d, 'i': i, 'pad': 'c' * {size}}}),"
+         " flush=True)\\n")
+log = line_logger()
+procs = [subprocess.Popen([sys.executable, "-c", child % k],
+                          stdout=subprocess.PIPE, text=True)
+         for k in range(2)]
+relays = [relay_lines(p, log) for p in procs]
+for i in range({n}):
+  log(json.dumps({{"parent": True, "i": i, "pad": "p" * {size}}}))
+for p, t in zip(procs, relays):
+  p.wait(timeout=60)
+  t.join(timeout=60)
+"""
+
+
+def test_job_set_relay_keeps_long_records_whole():
+  """C4: the collectors' `done` records exceed a pipe's atomic write, so
+  written by two processes into one stdout they could interleave; relayed
+  through the learner's one writer, each arrives as a whole line."""
+  code = RELAY_PARENT.format(root=ROOT, n=RELAY_RECORDS, size=RELAY_BYTES)
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  records = [json.loads(line) for line in proc.stdout.splitlines()]
+  assert len(records) == 3 * RELAY_RECORDS
+  for who in ({"parent": True}, {"child": 0}, {"child": 1}):
+    (key, value), = who.items()
+    mine = [r for r in records if r.get(key) == value]
+    assert [r["i"] for r in mine] == list(range(RELAY_RECORDS))
+    assert all(len(r["pad"]) == RELAY_BYTES for r in mine)
+
+
 def _specs():
   env = RandomPyEnvironment(
       array_spec.ArraySpec((3,), np.float32),

@@ -79,7 +79,9 @@ def test_ppo_halfcheetah_smoke_and_resume(tmp_path):
 
 @pytest.mark.parametrize("example,jax_example", [
     ("sac_halfcheetah_torch", "sac_halfcheetah"),
-    ("ppo_halfcheetah_torch", "ppo_halfcheetah")])
+    ("ppo_halfcheetah_torch", "ppo_halfcheetah"),
+    ("dqn_atari_torch", "dqn_atari"),
+    ("cql_sac_offline_host_torch", "cql_sac_offline")])
 def test_config_defaults_equal_the_jax_examples(example, jax_example):
   sys.path.insert(0, os.path.join(ROOT, "examples"))
   import importlib

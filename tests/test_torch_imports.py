@@ -20,7 +20,8 @@ EXAMPLES = ("dqn_cartpole_torch.py", "dqn_pixels_torch.py",
             "td3_pendulum_torch.py", "cql_sac_offline_torch.py",
             "sac_halfcheetah_torch.py", "ppo_halfcheetah_torch.py",
             "sac_train_job_torch.py", "sac_collect_job_torch.py",
-            "eval_job_torch.py", "bandits_train_eval_torch.py")
+            "eval_job_torch.py", "bandits_train_eval_torch.py",
+            "dqn_atari_torch.py", "cql_sac_offline_host_torch.py")
 # The distributed SAC jobs and the eval job build no `Config`: the learner
 # and the eval job are checked on their own below, and the collector runs
 # on the CPU by design.
@@ -451,6 +452,26 @@ def test_every_jax_module_has_a_port_twin():
                                  for n in jax_names}, pkg
     for name in port.__all__:
       assert hasattr(port, name), (pkg, name)
+
+
+def test_every_jax_example_has_a_port_twin():
+  """Each JAX example, ``examples/*.py`` without `_torch`, has a twin in
+  the port: ``cql_sac_offline.py``'s host pipeline is
+  ``cql_sac_offline_host_torch.py`` (``cql_sac_offline_torch.py`` is the
+  twin of ``tests/test_cql_offline_e2e.py``'s device pipeline), every
+  other ``x.py`` is ``x_torch.py``. ``bench.py``, at the repository's
+  root, is not an example: its twin is ROADMAP A0, the port's benchmark.
+  """
+  twins = {"cql_sac_offline.py": "cql_sac_offline_host_torch.py"}
+  examples = os.path.join(ROOT, "examples")
+  jax_examples = sorted(f for f in os.listdir(examples)
+                        if f.endswith(".py") and not f.endswith("_torch.py"))
+  assert len(jax_examples) == 10
+  missing = [f for f in jax_examples if not os.path.exists(os.path.join(
+      examples, twins.get(f, f[:-3] + "_torch.py")))]
+  assert missing == []
+  assert set(twins.values()) | {f[:-3] + "_torch.py" for f in jax_examples
+                                if f not in twins} <= set(EXAMPLES)
 
 
 def test_bandit_entry_points_raise_without_a_card(monkeypatch):

@@ -59,6 +59,14 @@ by the port:
           behaviour policy's greedy return and random play, each over 30
           episodes) and `CqlSacAgent` with 1,000 BC steps (greedy return
           after the BC steps and at the end).
+  behavior phase A of the same offline pipeline alone (the SAC behaviour
+          run of `tests/test_cql_offline_e2e.py:38-54`, checked every 250
+          iterations up to 6,000 for a last-20 return above -250), then
+          its greedy return over 10 episodes; `behavior_port` runs the
+          port's `behavior_phase` on the CPU at the same config. Five seeds
+          of each give the two distributions of ROADMAP C2 (about 30 s a
+          JAX seed and 60-90 s a port seed on one core; ``--behavior-seed=N``
+          runs one).
 
 Run them (about 10 minutes on 8 CPU cores), over seeds 0-4 for TD3 and
 QtOpt and phase-C seeds 0-3 for the offline agents (one QtOpt seed takes
@@ -68,6 +76,7 @@ seeds, so five processes can run them side by side):
     JAX_PLATFORMS=cpu python tests/test_torch_reference_bars.py [td3]
         [offline] [qtopt [--qtopt-seed=N ...]] [ppo_rnn]
         [host_sac [--host-sac-seed=N ...]] [per] [bandit]
+        [behavior|behavior_port [--behavior-seed=N ...]]
 
 (`ppo_rnn` takes about a minute a seed on one core; `host_sac` a minute or
 two; `host_sac_port` runs the port at `HOST_SAC` over the same seeds; `per`
@@ -581,6 +590,66 @@ def _sac_kwargs(cfg, tss, asp):
       reward_scale_factor=cfg.reward_scale_factor)
 
 
+def run_behavior(seed, port=False):
+  """Phase A of the offline device pipeline from `seed`: the SAC behaviour
+  run of `tests/test_cql_offline_e2e.py:38-54` with the JAX package, or
+  `examples/cql_sac_offline_torch.py:behavior_phase` with the port on the
+  CPU, at that pipeline's config (B=8, (64, 64), ring 4096, 2 train steps
+  of 128, 128 initial collect steps, checked every 250 iterations up to
+  6,000 for a last-20 return above -250); then the greedy return over 10
+  episodes."""
+  import numpy as np
+
+  from examples.cql_sac_offline_torch import Config
+
+  cfg = dataclasses.replace(Config(device="cpu"), seed=seed)
+  t0 = time.time()
+  if port:
+    from examples import cql_sac_offline_torch as ex
+    env = ex.build_env(cfg)
+    agent, state, iterations, last20 = ex.behavior_phase(cfg, env)
+    greedy, _ = ex.greedy_eval(cfg, env, agent, state, 10, 7)
+  else:
+    import jax
+
+    from agents_tpu import metrics
+    from agents_tpu.agents.sac import SacAgent
+    from agents_tpu.environments.classic.pendulum import Pendulum
+    from agents_tpu.environments.jax_environment import BatchedJaxEnv
+    from agents_tpu.eval import metric_utils
+    from agents_tpu.replay_buffers import UniformReplay
+    from agents_tpu.train import FusedTrainLoop
+    from agents_tpu.trajectories import trajectory as tj
+
+    env = BatchedJaxEnv(Pendulum(cfg.max_episode_steps),
+                        batch_size=cfg.env_batch_size)
+    tss, asp = env.time_step_spec(), env.action_spec()
+    agent = SacAgent(tss, asp, **_sac_kwargs(cfg, tss, asp))
+    replay = UniformReplay(tj.trajectory_spec(tss, asp), cfg.env_batch_size,
+                           cfg.behavior_replay_capacity)
+    loop = FusedTrainLoop(env, agent, replay,
+                          metrics=metrics.standard_collect_metrics(20),
+                          sample_batch_size=cfg.behavior_sample_batch_size,
+                          train_steps_per_iteration=cfg.behavior_train_steps)
+    state = jax.jit(lambda k: loop.init(
+        k, initial_collect_steps=cfg.behavior_initial_collect_steps))(
+            jax.random.key(seed))
+    run = jax.jit(lambda s: loop.run(s, cfg.behavior_chunk))
+    iterations, last20 = 0, -math.inf
+    while iterations < cfg.behavior_iterations:
+      state, _ = run(state)
+      iterations += cfg.behavior_chunk
+      last20 = float(np.asarray(loop.results(state)["AverageReturn"]))
+      if last20 > cfg.behavior_gate:
+        break
+    greedy = float(metric_utils.evaluate_jax_env_episodes(
+        env, agent.policy, agent.policy_params(state.agent_state),
+        jax.random.key(7), num_episodes=10, max_steps=2000)["AverageReturn"])
+  return {"seed": seed, "port": port, "iterations": iterations,
+          "passed": last20 > cfg.behavior_gate, "last20_average_return":
+          last20, "greedy_return_10": greedy, "seconds": time.time() - t0}
+
+
 def run_offline_bars(cfg, seeds=(0,)):
   """Phases A-C of the offline pipeline with the JAX package: one dataset
   (phases A and B from `cfg.seed`), then for each phase-C seed s BC's and
@@ -1029,6 +1098,13 @@ if __name__ == "__main__":
         print(json.dumps({mode: bandit_runs[-1]}), flush=True)
       print(json.dumps({f"{mode}_bar": {scenario: bandit_bar(bandit_runs)}}),
             flush=True)
+  for mode, port in (("behavior", False), ("behavior_port", True)):
+    if mode not in which:
+      continue
+    seeds = [int(s.split("=", 1)[1]) for s in which
+             if s.startswith("--behavior-seed=")] or list(range(5))
+    for seed in seeds:
+      print(json.dumps({mode: run_behavior(seed, port=port)}), flush=True)
   if "offline" in which:
     offline = run_offline_bars(OfflineConfig(), seeds=range(4))
     print(json.dumps({"offline": offline}), flush=True)
