@@ -20,6 +20,7 @@ is the global batch's gradient.
 from __future__ import annotations
 
 import abc
+import copy
 from typing import Any, Optional, Tuple
 
 import torch
@@ -105,6 +106,20 @@ class Agent(abc.ABC):
   @abc.abstractmethod
   def train(self, agent_state, experience) -> Tuple[Any, LossInfo]:
     """One gradient step; returns (new_state, LossInfo)."""
+
+  def loss(self, agent_state, experience) -> LossInfo:
+    """The LossInfo of a train step, applying no gradient: the step runs
+    on a deep copy of `agent_state` (its networks, optimizers and draw
+    source), so `agent_state` is left as it was, as the JAX package's
+    pure `train` leaves it, and the train step after this loss draws
+    what it drew."""
+    _, info = self.train(copy.deepcopy(agent_state), experience)
+    return info
+
+  def preprocess_sequence(self, agent_state, experience):
+    """Experience preprocessing hook; the identity by default."""
+    del agent_state
+    return experience
 
   def policy_params(self, agent_state):
     """Parameters consumed by `self.policy` (greedy/eval)."""

@@ -86,7 +86,13 @@ class BehavioralCloningAgent(Agent):
   def policy_params(self, agent_state: BcAgentState):
     return agent_state.network
 
-  def loss(self, agent_state: BcAgentState, experience, weights=None):
+  def loss(self, agent_state: BcAgentState, experience,
+           weights=None) -> LossInfo:
+    """The LossInfo of a train step, applying no gradient."""
+    with torch.no_grad():
+      return LossInfo(self._loss(agent_state, experience, weights), ())
+
+  def _loss(self, agent_state: BcAgentState, experience, weights=None):
     """The mean negative log-likelihood (or cross-entropy) of the
     experience's actions, its outer dims flattened."""
     outer = experience.step_type.dim()
@@ -106,7 +112,7 @@ class BehavioralCloningAgent(Agent):
   def train(self, agent_state: BcAgentState, experience,
             weights=None) -> Tuple[BcAgentState, LossInfo]:
     s = agent_state
-    loss = self.loss(s, experience, weights)
+    loss = self._loss(s, experience, weights)
     params = list(s.network.parameters())
     apply_gradients([(torch.autograd.grad(loss, params), params, s.optimizer)],
                     self.gradient_clipping, self.mesh)

@@ -101,6 +101,11 @@ class CategoricalDqnAgent(DqnAgent):
     self.policy = GreedyPolicy(self._q_policy)
     self.collect_policy = EpsilonGreedyPolicy(self._q_policy, epsilon_greedy)
 
+  @property
+  def support(self) -> torch.Tensor:
+    """The ``num_atoms`` atoms, ``linspace(min_q_value, max_q_value)``."""
+    return self._q_policy.support(self.device)
+
   def collect_policy_params(self, agent_state):
     return agent_state.q_network
 

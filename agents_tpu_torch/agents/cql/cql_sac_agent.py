@@ -241,6 +241,17 @@ class CqlSacAgent(SacAgent):
     return common.aggregate_losses(per_example_loss=per_example * valid_mask,
                                    sample_weight=weights)
 
+  def critic_loss(self, agent_state: CqlSacAgentState, time_steps, actions,
+                  next_time_steps, weights=None):
+    """The TD part of the critic loss, without the CQL term or the
+    `critic_loss_weight` (:154-186): SAC's, with the entropy term in the
+    target only under `include_critic_entropy_term`, and reward noise
+    when `reward_noise_variance` > 0."""
+    s = agent_state
+    return self._td_loss(s, self._q(s.critic1_network, time_steps, actions),
+                         self._q(s.critic2_network, time_steps, actions),
+                         time_steps, next_time_steps, weights)
+
   def _data_log_prob(self, actor, time_steps, actions):
     """The actor's log-prob of the data actions, clipped ``1e-3 * (max -
     min)`` into the interior of the bounds (:217-256)."""

@@ -5,7 +5,8 @@ Port of ``agents_tpu/bandits/agents/linear_bandit_agent.py``:
     and the pull counts n_k, updated by one batched contraction per train
     call (the [B] -> [K] routing is a one-hot einsum);
   - an optional forgetting factor gamma;
-  - data parallelism: over `mesh` (set by a loop built with one), the
+  - data parallelism: over `mesh` (given to the agent, as the JAX
+    agent's `axis_name`, or set by a loop built with one), the
     deltas (ΔA, Δb, Δn) are summed over the ranks in one all-reduce of
     their (K·d² + K·d + K) elements, the JAX package's `psum`; the
     gradient-averaging agents of the port average instead.
@@ -77,8 +78,9 @@ class LinearBanditAgent(Agent):
   def __init__(self, exploration_strategy: ExplorationStrategy,
                time_step_spec, action_spec, alpha: float = 1.0,
                gamma: float = 1.0, tikhonov_weight: float = 1.0,
-               dtype=torch.float32, device="cuda"):
+               mesh=None, dtype=torch.float32, device="cuda"):
     self.device = resolve_device(device)
+    self.mesh = mesh
     self.time_step_spec = time_step_spec
     self.action_spec = action_spec
     self.num_actions = action_spec.num_values

@@ -1,9 +1,10 @@
 from agents_tpu_torch.distributions.distributions import (
-    NEG_INF, Bernoulli, Beta, Categorical, Deterministic, GumbelSoftmax,
+    NEG_INF, Bernoulli, Beta, Categorical, Deterministic, Distribution,
+    GumbelSoftmax,
     Independent, MaskedCategorical, Normal, OneHotCategorical,
     ShiftedCategorical, SquashedNormal, kl_divergence)
 
 __all__ = ["Bernoulli", "Beta", "Categorical", "Deterministic",
-           "GumbelSoftmax", "Independent", "MaskedCategorical", "NEG_INF",
+           "Distribution", "GumbelSoftmax", "Independent", "MaskedCategorical", "NEG_INF",
            "Normal", "OneHotCategorical", "ShiftedCategorical",
            "SquashedNormal", "kl_divergence"]

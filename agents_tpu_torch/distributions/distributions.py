@@ -47,7 +47,24 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
   return torch.logaddexp(x, torch.zeros_like(x))
 
 
-class _Distribution:
+class Distribution:
+  """Duck-typed base of the distributions below (frozen dataclasses); a
+  method a distribution does not define raises NotImplementedError."""
+
+  def sample(self, draws, sample_shape=(), site: str = "normal"):
+    raise NotImplementedError
+
+  def log_prob(self, value):
+    raise NotImplementedError
+
+  def entropy(self):
+    raise NotImplementedError
+
+  def mode(self):
+    raise NotImplementedError
+
+  def mean(self):
+    raise NotImplementedError
 
   def sample_and_log_prob(self, draws, sample_shape=(), site: str = "normal"):
     x = self.sample(draws, sample_shape, site)
@@ -55,7 +72,7 @@ class _Distribution:
 
 
 @dataclasses.dataclass(frozen=True)
-class Normal(_Distribution):
+class Normal(Distribution):
   """Normal(loc, scale); its batch shape broadcasts loc with scale."""
   loc: Any
   scale: Any
@@ -88,7 +105,7 @@ class Normal(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class Independent(_Distribution):
+class Independent(Distribution):
   """Reinterprets the last `reinterpreted_batch_ndims` dims as event dims."""
   base: Any
   reinterpreted_batch_ndims: int = static_field(default=1)
@@ -120,7 +137,7 @@ class Independent(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class SquashedNormal(_Distribution):
+class SquashedNormal(Distribution):
   """Normal squashed by tanh, then mapped affinely into [low, high]:
 
       action = low + (high - low) / 2 * (tanh(u) + 1),  u ~ Normal(loc, scale)
@@ -178,7 +195,7 @@ class SquashedNormal(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class Categorical(_Distribution):
+class Categorical(Distribution):
   """Categorical over the last dim of `logits`."""
   logits: torch.Tensor
   dtype: Any = static_field(default=torch.int32)
@@ -208,6 +225,9 @@ class Categorical(_Distribution):
     """argmax; the first index wins ties (as `jnp.argmax`)."""
     return torch.argmax(self.logits, dim=-1).to(self.dtype)
 
+  def mean(self):
+    raise NotImplementedError("mean undefined for Categorical")
+
   def sample(self, draws, sample_shape=(), site: str = "categorical"):
     """Gumbel-max sample with uniform draws from `draws` under `site`."""
     shape = tuple(sample_shape) + tuple(self.logits.shape)
@@ -225,7 +245,7 @@ def _one_hot(index: torch.Tensor, depth: int, dtype) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class MaskedCategorical(_Distribution):
+class MaskedCategorical(Distribution):
   """Categorical whose invalid actions (`mask` False) take the logit
   `NEG_INF`."""
   logits: torch.Tensor
@@ -253,7 +273,7 @@ class MaskedCategorical(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class ShiftedCategorical(_Distribution):
+class ShiftedCategorical(Distribution):
   """Categorical over ``[shift, shift + K)``."""
   logits: torch.Tensor
   shift: int = static_field(default=0)
@@ -277,7 +297,7 @@ class ShiftedCategorical(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class OneHotCategorical(_Distribution):
+class OneHotCategorical(Distribution):
   """Categorical whose samples and mode are one-hot vectors."""
   logits: torch.Tensor
   dtype: Any = static_field(default=torch.float32)
@@ -298,7 +318,7 @@ class OneHotCategorical(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class GumbelSoftmax(_Distribution):
+class GumbelSoftmax(Distribution):
   """The Concrete (Gumbel-softmax) relaxation of a Categorical: samples are
   ``softmax((logits + g) / temperature)`` with Gumbel noise g from uniforms
   in [tiny, 1) at `site`; `convert_to_one_hot` is the straight-through
@@ -332,7 +352,7 @@ class GumbelSoftmax(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class Bernoulli(_Distribution):
+class Bernoulli(Distribution):
   """Bernoulli(sigmoid(logits)); a sample is ``uniform < probs``."""
   logits: torch.Tensor
   dtype: Any = static_field(default=torch.int32)
@@ -368,7 +388,7 @@ def _betaln(a, b):
 
 
 @dataclasses.dataclass(frozen=True)
-class Beta(_Distribution):
+class Beta(Distribution):
   """Beta(concentration1, concentration0), its batch shape the broadcast of
   the two. A sample is ``x / (x + y)`` with x and y two draws of
   standard-gamma variates of shape ``concentration1`` and
@@ -402,7 +422,7 @@ class Beta(_Distribution):
 
 
 @dataclasses.dataclass(frozen=True)
-class Deterministic(_Distribution):
+class Deterministic(Distribution):
   """All mass at `loc`; the last `event_ndims` dims are event dims."""
   loc: Any
   event_ndims: int = static_field(default=0)

@@ -52,6 +52,21 @@ class DequeState:
   def data(self) -> torch.Tensor:
     return self.buffer[:-1]
 
+  def add(self, value) -> "DequeState":
+    """Push one scalar."""
+    return self.add_where(torch.ones((), dtype=torch.bool,
+                                     device=self.buffer.device), value)
+
+  def add_where(self, cond, value) -> "DequeState":
+    """Push one scalar where the scalar `cond` holds (the slot keeps its
+    value and the count stays where it does not)."""
+    idx = (self.count % self.capacity).reshape(1)
+    value = torch.as_tensor(value, dtype=self.buffer.dtype,
+                            device=self.buffer.device)
+    new = torch.where(cond, value, self.buffer.index_select(0, idx)[0])
+    return DequeState(buffer=self.buffer.index_copy(0, idx, new.reshape(1)),
+                      count=self.count + cond.to(torch.int64))
+
   def push_batch(self, mask, values) -> "DequeState":
     """Push values[i] where mask[i], in row order, as one scatter.
 
@@ -109,8 +124,11 @@ def _every_row(done, values, mesh):
 
 class Metric:
   """Base: init(batch_size, device) -> state; update(state, traj[, mesh])
-  -> state; result(state) -> device scalar."""
+  -> state; result(state) -> device scalar. `result_kind` says what
+  `result` returns: "scalar", or "counts" (a 1-D vector of per-bucket
+  counts, `ChosenActionHistogram`); summary writers route on it."""
   name: str = "metric"
+  result_kind: str = "scalar"
 
   def init(self, batch_size: int, device=None):
     raise NotImplementedError
@@ -120,6 +138,9 @@ class Metric:
 
   def result(self, state):
     raise NotImplementedError
+
+  def __call__(self, state, traj: Trajectory, mesh=None):
+    return self.update(state, traj, mesh)
 
 
 class EnvironmentSteps(Metric):

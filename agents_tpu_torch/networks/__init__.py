@@ -2,7 +2,8 @@ from agents_tpu_torch.networks.actor_distribution_network import (
     ActorDistributionModule, DeterministicActorModule,
     make_actor_distribution_network, make_deterministic_actor_network,
     make_sac_actor_network)
-from agents_tpu_torch.networks.encoding_network import EncoderModule
+from agents_tpu_torch.networks.encoding_network import (EncoderModule,
+                                                        make_encoding_network)
 from agents_tpu_torch.networks.lstm_networks import (
     ActorDistributionRnnModule, LSTMEncoder, QRnnModule, ValueRnnModule,
     make_actor_distribution_rnn_network, make_q_rnn_network,
@@ -34,7 +35,7 @@ __all__ = ["ActorDistributionModule", "ActorDistributionRnnModule",
            "make_actor_distribution_network",
            "make_actor_distribution_rnn_network", "make_categorical_q_network",
            "make_critic_network", "make_deterministic_actor_network",
-           "make_q_network", "make_q_rnn_network", "make_sac_actor_network",
+           "make_encoding_network", "make_q_network", "make_q_rnn_network", "make_sac_actor_network",
            "make_value_network", "make_value_rnn_network", "NestMapModule",
            "SequentialModule", "inner_reshape", "mask_splitter",
            "sequential"]

@@ -70,6 +70,9 @@ class EncoderModule(nn.Module):
     dtype: compute dtype.
     preprocessing: applied to each leaf before the cast (e.g. uint8
       frames scaled by 1/255); with none, uint8 becomes raw 0-255 floats.
+    kernel_init: fills each conv and Dense weight in place, called as
+      ``kernel_init(weight, generator=generator)``; flax's
+      ``variance_scaling(2.0, "fan_in", "truncated_normal")`` by default.
   """
 
   def __init__(self, input_spec, conv_layer_params=(),
@@ -78,7 +81,8 @@ class EncoderModule(nn.Module):
                dropout_rate: Optional[float] = None,
                dtype: torch.dtype = torch.float32,
                preprocessing: Optional[Callable] = None, device="cuda",
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               kernel_init: Callable = variance_scaling_):
     super().__init__()
     _check_conv_params(conv_layer_params)
     device = resolve_device(device)
@@ -104,7 +108,7 @@ class EncoderModule(nn.Module):
       for filters, kernel, stride in conv_layer_params:
         conv = nn.utils.skip_init(nn.Conv2d, channels, filters, kernel,
                                   stride=stride, device=device)
-        variance_scaling_(conv.weight, 2.0, generator)
+        kernel_init(conv.weight, generator=generator)
         nn.init.zeros_(conv.bias)
         (h_lo, h_hi), (w_lo, w_hi) = (same_padding(h, kernel, stride),
                                       same_padding(w, kernel, stride))
@@ -124,7 +128,7 @@ class EncoderModule(nn.Module):
     self.layers = nn.ModuleList()
     for out in fc_layer_params:
       layer = nn.utils.skip_init(nn.Linear, width, out, device=device)
-      variance_scaling_(layer.weight, 2.0, generator)
+      kernel_init(layer.weight, generator=generator)
       nn.init.zeros_(layer.bias)
       self.layers.append(layer)
       width = out

@@ -13,12 +13,15 @@ the module; they are initialised at construction from an explicit
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from agents_tpu_torch.specs import array_spec
 
 # Standard deviation of a unit normal cut at +-2 sigma (flax's constant).
 _TRUNCATED_NORMAL_STDDEV = 0.87962566103423978
@@ -79,3 +82,18 @@ class Network(nn.Module):
     super().__init__()
     self.input_spec = input_spec
     self.state_spec = state_spec
+
+  def init_state(self, batch_size: Optional[int] = None, device=None):
+    """Zero recurrent state of `state_spec` (under a batch dim when
+    `batch_size` is given), on the network's device unless told."""
+    if device is None:
+      param = next(self.parameters(), None)
+      device = None if param is None else param.device
+    outer = () if batch_size is None else (batch_size,)
+    return array_spec.zero_spec_nest(self.state_spec, outer_dims=outer,
+                                     device=device)
+
+  def copy(self) -> "Network":
+    """The same architecture with parameters of its own (a deep copy:
+    equal values that train apart)."""
+    return copy.deepcopy(self)

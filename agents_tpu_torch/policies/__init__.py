@@ -5,7 +5,7 @@ from agents_tpu_torch.policies.cem_samplers import (ActionsSampler,
                                                     GaussianContinuousSampler,
                                                     GaussianHybridSampler,
                                                     GaussianOneHotSampler)
-from agents_tpu_torch.policies.policy import Policy
+from agents_tpu_torch.policies.policy import Policy, clip_to_spec
 from agents_tpu_torch.policies.q_policy import CategoricalQPolicy, QPolicy
 from agents_tpu_torch.policies.random_policy import (FixedPolicy,
                                                      RandomPolicy,
@@ -20,4 +20,4 @@ __all__ = ["ActionsSampler", "ActorPolicy", "BoltzmannPolicy", "CEMPolicy",
            "EpsilonGreedyPolicy", "FixedPolicy", "GaussianContinuousSampler",
            "GaussianHybridSampler", "GaussianOneHotSampler", "GaussianPolicy",
            "GreedyPolicy", "OUNoisePolicy", "Policy", "QPolicy",
-           "RandomPolicy", "ScriptedPolicy"]
+           "RandomPolicy", "ScriptedPolicy", "clip_to_spec"]

@@ -8,7 +8,10 @@ before the network sees it. `action` samples each leaf of the actor's
 distribution nest in turn from the draw site "actor_noise" (the JAX
 policy splits its key once per leaf, policy.py:94-97), then clips into
 the action spec; `GreedyPolicy(ActorPolicy(...))` acts with the
-distributions' modes.
+distributions' modes. With `emit_log_probability`, the step's info holds
+the sampled action's log-probability summed over the leaves
+(`policy_step.PolicyInfo`), as the JAX policy's does (policy.py:99-106);
+`training` is accepted and, as in the JAX package, changes nothing.
 
 `DeterministicActorPolicy` (:42-62), for DDPG and TD3 actors that emit
 actions directly: `action` ignores the draws, and `distribution` is a
@@ -28,9 +31,13 @@ ACTOR_NOISE_SITE = "actor_noise"
 class ActorPolicy(Policy):
 
   def __init__(self, time_step_spec, action_spec, actor_network,
-               info_spec=(), observation_normalizer=None, clip: bool = True):
+               info_spec=(), observation_normalizer=None,
+               training: bool = False, emit_log_probability: bool = False,
+               clip: bool = True):
+    del training    # as in the JAX package, the policy acts the same
     super().__init__(time_step_spec, action_spec, info_spec=info_spec,
-                     state_spec=actor_network.state_spec, clip=clip)
+                     state_spec=actor_network.state_spec,
+                     emit_log_probability=emit_log_probability, clip=clip)
     self.actor_network = actor_network
     self.observation_normalizer = observation_normalizer
 
@@ -46,10 +53,16 @@ class ActorPolicy(Policy):
 
   def _action(self, params, time_step, state, draws):
     dstep = self._distribution(params, time_step, state)
+    is_dist = lambda d: hasattr(d, "sample")  # noqa: E731
     action = nest_utils.tree_map(
         lambda d: d.sample(draws, site=ACTOR_NOISE_SITE), dstep.action,
-        is_leaf=lambda d: hasattr(d, "sample"))
-    return ps.PolicyStep(action=action, state=dstep.state, info=dstep.info)
+        is_leaf=is_dist)
+    info = dstep.info
+    if self.emit_log_probability:
+      lps = nest_utils.flatten(nest_utils.tree_map(
+          lambda d, a: d.log_prob(a), dstep.action, action, is_leaf=is_dist))
+      info = ps.set_log_probability(info, sum(lps[1:], lps[0]))
+    return ps.PolicyStep(action=action, state=dstep.state, info=info)
 
 
 class DeterministicActorPolicy(Policy):

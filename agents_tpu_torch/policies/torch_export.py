@@ -32,13 +32,28 @@ Randomness: a `torch.Generator` cannot be a graph input. The policy is
 first run with a draw source that logs every draw (kind, site, shape,
 bounds); twice, at two batch sizes, to find each draw's batch dim. The
 program then takes one input per logged draw and the policy draws from
-those inputs. The manifest lists the sites; the loader fills them from
-``numpy.random.default_rng(key_data)``. A greedy policy has no sites and
-ignores ``key_data``.
+those inputs (`utils.draws.InputDraws`). The manifest lists the sites;
+the loader fills them from ``numpy.random.default_rng(key_data)``. A
+greedy policy has no sites and ignores ``key_data``. By kind, a site's
+input is:
+
+  - uniform, randint, normal: the draw itself, of the site's shape;
+  - gamma: ``[2R + 1, *shape]`` float32, R normals then R + 1 uniforms in
+    [0, 1), which the program turns into standard-gamma variates by
+    Marsaglia and Tsang's method in R rounds
+    (`utils.draws.marsaglia_tsang_gamma`; R is the site's ``rounds``);
+  - beta: ``[2, 2R + 1, *shape]``, two such inputs, and the variate
+    ``x / (x + y)`` of their gammas;
+  - permutation: ``[n]`` float64 uniform keys, whose argsort is the
+    permutation.
+
+So any stochastic policy exports, Bernoulli Thompson sampling's Beta
+draws included, and an artifact stays a pure function of its inputs.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import tempfile
@@ -50,8 +65,9 @@ from torch import nn
 
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import time_step as ts
+from agents_tpu_torch.utils import draws as draws_lib
 from agents_tpu_torch.utils import nest_utils
-from agents_tpu_torch.utils.draws import Draws
+from agents_tpu_torch.utils.draws import Draws, InputDraws
 
 PARAMS_NPZ = "params_flat.npz"
 MANIFEST = "exported_manifest.json"
@@ -89,10 +105,19 @@ def _is_spec(x) -> bool:
   return isinstance(x, array_spec.ArraySpec)
 
 
+def _fields(params):
+  """A dataclass instance's (name, value) pairs, else None."""
+  if dataclasses.is_dataclass(params) and not isinstance(params, type):
+    return [(f.name, getattr(params, f.name))
+            for f in dataclasses.fields(params)]
+  return None
+
+
 def param_leaves(params, path: str = "") -> List[tuple]:
   """(path, tensor) of every tensor of a params nest, in a fixed order: a
   module's parameters then its buffers (``named_parameters``,
-  ``named_buffers``), a dict's values by sorted key, a tuple's or list's
+  ``named_buffers``), a dict's values by sorted key, a dataclass's fields
+  in order (a Bernoulli Thompson sampling state), a tuple's or list's
   items in order, a tensor itself. Numbers are no leaves: they are
   constants of the program."""
   if isinstance(params, nn.Module):
@@ -100,6 +125,9 @@ def param_leaves(params, path: str = "") -> List[tuple]:
     return [(f"{path}{name}", t) for name, t in named]
   if isinstance(params, torch.Tensor):
     return [(path.rstrip("/") or "tensor", params)]
+  if _fields(params) is not None:
+    return [leaf for k, v in _fields(params)
+            for leaf in param_leaves(v, f"{path}{k}/")]
   if isinstance(params, dict):
     return [leaf for k in sorted(params)
             for leaf in param_leaves(params[k], f"{path}{k}/")]
@@ -119,6 +147,8 @@ def _bind(params, tensors):
         params, bound, args, kwargs)
   if isinstance(params, torch.Tensor):
     return next(tensors)
+  if _fields(params) is not None:
+    return type(params)(**{k: _bind(v, tensors) for k, v in _fields(params)})
   if isinstance(params, dict):
     bound = {k: _bind(params[k], tensors) for k in sorted(params)}
     return {k: bound[k] for k in params}
@@ -137,6 +167,9 @@ def _params_on(params, device: torch.device):
     return copy.deepcopy(params).to(device)
   if isinstance(params, torch.Tensor):
     return params.detach().to(device)
+  if _fields(params) is not None:
+    return type(params)(**{k: _params_on(v, device)
+                           for k, v in _fields(params)})
   if isinstance(params, dict):
     return {k: _params_on(v, device) for k, v in params.items()}
   if isinstance(params, (tuple, list)):
@@ -180,41 +213,34 @@ class _DrawLog:
     return self.source.normal(site, shape, dtype)
 
   def permutation(self, site, n):
-    raise NotImplementedError(f"draw site {site!r}: a permutation cannot "
-                              "be exported")
+    self.calls.append(("permutation", site, (int(n),), torch.float64, None,
+                       None))
+    return self.source.permutation(site, n)
 
   def gamma(self, site, concentration):
-    raise NotImplementedError(f"draw site {site!r}: gamma variates cannot "
-                              "be exported")
+    self.calls.append(("gamma", site, tuple(concentration.shape),
+                       concentration.dtype, None, None))
+    return self.source.gamma(site, concentration)
 
   def beta(self, site, concentration1, concentration0):
-    raise NotImplementedError(f"draw site {site!r}: beta variates cannot "
-                              "be exported")
+    self.calls.append(("beta", site, tuple(concentration1.shape),
+                       concentration1.dtype, None, None))
+    return self.source.beta(site, concentration1, concentration0)
 
 
-class _InputDraws:
-  """Draws taken, in order, from the program's draw inputs; each call
-  must match the logged site."""
+def _leading(site: dict) -> tuple:
+  """The dims a site's input has before the draw's own shape."""
+  if site["kind"] == "gamma":
+    return draws_lib.gamma_input_shape((), site["rounds"])
+  if site["kind"] == "beta":
+    return (2,) + draws_lib.gamma_input_shape((), site["rounds"])
+  return ()
 
-  def __init__(self, sites, inputs, device):
-    self._items = iter(zip(sites, inputs))
-    self.device = device
 
-  def _next(self, kind, site):
-    expected, value = next(self._items)
-    if (expected["kind"], expected["site"]) != (kind, site):
-      raise RuntimeError(f"draw {kind}@{site} where the trace drew "
-                         f"{expected['kind']}@{expected['site']}")
-    return value
-
-  def uniform(self, site, shape, low=0.0, high=1.0, dtype=torch.float32):
-    return self._next("uniform", site)
-
-  def randint(self, site, shape, low, high, dtype=torch.int64):
-    return self._next("randint", site)
-
-  def normal(self, site, shape, dtype=torch.float32):
-    return self._next("normal", site)
+def _input_shape(site: dict, batch: int) -> tuple:
+  """The shape of a site's program input at `batch`."""
+  return _leading(site) + tuple(batch if d is None else d
+                                for d in site["shape"])
 
 
 def _example_inputs(tss, state_spec, batch: int, device):
@@ -252,7 +278,7 @@ class _ActionProgram(nn.Module):
     state = (nest_utils.unflatten_sorted(policy.state_spec, flat_state,
                                          is_leaf=_is_spec)
              if flat_state else ())
-    draws = _InputDraws(self._sites, draw_inputs, self._device)
+    draws = InputDraws(self._sites, draw_inputs, self._device)
     step = policy.action(params, time_step, state, draws)
     return (list(nest_utils.flatten_sorted(step.action)),
             list(nest_utils.flatten_sorted(step.state)))
@@ -289,22 +315,28 @@ def draw_sites(policy, params, device) -> List[dict]:
                   if x != y]
     if len(batch_dims) > 1:
       raise ValueError(f"draw site {site!r} has more than one batch dim")
-    sites.append({
+    entry = {
         "kind": kind, "site": site,
         "shape": [None if i in batch_dims else d
                   for i, d in enumerate(shape_b)],
-        "dtype": _numpy_dtype(dtype), "low": low, "high": high})
+        "dtype": _numpy_dtype(dtype), "low": low, "high": high}
+    if kind in ("gamma", "beta"):
+      entry["rounds"] = draws_lib.GAMMA_ROUNDS
+    sites.append(entry)
   return sites
 
 
 def _draw_examples(sites, batch, device):
+  """Example draw inputs: the low bound of a randint, a uniform's middle
+  for the transformed kinds (a gamma's log of a uniform needs it
+  positive), zeros otherwise."""
   out = []
   for s in sites:
-    shape = tuple(batch if d is None else d for d in s["shape"])
+    shape = _input_shape(s, batch)
     dtype = array_spec.torch_dtype(s["dtype"])
-    out.append(torch.zeros(shape, dtype=dtype, device=device)
-               if s["kind"] != "randint" else
-               torch.full(shape, s["low"], dtype=dtype, device=device))
+    fill = {"randint": s["low"], "gamma": 0.5, "beta": 0.5,
+            "permutation": 0.5}.get(s["kind"], 0)
+    out.append(torch.full(shape, fill, dtype=dtype, device=device))
   return out
 
 
@@ -323,8 +355,8 @@ def _export_one(policy, params, sites, device, batch_size):
     b = torch.export.Dim("b", min=1)
     dynamic_shapes = (
         [None] * len(flat_params),
-        [{s["shape"].index(None): b} if None in s["shape"] else None
-         for s in sites],
+        [{s["shape"].index(None) + len(_leading(s)): b}
+         if None in s["shape"] else None for s in sites],
         [{0: b}] * len(ts_leaves), [{0: b}] * len(state_leaves))
   program = _ActionProgram(policy, params, sites, device)
   with torch.no_grad():
@@ -495,10 +527,22 @@ class ExportedPolicy:
         x = d["low"] + rng.random(shape) * (d["high"] - d["low"])
       elif d["kind"] == "randint":
         x = rng.integers(d["low"], d["high"], size=shape)
-      else:
+      elif d["kind"] == "normal":
         x = rng.standard_normal(shape)
+      elif d["kind"] == "permutation":
+        x = rng.random(shape)
+      else:
+        x = [self._gamma_input(rng, shape, d["rounds"])
+             for _ in range(2 if d["kind"] == "beta" else 1)]
+        x = np.stack(x) if d["kind"] == "beta" else x[0]
       out.append(np.asarray(x, d["dtype"]))
     return out
+
+  @staticmethod
+  def _gamma_input(rng, shape, rounds):
+    """[2R + 1, *shape]: R unit normals, then R + 1 uniforms in [0, 1)."""
+    return np.concatenate([rng.standard_normal([rounds] + shape),
+                           rng.random([rounds + 1] + shape)])
 
   def _call(self, flat_ts, state, draws):
     to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)

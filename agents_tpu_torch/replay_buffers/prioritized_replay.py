@@ -39,7 +39,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from agents_tpu_torch.replay_buffers.uniform_replay import (check_shardable,
+from agents_tpu_torch.replay_buffers.uniform_replay import (check_min_size,
+                                                            check_shardable,
                                                             gather_windows)
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.utils import nest_utils
@@ -89,14 +90,19 @@ class PrioritizedReplay:
     epsilon: added to updated priorities so no item starves.
     pack_large_rows: accepted so configs carry over from the JAX package;
       it has no effect here (the [r, 128] packing is a TPU layout).
+    debug_min_size_asserts: accepted as in the JAX package; the underfill
+      guard (`uniform_replay.check_min_size`) raises at every sample call
+      here, with the flag or without it, since the count is a host int.
     device: where the storage and priorities live; "cuda" unless the
       caller asks for "cpu".
   """
 
   def __init__(self, data_spec, batch_size: int, max_length: int,
                alpha: float = 0.6, epsilon: float = 1e-6,
-               pack_large_rows: bool = True, device="cuda"):
+               pack_large_rows: bool = True,
+               debug_min_size_asserts: bool = False, device="cuda"):
     del pack_large_rows
+    self.debug_min_size_asserts = bool(debug_min_size_asserts)
     self.data_spec = data_spec
     self.batch_size = int(batch_size)
     self.capacity = int(max_length)
@@ -173,15 +179,19 @@ class PrioritizedReplay:
 
   def sample(self, state: PrioritizedReplayState, draws,
              sample_batch_size: int, num_steps: Optional[int] = None,
-             beta: float = 0.4):
+             beta: float = 0.4, _normalize_is_weights: bool = True):
     """Stratified prioritized sample of windows.
 
     A window's priority is its first frame's. Returns (batch,
     PrioritizedBufferInfo); leaves are [S, ...] when `num_steps` is None,
     else [S, num_steps, ...]. Draws "per_u" ([S] uniforms) from `draws`.
+    `_normalize_is_weights=False` returns the raw ``(N * P(i))**-beta``
+    weights, unnormalized by their max.
     """
     batch, info = self._sample(state, draws, sample_batch_size, num_steps,
                                beta)
+    if not _normalize_is_weights:
+      return batch, info
     return batch, info._replace(
         is_weights=info.is_weights / torch.clamp_min(info.is_weights.max(),
                                                      1e-30))
@@ -193,10 +203,7 @@ class PrioritizedReplay:
       raise ValueError(
           f"sample(num_steps={n}) exceeds ring capacity {self.capacity}: "
           "windows longer than the ring cannot be time-contiguous")
-    if state.count < n:
-      raise ValueError(
-          f"sample(num_steps={n}) on an underfilled replay buffer "
-          f"(count={state.count}): wait for at least num_steps frames")
+    check_min_size(state.count, n, self.debug_min_size_asserts)
     size = self.size(state)
     t_r = self._time_ids(state.count)                        # [capacity]
     valid = ((t_r >= 0) & (t_r >= state.count - size)
@@ -240,7 +247,10 @@ class PrioritizedReplay:
     check_shardable(self.batch_size, None, num_shards)
     return PrioritizedReplay(self.data_spec, self.batch_size // num_shards,
                              self.capacity, alpha=self.alpha,
-                             epsilon=self.epsilon, device=self.device)
+                             epsilon=self.epsilon,
+                             debug_min_size_asserts=(
+                                 self.debug_min_size_asserts),
+                             device=self.device)
 
   def sample_sharded(self, state: PrioritizedReplayState, draws,
                      sample_batch_size: int, mesh,

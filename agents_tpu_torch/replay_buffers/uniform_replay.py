@@ -59,6 +59,20 @@ def check_shardable(batch_size: int, sample_batch_size: Optional[int],
         f"must both be divisible by the data axis size {num_shards}")
 
 
+def check_min_size(count: int, n: int, debug_asserts: bool = False) -> None:
+  """Underfill guard: sampling windows of `n` frames from a ring that holds
+  fewer than `n` would return never-written storage, so it raises
+  ValueError. The port's count is a host int, so the guard always raises
+  here, at the call; `debug_asserts` (the JAX package's switch for a run-
+  time check under jit) changes nothing."""
+  del debug_asserts
+  if count < n:
+    raise ValueError(
+        f"sample(num_steps={n}) on an underfilled replay buffer "
+        f"(count={count}): wait for at least num_steps frames (use "
+        "min_replay_frames / rate_limiter.MinSize on the host side)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplayState:
   storage: Any   # nest of [capacity, B, ...] tensors
@@ -80,17 +94,29 @@ class UniformReplay:
     batch_size: number of parallel env rows B.
     max_length: ring capacity per row.
     pack_large_rows: accepted so configs carry over from the JAX package;
-      it has no effect here (the [r, 128] packing is a TPU layout).
+      it has no effect here (the [r, 128] packing is a TPU layout,
+      `ops/replay_gather.py`).
+    debug_min_size_asserts: accepted as in the JAX package; the underfill
+      guard (`check_min_size`) raises at every sample call here, with the
+      flag or without it, since the count is a host int.
+    sort_for_locality: sort each sample's (t0, row) pairs by ``t0 * B +
+      row`` (a stable argsort) before the gather, as the JAX buffer does;
+      `BufferInfo.ids/rows` come back in that order. A shard-local sample
+      (`sample_sharded`) stays unsorted, as the JAX package's does.
     device: where the storage lives; "cuda" unless the caller asks for
       "cpu".
   """
 
   def __init__(self, data_spec, batch_size: int, max_length: int,
-               pack_large_rows: bool = True, device="cuda"):
+               pack_large_rows: bool = True,
+               debug_min_size_asserts: bool = False,
+               sort_for_locality: bool = False, device="cuda"):
     del pack_large_rows
     self.data_spec = data_spec
     self.batch_size = int(batch_size)
     self.capacity = int(max_length)
+    self.debug_min_size_asserts = bool(debug_min_size_asserts)
+    self.sort_for_locality = bool(sort_for_locality)
     self.device = resolve_device(device)
 
   def init(self) -> ReplayState:
@@ -141,16 +167,16 @@ class UniformReplay:
       raise ValueError(
           f"sample(num_steps={n}) exceeds ring capacity {self.capacity}: "
           "windows longer than the ring cannot be time-contiguous")
-    if state.count < n:
-      raise ValueError(
-          f"sample(num_steps={n}) on an underfilled replay buffer "
-          f"(count={state.count}): wait for at least num_steps frames")
+    check_min_size(state.count, n, self.debug_min_size_asserts)
     size = self.size(state)
     lo = state.count - size                      # oldest valid time id
     num_valid = state.count - n + 1 - lo
     t0 = lo + draws.randint("replay_t0", (sample_batch_size,), 0, num_valid)
     rows = draws.randint("replay_rows", (sample_batch_size,), 0,
                          self.batch_size)
+    if self.sort_for_locality:
+      order = torch.argsort(t0 * self.batch_size + rows, stable=True)
+      t0, rows = t0[order], rows[order]
     batch = self._gather(state.storage, t0, rows, n)
     if num_steps is None:
       batch = nest_utils.tree_map(lambda x: x[:, 0], batch)
@@ -162,8 +188,10 @@ class UniformReplay:
   def local(self, num_shards: int) -> "UniformReplay":
     """The replay of one of `num_shards` equal shares of the env rows."""
     check_shardable(self.batch_size, None, num_shards)
-    return UniformReplay(self.data_spec, self.batch_size // num_shards,
-                         self.capacity, device=self.device)
+    return UniformReplay(
+        self.data_spec, self.batch_size // num_shards, self.capacity,
+        debug_min_size_asserts=self.debug_min_size_asserts,
+        device=self.device)
 
   def sample_sharded(self, state: ReplayState, draws, sample_batch_size: int,
                      mesh, num_steps: Optional[int] = None):

@@ -36,6 +36,16 @@ def torch_dtype(dtype) -> torch.dtype:
   return _TORCH_DTYPES[np.dtype(dtype)]
 
 
+def numpy_dtype(dtype) -> np.dtype:
+  """The numpy dtype of a torch dtype (or of anything np.dtype accepts)."""
+  if isinstance(dtype, torch.dtype):
+    for np_dtype, t in _TORCH_DTYPES.items():
+      if t == dtype:
+        return np_dtype
+    raise KeyError(f"no numpy dtype for {dtype}")
+  return np.dtype(dtype)
+
+
 def _canonical_shape(shape) -> Tuple[int, ...]:
   if shape is None:
     return ()
@@ -64,6 +74,10 @@ class ArraySpec:
   def name(self) -> Optional[str]:
     return self._name
 
+  @property
+  def ndim(self) -> int:
+    return len(self._shape)
+
   def __repr__(self):
     return (f"{type(self).__name__}(shape={self._shape}, "
             f"dtype={self._dtype.name}, name={self._name!r})")
@@ -87,6 +101,11 @@ class ArraySpec:
     return ArraySpec(self._shape if shape is None else shape,
                      self._dtype if dtype is None else dtype,
                      self._name if name is None else name)
+
+  @classmethod
+  def from_array(cls, array, name=None) -> "ArraySpec":
+    """The spec of a tensor's or a numpy array's shape and dtype."""
+    return cls(array.shape, numpy_dtype(array.dtype), name)
 
 
 class BoundedArraySpec(ArraySpec):
@@ -160,6 +179,15 @@ class BoundedArraySpec(ArraySpec):
         self._minimum if minimum is None else minimum,
         self._maximum if maximum is None else maximum,
         self._name if name is None else name)
+
+  @classmethod
+  def from_spec(cls, spec: ArraySpec, name=None) -> "BoundedArraySpec":
+    """`spec` with bounds: its own when it has them, else its dtype's
+    extremes."""
+    if isinstance(spec, BoundedArraySpec):
+      return cls(spec.shape, spec.dtype, spec.minimum, spec.maximum,
+                 name or spec.name)
+    return cls(spec.shape, spec.dtype, name=name or spec.name)
 
 
 def _is_spec(x) -> bool:

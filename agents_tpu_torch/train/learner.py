@@ -56,17 +56,26 @@ class Learner:
   """Args:
     root_dir: experiment directory (checkpoints under root/train).
     loop: an object with ``run(state, n) -> (state, losses)`` (and
-      ``run_with_info``, ``results`` and ``metrics`` where it has them).
+      ``run_with_info``, ``results`` and ``metrics`` where it has them),
+      or pass `train_fn`.
     initial_state: the loop state (restored in place from the newest
       checkpoint when there is one).
+    train_fn: in place of the loop's run, ``(state, n) -> (state,
+      losses)``.
     triggers: IntervalTrigger-likes called with the global step after
       each `run`.
     checkpoint_interval: steps between checkpoints; <= 0 disables them.
+    steps_per_run_call: gradient steps per iteration (a loop that takes
+      several train steps an iteration); `global_step`, and with it the
+      checkpoint and summary triggers, advances by ``iterations *
+      steps_per_run_call`` each `run`.
   """
 
-  def __init__(self, root_dir: str, loop, initial_state=None,
+  def __init__(self, root_dir: str, loop=None, initial_state=None,
+               train_fn: Optional[Callable] = None,
                triggers: Sequence = (),
                checkpoint_interval: int = 100_000,
+               steps_per_run_call: int = 1,
                summary_writer=None,
                summary_interval: int = 100,
                extra_summary_fn: Optional[Callable] = None):
@@ -75,10 +84,14 @@ class Learner:
     os.makedirs(self.train_dir, exist_ok=True)
     self.loop = loop
     # The loop's info-returning path, so loss extras reach the summaries.
-    self._with_info = hasattr(loop, "run_with_info")
-    self._train_fn = loop.run_with_info if self._with_info else loop.run
+    self._with_info = train_fn is None and hasattr(loop, "run_with_info")
+    if train_fn is not None:
+      self._train_fn = train_fn
+    else:
+      self._train_fn = loop.run_with_info if self._with_info else loop.run
     self.state = initial_state
     self.triggers = list(triggers)
+    self.steps_per_run_call = int(steps_per_run_call)
     self.summary_writer = summary_writer
     self.summary_interval = summary_interval
     self.extra_summary_fn = extra_summary_fn
@@ -111,7 +124,7 @@ class Learner:
   def run(self, iterations: int = 1) -> float:
     """Run `iterations` loop iterations; returns the last loss."""
     self.state, out = self._train_fn(self.state, iterations)
-    self.global_step += iterations
+    self.global_step += iterations * self.steps_per_run_call
     if self._with_info:
       self._last_info = out
       losses = out.loss
@@ -138,7 +151,7 @@ class Learner:
       for path, leaf in _leaves_with_paths(self._last_info.extra):
         name = "/".join(["loss_extra"] + [str(p) for p in path])
         w.scalar(name, float(leaf[-1].float().mean()), step)
-    if hasattr(self.loop, "results"):
+    if self.loop is not None and hasattr(self.loop, "results"):
       # A count vector (ChosenActionHistogram) becomes a histogram, routed
       # by the metric's declared result_kind, never by its name; other
       # vectors are written per component, so no metric is dropped.

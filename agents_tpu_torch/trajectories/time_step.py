@@ -36,6 +36,9 @@ class TimeStep:
   def is_first(self):
     return self.step_type == StepType.FIRST
 
+  def is_mid(self):
+    return self.step_type == StepType.MID
+
   def is_last(self):
     return self.step_type == StepType.LAST
 
@@ -43,15 +46,25 @@ class TimeStep:
     return dataclasses.replace(self, **kwargs)
 
 
-def restart(observation: torch.Tensor, batch_size: Optional[int] = None
-            ) -> TimeStep:
-  """FIRST step with zero reward and unit discount."""
+def _reward_like(reward_spec, outer, device):
+  """Zero rewards of `reward_spec`'s nest under `outer` (a float32 scalar
+  per row when there is no spec)."""
+  if reward_spec is None:
+    return torch.zeros(outer, dtype=torch.float32, device=device)
+  return array_spec.zero_spec_nest(reward_spec, outer_dims=outer,
+                                   device=device)
+
+
+def restart(observation, batch_size: Optional[int] = None,
+            reward_spec=None) -> TimeStep:
+  """FIRST step with zero reward (zeros of `reward_spec`'s nest and
+  shapes when given) and unit discount, on the observation's device."""
   outer = (batch_size,) if batch_size is not None else ()
-  device = observation.device
+  device = nest_utils.flatten(observation)[0].device
   return TimeStep(
       step_type=torch.full(outer, StepType.FIRST, dtype=torch.int32,
                            device=device),
-      reward=torch.zeros(outer, dtype=torch.float32, device=device),
+      reward=_reward_like(reward_spec, outer, device),
       discount=torch.ones(outer, dtype=torch.float32, device=device),
       observation=observation)
 

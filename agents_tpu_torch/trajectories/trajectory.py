@@ -38,6 +38,11 @@ class Trajectory:
   def is_first(self):
     return self.step_type == ts.StepType.FIRST
 
+  def is_mid(self):
+    """A MID step followed by a MID step."""
+    return (self.step_type == ts.StepType.MID) & (
+        self.next_step_type == ts.StepType.MID)
+
   def is_last(self):
     return self.next_step_type == ts.StepType.LAST
 
@@ -46,6 +51,9 @@ class Trajectory:
 
   def replace(self, **kwargs) -> "Trajectory":
     return dataclasses.replace(self, **kwargs)
+
+  def replace_fields(self, **kwargs) -> "Trajectory":
+    return self.replace(**kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,16 @@
 """Shared training utilities.
 
-Port of the main path's part of ``agents_tpu/utils/common.py``:
-`LossInfo`, `soft_variables_update`, `periodic_soft_update`,
-`index_with_actions`, the element-wise losses, `aggregate_losses`,
-`clip_gradient_norms`, `log_probability` and `entropy` over nests of
+Port of ``agents_tpu/utils/common.py``: `LossInfo`,
+`soft_variables_update`, `periodic_soft_update`, `index_with_actions`
+(with `multi_dim_actions`), the element-wise losses, `aggregate_losses`,
+`replicate`, `clip_gradient_norms`, `log_probability` and `entropy` over nests of
 distributions (:101-122), `discounted_future_sum` (:125), `compute_returns`
 (:141) and `OUProcess` (:150). Target updates and gradient clipping act on
 the tensors in place.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Iterable, NamedTuple, Optional
 
 import torch
@@ -57,10 +58,29 @@ def periodic_soft_update(step: int, period: int, source_params,
   return True
 
 
-def index_with_actions(q_values: torch.Tensor,
-                       actions: torch.Tensor) -> torch.Tensor:
-  """q_values[..., actions] along the last dim."""
-  return torch.gather(q_values, -1, actions.long().unsqueeze(-1)).squeeze(-1)
+def index_with_actions(q_values: torch.Tensor, actions: torch.Tensor,
+                       multi_dim_actions: bool = False) -> torch.Tensor:
+  """q_values[..., actions] along the last dim.
+
+  With `multi_dim_actions`, the trailing dim of `actions` indexes as many
+  trailing dims of `q_values`: q ``[B..., d1, ..., dk]`` with actions
+  ``[B..., k]`` gives ``[B...]`` (a batch-dims gather); a q_values rank
+  other than the outer rank plus k raises ValueError."""
+  actions = actions.long()
+  if multi_dim_actions:
+    k = actions.shape[-1]
+    if q_values.dim() != actions.dim() - 1 + k:
+      raise ValueError(
+          f"q_values rank {q_values.dim()} does not match outer rank "
+          f"{actions.dim() - 1} + {k} action dims")
+    outer = actions.shape[:-1]
+    flat_q = q_values.reshape(math.prod(outer), -1)
+    strides = torch.tensor(
+        [math.prod(q_values.shape[len(outer) + i + 1:]) for i in range(k)],
+        dtype=torch.long, device=actions.device)
+    flat_a = (actions.reshape(-1, k) * strides).sum(-1)
+    return flat_q.gather(1, flat_a.unsqueeze(1)).reshape(outer)
+  return torch.gather(q_values, -1, actions.unsqueeze(-1)).squeeze(-1)
 
 
 def element_wise_squared_loss(x, y):
@@ -98,15 +118,20 @@ def _sum_leaves(nest):
   return total
 
 
-def log_probability(distributions, actions):
-  """Sum of per-leaf log-probs over a nest of distributions."""
+def log_probability(distributions, actions, action_spec=None):
+  """Sum of per-leaf log-probs over a nest of distributions. Each leaf's
+  log-prob is already one value per batch element, so `action_spec` (the
+  JAX package's argument) changes nothing."""
+  del action_spec
   return _sum_leaves(nest_utils.tree_map(
       lambda d, a: d.log_prob(a), distributions, actions,
       is_leaf=lambda x: hasattr(x, "log_prob")))
 
 
-def entropy(distributions):
-  """Sum of per-leaf entropies over a nest of distributions."""
+def entropy(distributions, action_spec=None):
+  """Sum of per-leaf entropies over a nest of distributions (`action_spec`
+  changes nothing, as in `log_probability`)."""
+  del action_spec
   return _sum_leaves(nest_utils.tree_map(
       lambda d: d.entropy(), distributions,
       is_leaf=lambda x: hasattr(x, "entropy")))
@@ -174,3 +199,15 @@ class OUProcess:
     noise = draws.normal(site, tuple(state.shape), dtype=self.dtype)
     new_state = (1.0 - self.damping) * state + noise * self.stddev
     return new_state, new_state
+
+
+def replicate(nest, outer_shape):
+  """Every leaf broadcast to ``outer_shape + leaf.shape`` (a copy, so
+  an in-place update of one replica leaves the others)."""
+  outer = tuple(outer_shape)
+
+  def _replicate(x):
+    x = torch.as_tensor(x)
+    return x.expand(outer + tuple(x.shape)).clone()
+
+  return nest_utils.tree_map(_replicate, nest)

@@ -6,7 +6,10 @@ run can take them from a `torch.Generator` on the device (`Draws`) or have
 them replayed from a record (`ReplayDraws`): JAX's threefry and torch's
 generators cannot agree, so the parity tests read the JAX package's draws
 and replay them here, and the card-versus-CPU check replays one stream on
-both devices.
+both devices. An exported policy draws from its program's inputs
+(`InputDraws`), which hold gamma, beta and permutation draws as the raw
+normals and uniforms that `marsaglia_tsang_gamma`, `beta_from_inputs`
+and `permutation_from_keys` transform.
 
 Sites:
   "env_reset"           uniform [B, 4] in [-0.05, 0.05)  (CartPole reset)
@@ -315,6 +318,115 @@ class RecordingDraws:
   def beta(self, site, concentration1, concentration0):
     return self._keep(site, self.source.beta(site, concentration1,
                                              concentration0))
+
+
+# Proposal rounds of `marsaglia_tsang_gamma`. Marsaglia and Tsang's
+# method accepts a proposal with probability at least 0.951 for every
+# alpha >= 1 (the boost below keeps it there for alpha < 1), so the chance
+# that all GAMMA_ROUNDS proposals of a variate are rejected is at most
+# 0.049**10 < 8e-14, under 1e-12.
+GAMMA_ROUNDS = 10
+
+
+def gamma_input_shape(shape, rounds: int = GAMMA_ROUNDS) -> tuple:
+  """Shape of `marsaglia_tsang_gamma`'s inputs for variates of `shape`."""
+  return (2 * rounds + 1,) + tuple(shape)
+
+
+def marsaglia_tsang_gamma(concentration: torch.Tensor, inputs: torch.Tensor,
+                          rounds: int = GAMMA_ROUNDS) -> torch.Tensor:
+  """Standard-gamma variates of `concentration`'s shape from pre-drawn
+  inputs, by Marsaglia and Tsang's method (ACM TOMS 26(3), 2000) with a
+  fixed number of rounds, so a program (an export) can compute it.
+
+  `inputs` is ``[2R + 1, *shape]`` float: rows 0..R-1 unit normals x, rows
+  R..2R-1 uniforms u in [0, 1) for the acceptance tests, row 2R a uniform
+  for the boost. For alpha < 1 the method runs at alpha + 1 and the
+  variate is multiplied by ``U ** (1 / alpha)`` (the boost). With ``d =
+  alpha - 1/3``, ``c = 1 / sqrt(9 d)`` and ``v = (1 + c x)**3``, round r
+  accepts where ``v > 0`` and ``log u < x**2 / 2 + d - d v + d log v``;
+  each element takes the first round that accepts, and the variate is
+  ``d v``. Where no round accepts (probability below 1e-12, see
+  GAMMA_ROUNDS), the last round's proposal is taken, its v clamped at the
+  smallest positive float.
+  """
+  a = concentration
+  boost = a < 1
+  alpha = torch.where(boost, a + 1, a)
+  d = alpha - 1.0 / 3.0
+  c = torch.rsqrt(9.0 * d)
+  x, u, u_boost = inputs[:rounds], inputs[rounds:2 * rounds], inputs[-1]
+  v = (1.0 + c * x) ** 3
+  positive = v > 0
+  safe_v = torch.where(positive, v, torch.ones_like(v))
+  accept = positive & (torch.log(u) < 0.5 * x * x + d - d * safe_v
+                       + d * torch.log(safe_v))
+  # The first accepting round: the count of rounds before it, and the last
+  # round where none accepts.
+  first = torch.clamp(
+      (torch.cumsum(accept.to(torch.int32), 0) == 0).sum(0), max=rounds - 1)
+  chosen = torch.gather(v, 0, first.unsqueeze(0)).squeeze(0)
+  g = d * torch.clamp(chosen, min=torch.finfo(v.dtype).tiny)
+  return torch.where(boost, g * torch.exp(torch.log(u_boost) / a), g)
+
+
+def beta_from_inputs(concentration1: torch.Tensor,
+                     concentration0: torch.Tensor, inputs: torch.Tensor,
+                     rounds: int = GAMMA_ROUNDS) -> torch.Tensor:
+  """Beta variates ``x / (x + y)`` of two `marsaglia_tsang_gamma`
+  variates, x of `concentration1` from ``inputs[0]`` and y of
+  `concentration0` from ``inputs[1]``."""
+  x = marsaglia_tsang_gamma(concentration1, inputs[0], rounds)
+  y = marsaglia_tsang_gamma(concentration0, inputs[1], rounds)
+  return x / (x + y)
+
+
+def permutation_from_keys(keys: torch.Tensor) -> torch.Tensor:
+  """The permutation that sorts `n` uniform keys (a stable argsort)."""
+  return torch.argsort(keys, stable=True)
+
+
+class InputDraws:
+  """Draws taken, in order, from pre-drawn inputs: one input per entry of
+  `sites` (an exported policy's manifest ``draw_sites``), whose kind and
+  site each call must match. Uniform, randint and normal inputs are the
+  draws themselves; a gamma input goes through `marsaglia_tsang_gamma`, a
+  beta input through `beta_from_inputs`, a permutation's uniform keys
+  through `permutation_from_keys`. An exported program draws through one
+  of these, so the eager policy over the same inputs acts as the program
+  does."""
+
+  def __init__(self, sites, inputs, device):
+    self._items = iter(zip(sites, inputs))
+    self.device = torch.device(device)
+
+  def _next(self, kind, site):
+    expected, value = next(self._items)
+    if (expected["kind"], expected["site"]) != (kind, site):
+      raise RuntimeError(f"draw {kind}@{site} where the trace drew "
+                         f"{expected['kind']}@{expected['site']}")
+    return expected, value
+
+  def uniform(self, site, shape, low=0.0, high=1.0, dtype=torch.float32):
+    return self._next("uniform", site)[1]
+
+  def randint(self, site, shape, low, high, dtype=torch.int64):
+    return self._next("randint", site)[1]
+
+  def normal(self, site, shape, dtype=torch.float32):
+    return self._next("normal", site)[1]
+
+  def permutation(self, site, n):
+    return permutation_from_keys(self._next("permutation", site)[1])
+
+  def gamma(self, site, concentration):
+    expected, value = self._next("gamma", site)
+    return marsaglia_tsang_gamma(concentration, value, expected["rounds"])
+
+  def beta(self, site, concentration1, concentration0):
+    expected, value = self._next("beta", site)
+    return beta_from_inputs(concentration1, concentration0, value,
+                            expected["rounds"])
 
 
 def as_draws(seed_or_draws, device):

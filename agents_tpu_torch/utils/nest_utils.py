@@ -105,6 +105,13 @@ def flatten_sorted(tree, is_leaf: Optional[Callable] = None) -> List[Any]:
   return leaves
 
 
+def unflatten(structure, leaves):
+  """The nest of `structure`'s shape holding `leaves`, which are in
+  `flatten`'s order."""
+  it = iter(leaves)
+  return tree_map(lambda _: next(it), structure)
+
+
 def unflatten_sorted(structure, leaves,
                      is_leaf: Optional[Callable] = None):
   """The nest of `structure`'s shape holding `leaves`, which are in
@@ -124,9 +131,106 @@ def where(condition: torch.Tensor, true_nest, false_nest):
   return tree_map(_where, true_nest, false_nest)
 
 
+def _treedef(tree):
+  """The structure of `tree` with its leaves left out: node types, dict
+  keys (as a set, as ``jax.tree_util`` sorts them) and arities."""
+  if tree is None:
+    return None
+  if _is_dataclass_instance(tree):
+    return (type(tree), tuple(
+        (f.name, getattr(tree, f.name)) if _is_static(f)
+        else (f.name, _treedef(getattr(tree, f.name)))
+        for f in dataclasses.fields(tree)))
+  if isinstance(tree, (tuple, list)):
+    return (type(tree), tuple(_treedef(x) for x in tree))
+  if isinstance(tree, dict):
+    return (dict, tuple((k, _treedef(tree[k])) for k in sorted(tree)))
+  return "*"
+
+
+def assert_same_structure(a, b, message: str = ""):
+  """Raise ValueError unless `a` and `b` are nests of one structure."""
+  sa, sb = _treedef(a), _treedef(b)
+  if sa != sb:
+    raise ValueError(f"{message} Structures differ: {sa} vs {sb}")
+
+
+def is_batched_nested_tensors(nest, specs, num_outer_dims: int = 1) -> bool:
+  """True iff every leaf has exactly `num_outer_dims` batch dims."""
+  try:
+    return get_outer_rank(nest, specs) == num_outer_dims
+  except ValueError:
+    return False
+
+
+def _map_with_specs(fn, nest, specs):
+  """`fn(leaf, spec)` over `nest`, leaves and specs paired in
+  ``jax.tree_util``'s order."""
+  spec_leaves = iter(flatten_sorted(specs, is_leaf=_is_spec))
+  return tree_map_sorted(lambda x: fn(x, next(spec_leaves)), nest)
+
+
+def batch_nested_tensors(nest, specs=None):
+  """Add a leading batch dim of 1 to every leaf (with `specs`, only to
+  the leaves that have their spec's rank)."""
+  if specs is None:
+    return batch_nested_array(nest)
+  return _map_with_specs(
+      lambda x, s: _expand0(x) if len(np.shape(x)) == len(s.shape) else x,
+      nest, specs)
+
+
+def unbatch_nested_tensors(nest, specs=None):
+  """Remove the leading batch dim of 1 from every leaf (with `specs`,
+  only from the leaves one dim above their spec's rank)."""
+  if specs is None:
+    return unbatch_nested_array(nest)
+  return _map_with_specs(
+      lambda x, s: _squeeze0(x) if len(np.shape(x)) == len(s.shape) + 1
+      else x, nest, specs)
+
+
+def split_nested_tensors(nest, specs, num_or_size_splits):
+  """Split every leaf along dim 0 into a list of nests, as ``jnp.split``:
+  into `num_or_size_splits` equal parts when it is an int (raising when
+  dim 0 does not divide), else at those indices."""
+  del specs
+  leaves = flatten(nest)
+  if isinstance(num_or_size_splits, int):
+    n = leaves[0].shape[0]
+    if n % num_or_size_splits:
+      raise ValueError(f"dim 0 of size {n} does not split into "
+                       f"{num_or_size_splits} equal parts")
+  else:
+    num_or_size_splits = [int(i) for i in num_or_size_splits]
+  parts = [torch.tensor_split(x, num_or_size_splits, dim=0) for x in leaves]
+  return [unflatten(nest, [p[i] for p in parts])
+          for i in range(len(parts[0]))]
+
+
+def unstack_nested_tensors(nest, specs=None):
+  """Dim 0 of every leaf unstacked into a list of unbatched nests."""
+  del specs
+  leaves = flatten(nest)
+  if not leaves:
+    return []
+  return [tree_map(lambda x: x[i], nest) for i in range(leaves[0].shape[0])]
+
+
 def stack_nested_tensors(nests, dim: int = 0):
   """Stack a list of nests along a new dim."""
   return tree_map(lambda *xs: torch.stack(xs, dim=dim), *nests)
+
+
+def concat_nested_tensors(nests, dim: int = 0):
+  """Concatenate a list of nests along an existing dim."""
+  return tree_map(lambda *xs: torch.cat(xs, dim=dim), *nests)
+
+
+def has_tensors(*nests) -> bool:
+  """Whether any leaf of `nests` is a tensor."""
+  return any(isinstance(leaf, torch.Tensor)
+             for nest in nests for leaf in flatten(nest))
 
 
 def stack_nested_arrays(nests, axis: int = 0):

@@ -69,8 +69,13 @@ class StreamingTensorNormalizer:
                                     var_sum=full(0.0))
 
   def update(self, state: StreamingNormalizerState, values,
-             mesh=None) -> StreamingNormalizerState:
+             outer_dims=None, mesh=None) -> StreamingNormalizerState:
     """Chan's exact parallel-variance combine of `values` into `state`.
+
+    The batch is every leading dim of a leaf beyond its spec's shape;
+    `outer_dims`, when given, names those dims (as in the JAX package,
+    whose update reduces over them whatever it is given) and raises
+    ValueError when a leaf's leading dims differ from it.
 
     Over a data-parallel `mesh` the batch is every rank's `values`: its
     sum and its squared deviations from the global batch mean are summed
@@ -79,6 +84,9 @@ class StreamingTensorNormalizer:
 
     def _upd(count, mean_sum, var_sum, x):
       dims = _outer_dims(x, mean_sum.dim())
+      if outer_dims is not None and sorted(outer_dims) != list(dims):
+        raise ValueError(f"outer_dims {tuple(outer_dims)} are not the "
+                         f"leading dims {dims} of a {tuple(x.shape)} leaf")
       n = math.prod(x.shape[d] for d in dims) * (
           1 if mesh is None else mesh.size)
       x = x.float()
@@ -96,7 +104,7 @@ class StreamingTensorNormalizer:
         nest_utils.flatten(state.count), nest_utils.flatten(state.mean_sum),
         nest_utils.flatten(state.var_sum), nest_utils.flatten(values))]
     return StreamingNormalizerState(
-        *(_unflatten(values, [o[i] for o in outs]) for i in range(3)))
+        *(nest_utils.unflatten(values, [o[i] for o in outs]) for i in range(3)))
 
   def normalize(self, state: StreamingNormalizerState, values,
                 clip_value: float = 5.0, center_mean: bool = True):
@@ -107,11 +115,6 @@ class StreamingTensorNormalizer:
 
     return nest_utils.tree_map(_norm, state.count, state.mean_sum,
                                state.var_sum, values)
-
-
-def _unflatten(structure, leaves):
-  it = iter(leaves)
-  return nest_utils.tree_map(lambda _: next(it), structure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,8 +153,8 @@ class EMATensorNormalizer:
         nest_utils.flatten(state.mean), nest_utils.flatten(state.var),
         nest_utils.flatten(values))]
     return EMANormalizerState(
-        mean=_unflatten(values, [o[0] for o in outs]),
-        var=_unflatten(values, [o[1] for o in outs]))
+        mean=nest_utils.unflatten(values, [o[0] for o in outs]),
+        var=nest_utils.unflatten(values, [o[1] for o in outs]))
 
   def normalize(self, state: EMANormalizerState, values,
                 clip_value: float = 5.0, center_mean: bool = True):

@@ -6,15 +6,16 @@ card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 `torch.cuda.is_available()` is false. Each phase prints one JSON line
 with its wall time since the line before (`phase_seconds`); any failed
 phase exits non-zero before the last line. The phases run in the order
-below, except the six long learning runs and five untimed phases:
+below, except the six long learning runs and six untimed phases:
 `sac_learn` runs after every timed phase (the host phases 34-39b and the
 replay phases 40-44 included), while `td3_learn`, `cql_offline` with
-`bc`, `qtopt_learn`, `ppo_rnn_learn` and `per_learn` run beside it in
-five child processes of this script (``chip_smoke.py --child NAME``) on
-the same card; after `sac_learn`, while the children finish, this process
-runs `bandit_learn`, `bandit_scenarios`, `discrete_parity`, `rnn_parity`
-and `parallel_env`, whose gates are exact or learning bars that repeat
-bit for bit and which time nothing.
+`bc`, `qtopt_learn`, `ppo_rnn_learn`, `per_learn` and part (c) of
+`surface` (line `surface_bernoulli_ts`) run beside it in six child
+processes of this script (``chip_smoke.py --child NAME``) on the same
+card; after `sac_learn`, while the children finish, this process runs
+`bandit_learn`, `bandit_scenarios`, `discrete_parity`, `rnn_parity` and
+`parallel_env`, whose gates are exact or learning bars that repeat bit
+for bit and which time nothing.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -128,6 +129,38 @@ bit for bit and which time nothing.
   5g. bandit_scenarios  each of the example's 16 scenarios through
                   `train_eval` for 20 rounds (windows of 10): finite
                   metrics, the JSONL written.
+  5h. surface     the public surface the JAX package has beyond the paths
+                  above: (a) and (b) run after `bandit_main`, in the timed
+                  sequence; (c), which times nothing, in a child beside
+                  the learning runs (its own line, `surface_bernoulli_ts`).
+                  (a) The CartPole bench point through `FusedTrainLoop` with `UniformReplay(sort_for_locality=
+                  True)`: 5 windows of 20 sync-free iterations, alternated
+                  with the unsorted loop's, ms/iteration of both beside
+                  `main`'s (no gate); a 2-step sample of 256 from the
+                  sorted ring equal on "cpu" under the card's recorded
+                  draws (ids, rows and windows exactly, ids*B + rows in
+                  order). (b) On "cuda" against "cpu" (TF32 off; floats
+                  rtol 1e-5 / atol 1e-6, integers equal):
+                  `index_with_actions(multi_dim_actions=True)` over [4096,
+                  6, 5] Q values; `ActorPolicy(emit_log_probability=True)`
+                  at the SAC bench point's actor ((256, 256), B=32) on
+                  Pendulum observations, the actions and the
+                  log-probabilities of the rows whose log-probability a
+                  1e-6 relative move of the action moves by less than the
+                  tolerance (at least a third); `StreamingTensorNormalizer.
+                  update(outer_dims=(0, 1))` over [4096, 8, 3] three times;
+                  `pack_rows` / `unpack_rows` on 256 Atari rows of 28,224
+                  uint8. (c) Bernoulli Thompson sampling at the example's
+                  scenario (`BernoulliBandit([0.3, 0.5, 0.7, 0.65])`,
+                  B=256) trained 200 rounds, saved by `PolicySaver` with
+                  "cpu" and "cuda" programs, the posterior restored by
+                  `load_policy`; the artifact in a child that imports
+                  numpy and torch only acts on both platforms as the live
+                  policy drawing through `InputDraws` over the loader's
+                  inputs (0 of 256 apart); the Marsaglia-Tsang gamma
+                  transform on the card at alpha 0.5, 1, 5 and 50 (100,000
+                  variates each from numpy draws, seed 14) passes a KS test
+                  against `scipy.stats.gamma` at p > 1e-3.
   6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
                   SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
                   deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
@@ -200,8 +233,8 @@ bit for bit and which time nothing.
                   greedy eval over exactly 30 episodes on 10 fresh rows.
  16. ppo_schulman17  the example's --preset=schulman17_pendulum (B=1,
                   T=2049, 10 x 32 minibatches of 64, tanh, std 0.35, Adam
-                  eps 1e-5 decayed linearly, clipping 0.5): 1 warm-up and 2
-                  timed iterations under the sync debug mode, the split of
+                  eps 1e-5 decayed linearly, clipping 0.5): 1 warm-up and 1
+                  timed iteration under the sync debug mode, the split of
                   one more into the 2,049-step collect, GAE and the 320
                   minibatch steps; finite losses, the decayed learning
                   rate.
@@ -312,7 +345,7 @@ bit for bit and which time nothing.
                   device ops per train step).
  31. ppo_rnn_main ``--preset=rnn`` (B=32, T=128, 10 epochs x 8 minibatches of
                   4 sequences, Adam 3e-4, LSTM actor and value at the
-                  factories' defaults): 1 warm-up and 3 windows of 1
+                  factories' defaults): 1 warm-up and 2 windows of 1
                   iteration under the sync debug mode, and the collect /
                   GAE / train split.
  32. checkpoint_resume  save, rebuild from the seed, restore and continue,
@@ -500,7 +533,9 @@ SAC_RTOL = SAC_ATOL = 1e-5
 # points are half their earlier depth, to keep the whole script well inside
 # its time limit with the recurrent phases (PERF.md §6, "Depth cut"); the
 # SAC, TD3 and QtOpt points' warm-ups and windows were cut again, from 5
-# to 2 and from 5 to 3 iterations, beside the host example phases.
+# to 2 and from 5 to 3 iterations, beside the host example phases; and
+# schulman17's timed iterations from 2 to 1 and the recurrent PPO point's
+# windows from 3 to 2 beside the `surface` phase.
 SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 2, 15, 3
 SAC_LEARN_CHUNK = 250
 PPO_PARITY_ITERATIONS = 2
@@ -508,7 +543,7 @@ PPO_PARITY_SCHULMAN17 = dict(rollout_length=257, num_minibatches=4)
 PPO_RTOL, PPO_ATOL, PPO_MOMENT_RTOL = 1e-4, 1e-5, 1e-3
 PPO_WARMUP, PPO_TIMED_WINDOWS, PPO_WINDOW, PPO_PROFILED = 2, 5, 2, 1
 PPO_LEARN_CHUNK = 10
-SCHULMAN17_TIMED = 2
+SCHULMAN17_TIMED = 1
 REINFORCE_TIMED = 5
 TD3_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
                   train_steps_per_iteration=2, actor_fc_layers=(64, 64),
@@ -967,8 +1002,8 @@ EXPORT_TIMED_CALLS = 50
 EVAL_JOB_TIMEOUT_S = 180
 
 # The child of `learner_export`: numpy and torch only, the artifact's own
-# loader, on "cuda" and on "cpu"; it times the program alone (inputs on
-# the card) at B=1 and B=4096.
+# loader, on "cuda" and on "cpu"; it times the program alone (inputs, the
+# draws of key 0 among them, on the card) at B=1 and B=4096.
 ARTIFACT_CHILD = """
 import importlib.util, json, sys, time
 import numpy as np
@@ -988,7 +1023,9 @@ for platform in ("cuda", "cpu"):
   for b in (1, obs.shape[0]):
     flat_ts = [torch.as_tensor(x).to("cuda")
                for x in policy.make_time_step([obs[:b]])]
-    run = lambda: policy._program(policy.params, [], flat_ts, [])
+    draws = [torch.as_tensor(x).to("cuda") for x in
+             policy.draw_inputs(b, np.zeros((2,), np.uint32))]
+    run = lambda: policy._program(policy.params, draws, flat_ts, [])
     for _ in range(5):
       run()
     torch.cuda.synchronize()
@@ -1949,6 +1986,303 @@ def bandit_phases(card):
   free_card()
   phase_bandit_main(card)
   free_card()
+
+
+SURFACE_WINDOW, SURFACE_WINDOWS = 20, 5
+SURFACE_SAMPLE_STEPS = 2
+SURFACE_BTS_ROUNDS = 200
+SURFACE_KS_ALPHAS, SURFACE_KS_N, SURFACE_KS_P = (0.5, 1.0, 5.0, 50.0), \
+    100_000, 1e-3
+
+
+def well_conditioned_rows(dist, action, log_prob, rtol=RTOL, atol=ATOL):
+  """The rows whose log-probability moves by less than the tolerance when
+  the action moves by one part in a million: a policy's log-probability
+  is its distribution's `log_prob` of the sampled action, and a
+  tanh-squashed action goes back through atanh, so near the bounds or
+  under a small scale an ulp of the action moves it far, and two float32
+  evaluations part for that reason alone."""
+  import torch
+
+  a = action.detach().clone().requires_grad_()
+  (grad,) = torch.autograd.grad(dist.log_prob(a).sum(), a)
+  moved = (grad.abs() * a.detach().abs()).reshape(len(a), -1).sum(-1) * 1e-6
+  return moved < atol + rtol * log_prob.abs()
+
+
+def surface_sorted_sample():
+  """(a) of `phase_surface`: the sorted loop timed beside the unsorted one
+  and its sample against the CPU's."""
+  import torch
+
+  from agents_tpu_torch import metrics
+  from agents_tpu_torch.replay_buffers import UniformReplay
+  from agents_tpu_torch.replay_buffers.uniform_replay import ReplayState
+  from agents_tpu_torch.train import FusedTrainLoop
+  from agents_tpu_torch.utils import nest_utils
+  from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
+
+  plain = build_loop("cuda", B_MAIN, **MAIN)
+  base = build_loop("cuda", B_MAIN, **MAIN)
+  replay = UniformReplay(base.replay.data_spec, B_MAIN, MAIN["capacity"],
+                         sort_for_locality=True, device="cuda")
+  srt = FusedTrainLoop(base.env, base.agent, replay,
+                       metrics=metrics.standard_collect_metrics(20),
+                       sample_batch_size=MAIN["sample_batch_size"],
+                       device="cuda")
+  states = {}
+  for name, loop in (("sorted", srt), ("unsorted", plain)):
+    state = loop.init(seed=0, initial_collect_steps=100)
+    states[name], _ = loop.run(state, SURFACE_WINDOW)
+  torch.cuda.synchronize()
+  window_ms = {"sorted": [], "unsorted": []}
+  for _ in range(SURFACE_WINDOWS):
+    for name, loop in (("sorted", srt), ("unsorted", plain)):
+      states[name], losses, ms = timed_windows(loop, states[name],
+                                               SURFACE_WINDOW, windows=1)
+      window_ms[name] += ms
+  finite = bool(torch.isfinite(losses).all())
+
+  recorded = RecordingDraws(Draws(1, "cuda"))
+  rstate = states["sorted"].replay_state
+  batch, info = replay.sample(rstate, recorded, MAIN["sample_batch_size"],
+                              SURFACE_SAMPLE_STEPS)
+  cpu_replay = UniformReplay(replay.data_spec, B_MAIN, MAIN["capacity"],
+                             sort_for_locality=True, device="cpu")
+  cpu_state = ReplayState(storage=nest_utils.tree_map(
+      lambda x: x.cpu(), rstate.storage), count=rstate.count)
+  cpu_batch, cpu_info = cpu_replay.sample(
+      cpu_state, ReplayDraws(recorded.records), MAIN["sample_batch_size"],
+      SURFACE_SAMPLE_STEPS)
+  flat = info.ids * B_MAIN + info.rows
+  equal = (torch.equal(info.ids.cpu(), cpu_info.ids)
+           and torch.equal(info.rows.cpu(), cpu_info.rows)
+           and all(torch.equal(a.cpu(), b) for a, b in zip(
+               nest_utils.flatten(batch), nest_utils.flatten(cpu_batch)))
+           and bool((flat[1:] >= flat[:-1]).all()))
+  median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+  return {
+      "batch_size": B_MAIN, **{k: list(v) if isinstance(v, tuple) else v
+                               for k, v in MAIN.items()},
+      "window_iterations": SURFACE_WINDOW,
+      "sorted_window_ms_per_iteration": window_ms["sorted"],
+      "unsorted_window_ms_per_iteration": window_ms["unsorted"],
+      "sorted_ms_per_iteration": median(window_ms["sorted"]),
+      "unsorted_ms_per_iteration": median(window_ms["unsorted"]),
+      "main_ms_per_iteration": MAIN_POINT.get("ms_per_iteration"),
+      "losses_finite": finite, "sample_equal_to_cpu": equal,
+      "ok": finite and equal}
+
+
+def surface_helpers():
+  """(b) of `phase_surface`: the new helpers on "cuda" against "cpu"."""
+  import copy
+
+  import numpy as np
+  import torch
+
+  from agents_tpu_torch.networks import make_sac_actor_network
+  from agents_tpu_torch.ops import replay_gather
+  from agents_tpu_torch.policies import ActorPolicy
+  from agents_tpu_torch.specs import array_spec
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils import common, nest_utils, tensor_normalizer
+  from agents_tpu_torch.utils.draws import ReplayDraws
+
+  rng = np.random.default_rng(11)
+  out = {}
+  both = lambda x: {d: torch.from_numpy(x).to(d)  # noqa: E731
+                    for d in ("cpu", "cuda")}
+
+  q = both(rng.standard_normal((B_MAIN, 6, 5)).astype(np.float32))
+  acts = both(np.stack([rng.integers(0, 6, B_MAIN),
+                        rng.integers(0, 5, B_MAIN)], -1).astype(np.int32))
+  got = {d: common.index_with_actions(q[d], acts[d], multi_dim_actions=True)
+         for d in q}
+  out["index_with_actions"] = {"equal": torch.equal(got["cuda"].cpu(),
+                                                    got["cpu"])}
+
+  obs_spec = array_spec.BoundedArraySpec((3,), np.float32, -8.0, 8.0)
+  act_spec = array_spec.BoundedArraySpec((1,), np.float32, -2.0, 2.0)
+  generator = torch.Generator().manual_seed(5)
+  net = make_sac_actor_network(obs_spec, act_spec, fc_layer_params=(256, 256),
+                               device="cpu", generator=generator)
+  nets = {"cpu": net, "cuda": copy.deepcopy(net).to("cuda")}
+  tss = ts.time_step_spec(obs_spec)
+  batch = 32
+  theta = rng.uniform(-np.pi, np.pi, batch)
+  obs = both(np.stack([np.cos(theta), np.sin(theta),
+                       rng.uniform(-8, 8, batch)], 1).astype(np.float32))
+  noise = rng.standard_normal((batch, 1)).astype(np.float32)
+  steps = {}
+  for d, n in nets.items():
+    policy = ActorPolicy(tss, act_spec, n, emit_log_probability=True)
+    with torch.no_grad():
+      steps[d] = policy.action(n, ts.restart(obs[d], batch), (), ReplayDraws(
+          {"actor_noise": [noise]}, device=d))
+  lp = {d: s.info.log_probability for d, s in steps.items()}
+  rows = well_conditioned_rows(
+      policy.distribution(net, ts.restart(obs["cpu"], batch)).action,
+      steps["cpu"].action, lp["cpu"])
+  lp_diff = (lp["cuda"].cpu() - lp["cpu"]).abs()
+  out["actor_log_probability"] = {
+      "actions_max_abs_diff": max_diff(steps["cuda"].action.cpu(),
+                                       steps["cpu"].action),
+      "rows_compared": int(rows.sum()), "rows": batch,
+      "log_prob_max_abs_diff": float(lp_diff[rows].max()),
+      "log_prob_max_abs_diff_all_rows": float(lp_diff.max()),
+      "equal": (torch.allclose(steps["cuda"].action.cpu(),
+                               steps["cpu"].action, RTOL, ATOL)
+                and int(rows.sum()) >= batch // 3
+                and torch.allclose(lp["cuda"].cpu()[rows], lp["cpu"][rows],
+                                   RTOL, ATOL))}
+
+  spec = array_spec.ArraySpec((3,), np.float32)
+  norm = tensor_normalizer.StreamingTensorNormalizer(spec)
+  states = {d: norm.init(d) for d in ("cpu", "cuda")}
+  for _ in range(3):
+    x = both((rng.standard_normal((B_MAIN, 8, 3)) * 3 + 1).astype(
+        np.float32))
+    states = {d: norm.update(s, x[d], outer_dims=(0, 1))
+              for d, s in states.items()}
+  out["normalizer_outer_dims"] = {"equal": all(
+      torch.allclose(a.cpu(), b, RTOL, ATOL) for a, b in zip(
+          nest_utils.flatten(states["cuda"]),
+          nest_utils.flatten(states["cpu"])))}
+
+  frames = rng.integers(0, 256, (256, 84 * 84 * 4)).astype(np.uint8)
+  x = both(frames)
+  packed = {d: replay_gather.pack_rows(v) for d, v in x.items()}
+  out["pack_rows"] = {
+      "packed_shape": list(packed["cuda"].shape),
+      "equal": (torch.equal(packed["cuda"].cpu(), packed["cpu"])
+                and torch.equal(replay_gather.unpack_rows(
+                    packed["cuda"], frames.shape[1]).cpu(), x["cpu"]))}
+  ok = all(v["equal"] for v in out.values())
+  return out, ok
+
+
+def surface_bernoulli_ts(root):
+  """(c) of 5h: Bernoulli Thompson sampling trained, saved, reloaded and
+  acting as the live policy; the gamma transform's KS tests."""
+  import importlib.util
+
+  import numpy as np
+  import scipy.stats
+  import torch
+
+  from agents_tpu_torch.policies.policy_saver import (PolicySaver,
+                                                      load_manifest,
+                                                      load_policy)
+  from agents_tpu_torch.trajectories import time_step as ts
+  from agents_tpu_torch.utils import draws as draws_lib
+  from examples import bandits_train_eval_torch as example
+
+  cfg = bandit_config("cuda", num_rounds=SURFACE_BTS_ROUNDS,
+                      log_interval=SURFACE_BTS_ROUNDS)
+  loop, env, _ = example.build_loop(cfg, "bernoulli_ts")
+  state, _ = loop.run(loop.init(seed=cfg.seed), SURFACE_BTS_ROUNDS)
+  agent, posterior = loop.agent, state.agent_state
+  export = os.path.join(root, "bernoulli_ts")
+  PolicySaver(agent.policy, train_step=posterior.train_step).save(
+      export, posterior)
+  manifest = json.load(open(os.path.join(export,
+                                         "exported_manifest.json")))
+  restored = load_policy(export, policy=agent.policy,
+                         params_template=agent.init(), device="cuda")
+  batch = cfg.env_batch_size
+  obs = np.zeros((batch,) + env.observation_spec().shape,
+                 env.observation_spec().dtype)
+  actions, report, child_s = artifact_actions("surface", export, obs, root)
+  spec = importlib.util.spec_from_file_location(
+      "bts_loader", os.path.join(export, "loader.py"))
+  loader = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(loader)
+  inputs = loader.ExportedPolicy(export, platform="cpu").draw_inputs(
+      batch, np.zeros((2,), np.uint32))
+  apart = {}
+  for d in ("cuda", "cpu"):
+    params = type(posterior)(alpha=posterior.alpha.to(d),
+                             beta=posterior.beta.to(d),
+                             train_step=posterior.train_step)
+    step = ts.TimeStep(
+        step_type=torch.ones(batch, dtype=torch.int32, device=d),
+        reward=torch.zeros(batch, device=d),
+        discount=torch.ones(batch, device=d),
+        observation=torch.from_numpy(obs).to(d))
+    with torch.no_grad():
+      live = agent.policy.action(params, step, (), draws_lib.InputDraws(
+          manifest["draw_sites"], [torch.from_numpy(x).to(d)
+                                   for x in inputs], d)).action
+    apart[d] = int((live.cpu().numpy() != actions[d]).sum())
+
+  rng = np.random.default_rng(14)
+  rounds = draws_lib.GAMMA_ROUNDS
+  ks = {}
+  for alpha in SURFACE_KS_ALPHAS:
+    n = SURFACE_KS_N
+    raw = np.concatenate([rng.standard_normal((rounds, n)),
+                          rng.random((rounds + 1, n))]).astype(np.float32)
+    g = draws_lib.marsaglia_tsang_gamma(
+        torch.full((n,), alpha, device="cuda"),
+        torch.from_numpy(raw).to("cuda")).cpu().numpy()
+    ks[str(alpha)] = float(scipy.stats.kstest(
+        g, scipy.stats.gamma(alpha).cdf).pvalue)
+  out = {
+      "rounds": SURFACE_BTS_ROUNDS, "batch_size": batch,
+      "alpha": posterior.alpha.tolist(), "beta": posterior.beta.tolist(),
+      "export": load_manifest(export)["torch_export"],
+      "platforms": manifest["platforms"],
+      "draw_sites": manifest["draw_sites"],
+      "restored": (torch.equal(restored.params.alpha, posterior.alpha)
+                   and torch.equal(restored.params.beta, posterior.beta)),
+      "actions_apart": apart, "child_leaked": report["leaked"],
+      "child_seconds": child_s, "child_ms": report["ms"],
+      "action_counts": np.bincount(actions["cuda"],
+                                   minlength=len(posterior.alpha)).tolist(),
+      "gamma_ks_pvalues": ks}
+  ok = (out["export"] == "batch-polymorphic"
+        and sorted(out["platforms"]) == ["cpu", "cuda"]
+        and [s["kind"] for s in out["draw_sites"]] == ["beta"]
+        and out["restored"] and not report["leaked"]
+        and all(v == 0 for v in apart.values())
+        and all(p > SURFACE_KS_P for p in ks.values()))
+  return out, ok
+
+
+def phase_surface(card):
+  """(a) the sorted sample at the bench point and (b) the new helpers card
+  against CPU (see 5h above)."""
+  import torch
+
+  matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = False
+  try:
+    sorted_sample = surface_sorted_sample()
+    free_card()
+    helpers, helpers_ok = surface_helpers()
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+  ok = sorted_sample["ok"] and helpers_ok
+  emit("surface", card=card, sorted_sample=sorted_sample, helpers=helpers,
+       ok=ok)
+  if not ok:
+    fail("surface", "a surface check failed")
+
+
+def phase_surface_bernoulli_ts(card):
+  """(c) of 5h: Bernoulli Thompson sampling's export; it times nothing, so
+  it runs in a child process beside the learning runs."""
+  os.makedirs(RUNS_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix="surface_", dir=RUNS_DIR)
+  try:
+    bts, ok = surface_bernoulli_ts(root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  emit("surface_bernoulli_ts", card=card, **bts, ok=ok)
+  if not ok:
+    fail("surface_bernoulli_ts", "a Bernoulli Thompson sampling check "
+         "failed")
 
 
 def conv_forward_flops(size, frames, num_actions, convs, fc):
@@ -4022,7 +4356,7 @@ RNN_RTOL, RNN_ATOL, RNN_ARGMAX_GAP = 1e-4, 1e-5, 1e-5
 RNN_DQN_WARMUP, RNN_DQN_WINDOWS, RNN_DQN_WINDOW, RNN_DQN_PROFILED = 5, 5, 20, 5
 # Windows of one iteration, 3 of them, so that the whole script stays well
 # inside its limit.
-PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 3, 1
+PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 2, 1
 # The JAX package's runs at this config reach 185.6, 157.5, 179.4, 160.5
 # and 108.65 over seeds 0-4 (`tests/test_torch_reference_bars.py ppo_rnn`):
 # all five clear the JAX test's 35, so the bar is `ppo_rnn_bar`'s, the worst
@@ -6396,7 +6730,8 @@ def replay_phases(card):
 CHILD_PHASES = {"td3_learn": phase_td3_learn, "offline": phase_offline,
                 "qtopt_learn": phase_qtopt_learn,
                 "ppo_rnn_learn": phase_ppo_rnn_learn,
-                "per_learn": phase_per_learn}
+                "per_learn": phase_per_learn,
+                "surface_bernoulli_ts": phase_surface_bernoulli_ts}
 
 
 # Phases that time nothing and whose gates repeat bit for bit, run beside
@@ -6407,11 +6742,12 @@ UNTIMED_PHASES = (phase_bandit_learn, phase_bandit_scenarios,
 
 def learning_phases(card):
   """`sac_learn` here while `td3_learn`, `cql_offline` + `bc`,
-  `qtopt_learn`, `ppo_rnn_learn` and `per_learn` run in five child
-  processes of this script on the same card. Each is a long run of small
-  host-bound steps (the card idles over 90% of the time), so five at once
-  take about as long as the longest on the host's cores; no timed phase
-  runs beside them, only, after `sac_learn`, the untimed phases of
+  `qtopt_learn`, `ppo_rnn_learn`, `per_learn` and
+  `surface_bernoulli_ts` run in six child processes of this script on the
+  same card. Each learning run is a long run of small host-bound steps
+  (the card idles over 90% of the time), so they take about as long at
+  once as the longest on the host's cores; no timed phase runs beside
+  them, only, after `sac_learn`, the untimed phases of
   `UNTIMED_PHASES`. The children's lines are printed as each ends; a child
   that fails fails the script, and no child outlives it."""
   children = {
@@ -6473,6 +6809,8 @@ def main(argv=()):
   free_card()
   phase_data_parallel(card)
   bandit_phases(card)
+  phase_surface(card)
+  free_card()
   phase_conv_parity(card)
   phase_conv_main(card)
   free_card()

@@ -507,3 +507,323 @@ def test_bandit_entry_points_raise_without_a_card(monkeypatch):
       lambda: composite.RaggedArray.from_rows([np.zeros(2, np.float32)])):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       build()
+
+
+# --- The public surface, name by name --------------------------------------
+#
+# `test_every_jax_public_name_has_a_port_twin` walks every module of
+# `agents_tpu` by `ast` and looks each public name up in the port module of
+# the same path (imported, so inherited members count):
+#   - each name of a package's `__all__`;
+#   - each public top-level function and class;
+#   - each public method of those classes, `__call__` and properties
+#     included;
+#   - each parameter of those functions and methods, a class's `__init__`
+#     checked against the port class's constructor;
+#   - each public annotated field of a class (a dataclass's, NamedTuple's
+#     or flax module's constructor argument, or a class attribute), found
+#     as a constructor parameter or an attribute of the port class.
+# A name the port spells differently is in one of the rename tables; a
+# name with no meaning outside JAX, flax, optax or orbax is in EXCLUDED.
+# Every entry carries its reason, every rename must resolve to a port name
+# that exists, and every entry must match at least one JAX name.
+
+# Renames that hold wherever the JAX name appears: pattern -> (port name,
+# reason). A pattern is a regular expression over the whole name.
+RENAMED_CLASSES = {
+    r"(.*)Jax(.*)": (r"\1Torch\2", "the framework's name in a class name"),
+}
+RENAMED_METHODS = {
+    r"__call__": ("forward",
+                  "a torch module's call runs `forward` (flax modules and "
+                  "the port's other callables keep `__call__`)"),
+}
+RENAMED_PARAMS = {
+    r"key": ("draws", "a PRNG key becomes a draw source (`utils/draws.py`)"),
+    r"(\w*)optimizer": (r"\1optimizer_fn",
+                        "an optax transformation becomes a factory of "
+                        "torch optimizers over the parameters"),
+    r"(\w*)opt_state(s?)": (r"\1optimizer\2",
+                            "an optax state becomes the torch optimizer "
+                            "that holds it"),
+    r"(\w*)_params(\w*)": (r"\1_network\2",
+                           "a flax parameter tree becomes the torch module "
+                           "that holds it"),
+    r"axis": ("dim", "torch names a tensor's axis `dim`"),
+    r"(axis_name|data_axis)": ("mesh",
+                               "a named mesh axis becomes the port's "
+                               "data-parallel group (`parallel/mesh_utils."
+                               "py`)"),
+}
+# Renames at one site: "module:Qualname" or "module:Qualname(param)" ->
+# (port name, reason). A name with a ":" resolves in another port module.
+RENAMED = {
+    "networks.lstm_networks:LSTMEncoderModule": (
+        "LSTMEncoder", "a torch module needs no `Module` suffix to tell it "
+        "from its flax parameters"),
+    "networks.network:variance_scaling": (
+        "variance_scaling_", "flax returns an initializer; torch's "
+        "initializers fill a tensor in place (trailing underscore)"),
+    "replay_buffers.host_ingest:ensure_built": (
+        "agents_tpu_torch.utils.native_build:build_library",
+        "the port builds every native library through one function"),
+    "train.variable_container:ensure_built": (
+        "agents_tpu_torch.utils.native_build:build_library",
+        "the port builds every native library through one function"),
+    "eval.metric_utils:evaluate_jax_env": (
+        "evaluate_torch_env", "the framework's name in a function name"),
+    "eval.metric_utils:evaluate_jax_env_episodes": (
+        "evaluate_torch_env_episodes",
+        "the framework's name in a function name"),
+    "utils.nest_utils:flatten(nest)": (
+        "tree", "the port's nest functions name their argument `tree`"),
+    "agents.behavioral_cloning.behavioral_cloning_agent:BcAgentState."
+    "params": ("network", "a flax parameter tree becomes the torch "
+               "module that holds it"),
+    "networks.projection_networks:CategoricalProjection.num_actions": (
+        "sample_spec", "the port builds the head from the action spec; "
+        "`num_actions` is an attribute of the built module"),
+    "networks.projection_networks:CategoricalProjection.event_shape": (
+        "sample_spec", "the port builds the head from the action spec; "
+        "`event_shape` is an attribute of the built module"),
+    "train.fused_loop:FusedTrainLoop.evaluate(key)": (
+        "seed_or_draws", "a PRNG key becomes a seed or a draw source"),
+    "utils.common:global_norm(tree)": (
+        "tensors", "the norm of the tensors of a nest or a list"),
+}
+# Names with no meaning in PyTorch: pattern over "module:Qualname" or
+# "module:Qualname(param)" (`fnmatch`) -> reason.
+EXCLUDED = {
+    "*:*Agent.init(key)":
+        "flax builds parameters from a key in `init`; a torch module "
+        "builds its parameters when it is constructed, so these `init`s "
+        "take no draws",
+    "bandits.policies.constraints:*.init_params(key)":
+        "flax builds a constraint network's parameters from a key; the "
+        "port's constraint networks build theirs when constructed",
+    "agents.*:*.critic_loss(critic_params)":
+        "`jax.grad` differentiates a loss in its parameter argument; "
+        "torch.autograd differentiates the tensors that the state's "
+        "modules hold, so a port loss reads them from `agent_state`",
+    "agents.*:*.actor_loss(actor_params)":
+        "`jax.grad` differentiates a loss in its parameter argument; "
+        "torch.autograd differentiates the tensors that the state's "
+        "modules hold, so a port loss reads them from `agent_state`",
+    "agents.*:*.actor_and_alpha_loss(*_*)":
+        "`jax.grad` differentiates a loss in its parameter arguments "
+        "(actor params, log alpha); torch.autograd differentiates the "
+        "tensors `agent_state` holds",
+    "agents.*:*.critic_loss(key)":
+        "a JAX agent folds a key per step; the port's agent state "
+        "carries its draw source (`agent_state.draws`)",
+    "agents.*:*.actor_and_alpha_loss(key)":
+        "a JAX agent folds a key per step; the port's agent state "
+        "carries its draw source (`agent_state.draws`)",
+    "agents.*:*.train(key)":
+        "a JAX agent folds a key per step (or takes one to override "
+        "it); the port's agent state carries its draw source",
+    "train.fused_loop:FusedTrainLoop.initial_collect(key)":
+        "a JAX loop splits its state's key; the port's loop state "
+        "carries its draw source (`LoopState.draws`)",
+    "train.*:*.iteration(_)":
+        "`lax.scan`'s per-step input, which a JAX loop iteration "
+        "ignores; the port's loops iterate in Python",
+    "bandits.environments.bandit_envs:BanditState.key":
+        "a JAX environment state carries its PRNG key; the port's "
+        "environments take a draw source at each call",
+    "networks.network:Network.__init__(module)":
+        "the JAX Network wraps a flax module whose parameters live "
+        "outside it; a port Network is the torch module itself",
+    "networks.network:Network.init_params":
+        "flax's `module.init(key, ...)`; a torch module builds its "
+        "parameters when it is constructed",
+    "networks.network:Network.apply(*)":
+        "flax's functional call with external parameters; a torch "
+        "module is called with its own (`net(observation, step_type, "
+        "network_state)`; `nn.Module.apply` is torch's, unrelated)",
+    "utils.common:aggregate_losses(axis_name)":
+        "under `shard_map` a JAX loss divides by the replica count so "
+        "that psummed gradients average; the port averages gradients "
+        "over the mesh in `agents.agent.apply_gradients`",
+    "replay_buffers.uniform_replay:renorm_count":
+        "keeps a traced int32 frame count from overflowing under jit; "
+        "the port's counts are host ints",
+    "policies.policy_saver:PolicySaver.save(stablehlo)":
+        "selects the StableHLO artifact beside the orbax checkpoint; "
+        "the port always writes its torch.export artifact",
+    "train.checkpointer:Checkpointer.manager":
+        "orbax's CheckpointManager; the port's Checkpointer writes "
+        "its own files (`train/checkpointer.py`)",
+}
+
+
+def _jax_to_port_module(rel: str) -> str:
+  parts = rel[:-3].split(os.sep)
+  parts[-1] = parts[-1].replace("jax_", "torch_").replace(
+      "stablehlo_export", "torch_export")
+  return "agents_tpu_torch." + ".".join(parts)
+
+
+def _params(fn) -> list:
+  a = fn.args
+  names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+  names += [v.arg for v in (a.vararg, a.kwarg) if v is not None]
+  return [n for n in names if n not in ("self", "cls")]
+
+
+def _signature_params(obj):
+  import inspect
+  try:
+    return set(inspect.signature(obj).parameters)
+  except (TypeError, ValueError):
+    return set()
+
+
+def _jax_public_surface():
+  """(module, qualname, param or None, kind, port object getter args) of
+  every public name of `agents_tpu`, walked by `ast`."""
+  jax_root = os.path.join(ROOT, "agents_tpu")
+  out = []
+  for d, _, files in sorted(os.walk(jax_root)):
+    for f in sorted(files):
+      if not f.endswith(".py"):
+        continue
+      rel = os.path.relpath(os.path.join(d, f), jax_root)
+      tree = ast.parse(open(os.path.join(d, f)).read())
+      if f == "__init__.py":
+        pkg = ".".join(["agents_tpu_torch"] + os.path.dirname(rel).split(
+            os.sep)).rstrip(".")
+        for node in tree.body:
+          if (isinstance(node, ast.Assign) and any(
+              getattr(t, "id", None) == "__all__" for t in node.targets)):
+            out += [(pkg[len("agents_tpu_torch."):], name, None, "function")
+                    for name in ast.literal_eval(node.value)]
+        continue
+      mod = _jax_to_port_module(rel)[len("agents_tpu_torch."):]
+      for node in tree.body:
+        if (isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
+            and not node.name.startswith("_")):
+          out.append((mod, node.name, None, "function"))
+          out += [(mod, node.name, p, "param") for p in _params(node)]
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+          out.append((mod, node.name, None, "class"))
+          for m in node.body:
+            if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
+              if m.name == "__init__":
+                out += [(mod, f"{node.name}.__init__", p, "param")
+                        for p in _params(m)]
+              elif not m.name.startswith("_") or m.name == "__call__":
+                q = f"{node.name}.{m.name}"
+                out.append((mod, q, None, "method"))
+                out += [(mod, q, p, "param") for p in _params(m)]
+            elif (isinstance(m, ast.AnnAssign)
+                  and isinstance(m.target, ast.Name)
+                  and not m.target.id.startswith("_")):
+              out.append((mod, f"{node.name}.{m.target.id}", None, "field"))
+  return out
+
+
+def _rename(table, name):
+  import re
+  for pattern, (new, _) in table.items():
+    if re.fullmatch(pattern, name):
+      return re.sub(pattern, new, name, count=1), pattern
+  return name, None
+
+
+def _has(owner, name) -> bool:
+  """Whether a module or a class (its MRO, not its metaclass) defines
+  `name`."""
+  if isinstance(owner, type):
+    return any(name in vars(c) for c in owner.__mro__)
+  return hasattr(owner, name)
+
+
+def _member(owner, name):
+  """`owner.name` where `_has` finds it, else None."""
+  return getattr(owner, name) if _has(owner, name) else None
+
+
+def test_every_jax_public_name_has_a_port_twin():
+  """Every public function, class, method, parameter and field of
+  `agents_tpu` has its twin in the port, under the same name or a rename
+  of the tables above, unless EXCLUDED says why it means nothing in
+  PyTorch."""
+  import fnmatch
+  import importlib
+  used = set()
+  missing = []
+
+  def excluded(site):
+    hits = [p for p in EXCLUDED if fnmatch.fnmatchcase(site, p)]
+    used.update(hits)
+    return bool(hits)
+
+  def site_rename(site, module):
+    """(module, port name) of a site-level rename, or None."""
+    if site not in RENAMED:
+      return None
+    used.add(site)
+    target = RENAMED[site][0]
+    if ":" in target:
+      module_name, target = target.split(":")
+      module = importlib.import_module(module_name)
+    return module, target
+
+  def lookup(owner, name, site, table):
+    """The port object for JAX `name` at `site`: a site rename, then a
+    table rename, then the name itself; None when absent."""
+    renamed = site_rename(site, owner)
+    if renamed is not None:
+      return _member(*renamed)
+    new, pattern = _rename(table, name)
+    if pattern is not None and _has(owner, new):
+      used.add(pattern)
+      return _member(owner, new)
+    return _member(owner, name)
+
+  def has_name(names, owner, name, site):
+    """Whether `name` (a parameter or field) is in `names` or, for a
+    field, an attribute of `owner`, under a rename where there is one."""
+    renamed = site_rename(site, owner)
+    candidates = [renamed[1]] if renamed else [name]
+    new, pattern = _rename(RENAMED_PARAMS, name)
+    if renamed is None and pattern is not None:
+      candidates.append(new)
+    for i, c in enumerate(candidates):
+      if c in names or (owner is not None and _has(owner, c)):
+        if i == 1:
+          used.add(pattern)
+        return True
+    return False
+
+  for mod, qual, param, kind in _jax_public_surface():
+    site = f"{mod}:{qual}" + (f"({param})" if param else "")
+    owner_name, _, member = qual.partition(".")
+    module = importlib.import_module(f"agents_tpu_torch.{mod}")
+    owner = lookup(module, owner_name, f"{mod}:{owner_name}",
+                   RENAMED_CLASSES)
+    if owner is None:
+      found = kind not in ("function", "class")   # reported once, there
+    elif kind == "method":
+      found = lookup(owner, member, site, RENAMED_METHODS) is not None
+    elif kind == "field":
+      found = has_name(_signature_params(owner), owner, member, site)
+    elif kind == "param":
+      fn = owner if member in ("", "__init__") else lookup(
+          owner, member, f"{mod}:{qual}", RENAMED_METHODS)
+      # A missing method is reported once, as the method.
+      found = fn is None or has_name(_signature_params(fn), None, param,
+                                     site)
+    else:
+      found = True
+    if not found and not excluded(site):
+      missing.append(site)
+  assert missing == [], "\n".join(missing)
+  tables = [RENAMED_CLASSES, RENAMED_METHODS, RENAMED_PARAMS, RENAMED,
+            EXCLUDED]
+  stale = [k for table in tables for k in table if k not in used]
+  assert stale == [], stale
+  reasons = [v[1] if isinstance(v, tuple) else v for table in tables
+             for v in table.values()]
+  assert all(isinstance(r, str) and len(r) > 20 for r in reasons)

@@ -1,5 +1,6 @@
 """Policy export and reload: `agents_tpu_torch.policies.{torch_export,
-policy_saver,registry}` and `networks.registry` against the JAX package.
+policy_saver,registry}` and `networks.registry` against the JAX package,
+and the gamma, beta and permutation draws an artifact transforms itself.
 
 Twins of ``tests/test_stablehlo_export.py`` and
 ``tests/test_policy_artifact.py``. Each network is built and initialised
@@ -45,6 +46,7 @@ from agents_tpu_torch.policies.policy_saver import (PolicySaver,
                                                     load_policy)
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.utils import convert
+from agents_tpu_torch.utils import draws as draws_lib
 from agents_tpu_torch.utils.draws import ReplayDraws
 from test_torch_parity_utils import assert_close
 
@@ -602,3 +604,183 @@ def test_failed_card_export_raises_instead_of_saving_cpu_only(tmp_path,
     PolicySaver(GreedyPolicy(QPolicy(TSS, DISC, net))).save(
         str(tmp_path / "e"), net)
   assert not (tmp_path / "e" / "exported_action_cpu.pt2").exists()
+
+
+# -- gamma, beta and permutation draws ----------------------------------------
+#
+# An artifact takes pre-drawn inputs for these sites and transforms them
+# in the program (`utils.draws.marsaglia_tsang_gamma`, `beta_from_inputs`,
+# `permutation_from_keys`). The transforms are held against
+# `scipy.stats` on numpy draws at a fixed seed (KS, or a chi-square test
+# for the permutation, p > 1e-3), and Bernoulli Thompson sampling's policy
+# against its own live run over the loader's inputs.
+
+def _gamma_inputs(rng, shape, rounds=draws_lib.GAMMA_ROUNDS):
+  return np.concatenate([rng.standard_normal((rounds,) + shape),
+                         rng.random((rounds + 1,) + shape)]).astype(
+                             np.float32)
+
+
+@pytest.mark.parametrize("alpha", [0.1, 0.5, 1.0, 5.0, 50.0])
+def test_gamma_transform_passes_ks_against_scipy(alpha):
+  """alpha < 1 goes through the boost branch, which Bernoulli Thompson
+  sampling's alpha >= 1 never reaches."""
+  import scipy.stats
+  n = 100_000
+  rng = np.random.default_rng(int(alpha * 10))
+  g = draws_lib.marsaglia_tsang_gamma(torch.full((n,), alpha),
+                                      torch.from_numpy(_gamma_inputs(
+                                          rng, (n,))))
+  assert g.shape == (n,) and torch.isfinite(g).all() and (g >= 0).all()
+  assert scipy.stats.kstest(g.numpy(), scipy.stats.gamma(alpha).cdf
+                            ).pvalue > 1e-3
+
+
+def test_gamma_rounds_bound_the_fallback():
+  """Round 0 accepts at least 0.951 of proposals at alpha = 1 (the least
+  efficient alpha), so all 10 rounds reject with probability below 1e-12;
+  the inputs' layout is [2R + 1, *shape]."""
+  rng = np.random.default_rng(0)
+  x, u = rng.standard_normal(10 ** 6), rng.random(10 ** 6)
+  d = 1.0 - 1.0 / 3.0
+  v = (1.0 + x / np.sqrt(9.0 * d)) ** 3
+  safe = np.where(v > 0, v, 1.0)
+  accept = (v > 0) & (np.log(u) < 0.5 * x * x + d - d * safe
+                      + d * np.log(safe))
+  assert accept.mean() > 0.951
+  assert (1.0 - 0.951) ** draws_lib.GAMMA_ROUNDS < 1e-12
+  assert draws_lib.gamma_input_shape((4, 3)) == (21, 4, 3)
+  # No round accepts: the last proposal, clamped positive.
+  inputs = torch.zeros((21, 2))
+  inputs[:10] = -10.0                     # v <= 0 in every round
+  inputs[10:20] = 0.5
+  g = draws_lib.marsaglia_tsang_gamma(torch.tensor([2.0, 3.0]), inputs)
+  assert (g > 0).all() and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("a,b", [(1.0, 1.0), (3.0, 7.0), (0.5, 2.0)])
+def test_beta_transform_passes_ks_against_scipy(a, b):
+  import scipy.stats
+  n = 100_000
+  rng = np.random.default_rng(int(a * 10 + b))
+  inputs = np.stack([_gamma_inputs(rng, (n,)), _gamma_inputs(rng, (n,))])
+  x = draws_lib.beta_from_inputs(torch.full((n,), a), torch.full((n,), b),
+                                 torch.from_numpy(inputs))
+  assert scipy.stats.kstest(x.numpy(), scipy.stats.beta(a, b).cdf
+                            ).pvalue > 1e-3
+
+
+def test_permutation_transform_is_uniform():
+  """Each permutation is one; the position of each item over 20,000
+  permutations of 8 is uniform (chi-square against scipy)."""
+  import scipy.stats
+  rng = np.random.default_rng(1)
+  counts = np.zeros((8, 8))
+  for keys in rng.random((20_000, 8)):
+    perm = draws_lib.permutation_from_keys(torch.from_numpy(keys)).numpy()
+    assert sorted(perm) == list(range(8))
+    counts[perm, np.arange(8)] += 1
+  for row in counts:
+    assert scipy.stats.chisquare(row).pvalue > 1e-3
+
+
+def _bernoulli_ts(device="cpu"):
+  from agents_tpu_torch.bandits.agents import BernoulliThompsonSamplingAgent
+  from agents_tpu_torch.bandits.environments import BernoulliBandit
+  env = BernoulliBandit([0.3, 0.5, 0.7, 0.65], device=device)
+  agent = BernoulliThompsonSamplingAgent(
+      ts.time_step_spec(env.observation_spec()), env.action_spec(),
+      device=device)
+  state = agent.init()
+  state = type(state)(alpha=torch.tensor([3.0, 5.0, 9.0, 2.0]),
+                      beta=torch.tensor([4.0, 2.0, 1.0, 7.0]),
+                      train_step=12)
+  return env, agent, state
+
+
+def test_bernoulli_thompson_sampling_exports_and_acts_as_live(tmp_path):
+  """The Beta posterior draws export as a "beta" site; the artifact, run
+  in a bare interpreter, acts as the live policy drawing through
+  `InputDraws` over the loader's inputs for the same key; `load_policy`
+  restores the posterior."""
+  env, agent, state = _bernoulli_ts()
+  export = str(tmp_path / "bts")
+  PolicySaver(agent.policy, train_step=12).save(export, state)
+  assert load_manifest(export)["torch_export"] == "batch-polymorphic"
+  manifest = json.load(open(os.path.join(export, "exported_manifest.json")))
+  assert manifest["draw_sites"] == [{
+      "kind": "beta", "site": "bernoulli_ts_theta", "shape": [None, 4],
+      "dtype": "float32", "low": None, "high": None,
+      "rounds": draws_lib.GAMMA_ROUNDS}]
+  assert manifest["params_leaf_paths"] == ["alpha", "beta"]
+
+  batch = 256
+  obs = np.zeros((batch,) + env.observation_spec().shape,
+                 env.observation_spec().dtype)
+  (got,) = _run_bare_child(export, obs, tmp_path)
+  inputs = _loader(export).draw_inputs(batch, np.zeros((2,), np.uint32))
+  with torch.no_grad():
+    live = agent.policy.action(
+        state, _port_step(obs), (), draws_lib.InputDraws(
+            manifest["draw_sites"], [torch.from_numpy(x) for x in inputs],
+            "cpu")).action
+  assert int((got != live.numpy()).sum()) == 0
+  assert np.bincount(got, minlength=4).argmax() == 2
+
+  template = agent.init()
+  saved = load_policy(export, policy=agent.policy, params_template=template,
+                      device="cpu")
+  assert torch.equal(saved.params.alpha, state.alpha)
+  assert torch.equal(saved.params.beta, state.beta)
+
+
+def _beta_and_permutation_policy():
+  """A policy over a Beta distribution of two learned concentrations per
+  action dim (its sample draws two gamma sites) whose action also takes
+  the batch's rows in a random order (a permutation site)."""
+  from agents_tpu_torch import distributions as tdist
+  from agents_tpu_torch.policies.policy import Policy
+  from agents_tpu_torch.trajectories import policy_step
+
+  class BetaPolicy(Policy):
+
+    def _distribution(self, params, time_step, state):
+      c = torch.nn.functional.softplus(params(time_step.observation)) + 0.2
+      return policy_step.PolicyStep(
+          action=tdist.Beta(c[..., :2], c[..., 2:]), state=state, info=())
+
+    def _action(self, params, time_step, state, draws):
+      dstep = self._distribution(params, time_step, state)
+      x = dstep.action.sample(draws, site="beta_gamma")
+      order = draws.permutation("rows", x.shape[0])
+      return policy_step.PolicyStep(action=x[order], state=state, info=())
+
+  act = specs.BoundedArraySpec((2,), np.float32, 0.0, 1.0)
+  net = torch.nn.Linear(4, 4)
+  return BetaPolicy(TSS, act, clip=False), net
+
+
+def test_gamma_and_permutation_sites_export(tmp_path):
+  """Gamma and permutation sites (a batch-sized permutation, so its dim is
+  the batch's) export, and the artifact acts as the eager policy over the
+  same inputs, at two batch sizes."""
+  policy, net = _beta_and_permutation_policy()
+  export = str(tmp_path / "beta")
+  manifest = torch_export.export_action(policy, net, export)
+  assert [(s["kind"], s["site"], s["shape"]) for s in
+          manifest["draw_sites"]] == [("gamma", "beta_gamma", [None, 2]),
+                                      ("gamma", "beta_gamma", [None, 2]),
+                                      ("permutation", "rows", [None])]
+  assert manifest["draw_sites"][2]["dtype"] == "float64"
+  loaded = _loader(export)
+  for batch in (5, 9):
+    obs = np.random.RandomState(batch).randn(batch, 4).astype(np.float32)
+    key = np.asarray([batch, 1], np.uint32)
+    got, _ = loaded.action([obs], key_data=key)
+    inputs = [torch.from_numpy(x) for x in loaded.draw_inputs(batch, key)]
+    with torch.no_grad():
+      eager = policy.action(net, _port_step(obs), (), draws_lib.InputDraws(
+          manifest["draw_sites"], inputs, "cpu")).action
+    np.testing.assert_allclose(got[0], eager.numpy(), rtol=1e-6, atol=1e-6)
+    assert got[0].shape == (batch, 2) and np.all((got[0] >= 0)
+                                                  & (got[0] <= 1))
