@@ -7,8 +7,8 @@ card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
 with its wall time since the line before (`phase_seconds`); any failed
 phase exits non-zero before the last line. The phases run in the order
 below, except the six long learning runs and six untimed phases:
-`sac_learn` runs after every timed phase (the host phases 34-39b and the
-replay phases 40-44 included), while `td3_learn`, `cql_offline` with
+`sac_learn` runs after every timed phase (the host phases 34-39b, the
+replay phases 40-44 and `bench` included), while `td3_learn`, `cql_offline` with
 `bc`, `qtopt_learn`, `ppo_rnn_learn`, `per_learn` and part (c) of
 `surface` (line `surface_bernoulli_ts`) run beside it in six child
 processes of this script (``chip_smoke.py --child NAME``) on the same
@@ -384,14 +384,15 @@ for bit and which time nothing.
                   device dispatch, action read and env step), host syncs
                   per tick under ``set_sync_debug_mode("warn")`` (expected:
                   1, the action read), a 2-tick profile.
- 36. async_sac_main  `AsyncHostDeviceTrainLoop` at that point (UTD 1.0,
-                  `min_replay_frames` 64 B, 32 train steps per call): a ramp
-                  run of 256 ticks, then 1,200 timed ticks (the probe's
-                  minimum): env-steps/s, train-steps/s, the realized UTD over
-                  the trainable window (``bench.py:102-106``), the collector's
-                  median tick with and without a train call in flight; gates
-                  on the trainer's drain, exact env steps and train steps <=
-                  UTD x env steps + 32, not on the UTD itself.
+ 36. async_sac_main  `bench_torch.py:sac_live_probe`: `AsyncHostDeviceTrainLoop`
+                  at that point (UTD 1.0, `min_replay_frames` 64 B, 32 train
+                  steps per call), one ramp run of 256 ticks, then 1,200
+                  timed ticks (the probe's minimum): env-steps/s,
+                  train-steps/s, the realized UTD over the trainable window
+                  (``bench.py:102-106``), the collector's median tick with
+                  and without a train call in flight; gates on the probe's
+                  checks (the trainer's drain, exact env steps, train steps
+                  <= UTD x env steps + 32, a finite loss), not on the UTD.
  37. host_ppo_main  `HostOnPolicyTrainLoop` at `examples/ppo_halfcheetah.py`'s
                   schulman17 config (B=1, T=2049, (64, 64) tanh, 10 x 32
                   minibatches, clip 0.2, gradient clipping 0.5) over a random
@@ -479,11 +480,24 @@ for bit and which time nothing.
                   no sync inside a train call, the learner's `PolicySaver`
                   exports (collect and greedy, "cpu" and "cuda" programs)
                   at each publish's step, advancing.
- 44. host_replay  `PyUniformReplayBuffer` and `PyHashedReplayBuffer` as
-                  `bench.py:host_atari_replay_probe` drives them (84x84x4
+ 44. host_replay  `bench_torch.py:host_atari_replay_probe`:
+                  `PyUniformReplayBuffer` and `PyHashedReplayBuffer` (84x84x4
                   uint8, capacity cut from 1M frames to 100k): fill
                   frames/s, 2-step samples at batch 256, the batch's H2D
-                  GB/s, the hashed variant's add rate and bytes stored.
+                  GB/s, the hashed variant's add rate and bytes stored;
+                  gates on the probe's checks (every frame held, sampled
+                  windows of consecutive stored frames in both buffers, the
+                  copy equal, 1,024 unique hashed frames, equal samples).
+ 44a. bench      ``bench_torch.py --smoke`` in a child process (a fresh CUDA
+                  context and its own TF32 setting): its last line has
+                  `bench.py`'s top-level keys and the twin's `detail` keys,
+                  every number finite, `value` 0 exactly when the last-20
+                  return is below 195, `card` this card's `nvidia-smi`
+                  name and power limit, TF32 off for matmul and cuDNN, and
+                  the smoke's cuts listed under `reduced`; a child that
+                  exits non-zero fails the phase. On the card the smoke
+                  keeps every width (the pixel bench at B=128, 84x84x4,
+                  rings of 512 and 2,048) and cuts depth only.
  45. per_learn    `tests/test_prioritized_replay.py`'s PER config (B=32, ring
                   256, (64, 64), sample 64) for 1,600 iterations to a
                   last-20 return above 100 (the JAX test's bar, which the
@@ -506,6 +520,12 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from bench_torch import (HALFCHEETAH_ACT, HALFCHEETAH_OBS, SAC_MIN_TICKS,
+                         SAC_POINT, card_line, conv_forward_flops,
+                         conv_iteration_flops, free_card, halfcheetah_specs,
+                         host_atari_replay_probe, random_halfcheetah,
+                         run_timed, sac_live_probe)
 
 B_PARITY, B_MAIN = 64, 4096
 MAIN = dict(capacity=512, sample_batch_size=256, fc=(100, 50))
@@ -603,14 +623,6 @@ def emit(phase, **fields):
 def fail(phase, message):
   emit(phase, ok=False, error=message)
   sys.exit(1)
-
-
-def card_line():
-  out = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-      check=True)
-  return out.stdout.strip().splitlines()[0]
 
 
 def build_loop(device, batch_size, capacity, sample_batch_size, fc):
@@ -905,21 +917,15 @@ def profile_window(loop, state, iterations, spans=()):
 
 
 def timed_windows(loop, state, iterations, windows=TIMED_WINDOWS):
-  """`iterations` iterations under ``set_sync_debug_mode("error")``, in
-  `windows` windows each ended by a synchronize outside the debug mode, so
-  the spread between windows shows beside the mean. Returns (state, the
-  last window's losses, ms/iteration of each window)."""
+  """`iterations` iterations in `windows` windows of `bench_torch.py`'s
+  `run_timed` (each under ``set_sync_debug_mode("error")``, ended by a
+  synchronize outside it), so the spread between windows shows beside the
+  mean. Returns (state, the last window's losses, ms/iteration of each
+  window)."""
   import torch
 
-  window_ms, window = [], iterations // windows
-  for _ in range(windows):
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    state, losses = loop.run(state, window)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    window_ms.append((time.perf_counter() - t0) * 1e3 / window)
-  return state, losses, window_ms
+  return run_timed(loop, state, torch.device("cuda"), iterations // windows,
+                   windows)
 
 
 def phase_main_and_learn(card):
@@ -2285,31 +2291,6 @@ def phase_surface_bernoulli_ts(card):
          "failed")
 
 
-def conv_forward_flops(size, frames, num_actions, convs, fc):
-  """Analytic FLOPs of one Q-network forward on one frame, as
-  ``bench.py:conv_bench`` counts them: SAME padding, ceil(dim / stride)
-  outputs, 2 FLOPs per multiply-add."""
-  total, cin = 0, frames
-  for filters, kernel, stride in convs:
-    size = -(-size // stride)
-    total += size * size * filters * kernel * kernel * cin * 2
-    cin = filters
-  width = size * size * cin
-  for out in tuple(fc) + (num_actions,):
-    total += width * out * 2
-    width = out
-  return total
-
-
-def free_card():
-  import gc
-
-  import torch
-
-  gc.collect()
-  torch.cuda.empty_cache()
-
-
 def phase_conv_parity(card):
   import numpy as np
   import torch
@@ -2415,9 +2396,10 @@ def phase_conv_main(card):
   fwd = conv_forward_flops(cfg.pixels_size, cfg.pixels_frames,
                            cfg.pixels_actions, cfg.conv_layer_params,
                            cfg.fc_layer_params)
-  # Collect forward on B rows; train: online forward, backward (about 2x
-  # forward) and target forward on S windows (``bench.py:252-254``).
-  flops = fwd * (cfg.env_batch_size + 4 * cfg.sample_batch_size)
+  flops = conv_iteration_flops(
+      cfg.pixels_size, cfg.pixels_frames, cfg.pixels_actions,
+      cfg.env_batch_size, cfg.sample_batch_size, cfg.conv_layer_params,
+      cfg.fc_layer_params)
   emit("conv_main", card=card, batch_size=cfg.env_batch_size,
        sample_batch_size=cfg.sample_batch_size, ring=cfg.replay_capacity,
        conv=cfg.conv_layer_params, fc=cfg.fc_layer_params, dtype=cfg.dtype,
@@ -4929,46 +4911,20 @@ def phase_checkpoint_resume(card):
 
 # -- host environments and the host-device loops -------------------------------
 
-HALFCHEETAH_OBS, HALFCHEETAH_ACT = 17, 6
 HOST_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
                    train_steps_per_call=2)
 HOST_PARITY_RANDOM, HOST_PARITY_TICKS = 4, 3
 # The per-tensor bound of the PPO, CQL and QtOpt parity phases, for the
 # networks and Adam moments (PERF.md §6).
 HOST_PARITY_TENSOR_RTOL = 1e-4
-HOST_SAC = dict(env_batch_size=32, replay_capacity=4096,
-                sample_batch_size=256, train_steps_per_call=32,
-                utd_ratio=1.0, initial_collect_ticks=64)
 HOST_SAC_WARMUP, HOST_SAC_WINDOWS, HOST_SAC_WINDOW, HOST_SAC_PROFILED = (
     2, 5, 2, 2)
-ASYNC_RAMP_TICKS, ASYNC_TIMED_TICKS, ASYNC_RANDOM_TICKS = 256, 1200, 32
 HOST_PPO_WARMUP, HOST_PPO_TIMED = 1, 2
 PARALLEL_WORKERS, PARALLEL_STEPS = 4, 50
 ASYNC_RESUME = dict(env_batch_size=8, replay_capacity=256,
                     sample_batch_size=32, train_steps_per_call=4,
                     utd_ratio=1.0, initial_collect_ticks=4)
 ASYNC_RESUME_TICKS, ASYNC_RESUME_MORE, ASYNC_RESUME_EVERY = 60, 90, 25
-
-
-def halfcheetah_specs():
-  """HalfCheetah-v5's specs: observation (17,) float32 (unbounded),
-  action (6,) float32 in [-1, 1]."""
-  import numpy as np
-
-  from agents_tpu_torch.specs import array_spec
-
-  return (array_spec.ArraySpec((HALFCHEETAH_OBS,), np.float32, "observation"),
-          array_spec.BoundedArraySpec((HALFCHEETAH_ACT,), np.float32, -1.0,
-                                      1.0, "action"))
-
-
-def random_halfcheetah(seed=0, **kwargs):
-  """A seeded `RandomPyEnvironment` with HalfCheetah-v5's specs; by default
-  1,000-step episodes, as HalfCheetah's time limit gives."""
-  from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
-
-  kwargs = {"episode_end_probability": 0.0, "max_duration": 1000, **kwargs}
-  return RandomPyEnvironment(*halfcheetah_specs(), seed=seed, **kwargs)
 
 
 def halfcheetah_factory(**kwargs):
@@ -5153,7 +5109,7 @@ def phase_host_sac_main(card):
   from agents_tpu_torch.utils import nest_utils
 
   t_phase = time.perf_counter()
-  cfg = sac_config(**HOST_SAC)
+  cfg = sac_config(**SAC_POINT)
   loop = sync_sac_loop(cfg, "cuda")
   B, K = cfg.env_batch_size, cfg.train_steps_per_call
   dev, time_step = loop.init(seed=cfg.seed)
@@ -5224,55 +5180,25 @@ def phase_host_sac_main(card):
 
 
 def phase_async_sac_main(card):
-  """`AsyncHostDeviceTrainLoop` at the probe's point: one ramp run, then
-  the timed run; rates, realized UTD and the collector's tick with and
-  without the trainer."""
-  from examples.sac_halfcheetah_torch import build_loop as sac_loop
-
+  """`bench_torch.py:sac_live_probe` at one ramp run and its minimum of
+  1,200 timed ticks: rates, realized UTD and the collector's tick with and
+  without the trainer, gated on the probe's checks."""
   t_phase = time.perf_counter()
-  cfg = sac_config(**HOST_SAC)
-  loop, eval_env = sac_loop(cfg, halfcheetah_factory())
-  eval_env.close()
-  B, K = cfg.env_batch_size, cfg.train_steps_per_call
-  min_frames = cfg.initial_collect_ticks * B
-
-  def utd_of(out, ticks):
-    return out["train_steps"] / max(ticks * B - min_frames, 1)
-
-  ramp = loop.run(total_env_batch_steps=ASYNC_RAMP_TICKS, seed=0,
-                  initial_random_steps=ASYNC_RANDOM_TICKS)
-  t0 = time.perf_counter()
-  out = loop.run(total_env_batch_steps=ASYNC_TIMED_TICKS, seed=0,
-                 initial_random_steps=ASYNC_RANDOM_TICKS)
-  dt = time.perf_counter() - t0
-  checks = {
-      "trainer_drained": out["trainer_drained"] and ramp["trainer_drained"],
-      "env_steps_exact": out["env_steps"] == ASYNC_TIMED_TICKS * B,
-      "train_steps_within_utd": out["train_steps"]
-                                <= cfg.utd_ratio * out["env_steps"] + K,
-      "trainer_trained": out["train_steps"] > 0 and ramp["train_steps"] > 0,
-      "loss_finite": math.isfinite(out["last_loss"])}
+  probe = sac_live_probe(seconds=0.0, max_ramp_runs=1, device="cuda")
+  checks = probe.pop("checks")
   ok = all(checks.values())
-  emit("async_sac_main", card=card, env=f"RandomPyEnvironment x {B} "
-       "(HalfCheetah-v5 specs)", batch_size=B, ring=cfg.replay_capacity,
-       sample_batch_size=cfg.sample_batch_size,
-       train_steps_per_call=K, utd_ratio=cfg.utd_ratio,
-       min_replay_frames=min_frames, ramp_ticks=ASYNC_RAMP_TICKS,
-       ramp_utd=utd_of(ramp, ASYNC_RAMP_TICKS),
-       timed_ticks=ASYNC_TIMED_TICKS,
-       cut="timed run 1,200 ticks, the probe's minimum (bench.py:120)",
-       window_s=dt, env_steps_per_s=ASYNC_TIMED_TICKS * B / dt,
-       train_steps_per_s=out["train_steps"] / dt,
-       utd_realized=utd_of(out, ASYNC_TIMED_TICKS),
-       probe_guard_utd=0.8, env_steps=out["env_steps"],
-       train_steps=out["train_steps"],
-       tick_ms_trainer_idle=out["tick_ms_trainer_idle"],
-       tick_ms_trainer_busy=out["tick_ms_trainer_busy"],
-       ticks_trainer_idle=out["ticks_trainer_idle"],
-       ticks_trainer_busy=out["ticks_trainer_busy"],
-       last_loss=out["last_loss"], checks=checks,
+  emit("async_sac_main", card=card, **probe,
+       batch_size=SAC_POINT["env_batch_size"],
+       ring=SAC_POINT["replay_capacity"],
+       sample_batch_size=SAC_POINT["sample_batch_size"],
+       train_steps_per_call=SAC_POINT["train_steps_per_call"],
+       utd_ratio=SAC_POINT["utd_ratio"],
+       min_replay_frames=(SAC_POINT["initial_collect_ticks"]
+                          * SAC_POINT["env_batch_size"]),
+       cut=f"1 ramp run (up to 6); timed run {SAC_MIN_TICKS:,} ticks, the "
+           "probe's minimum (bench.py:120)",
+       probe_guard_utd=0.8, checks=checks,
        seconds=time.perf_counter() - t_phase, ok=ok)
-  loop.env.close()
   if not ok:
     fail("async_sac_main", f"async loop checks failed: {checks}")
 
@@ -5934,8 +5860,7 @@ INGEST_ENV_BATCH, INGEST_PULLS = 8, 200
 INGEST_COLLECTOR_TAG, INGEST_ENV_TAG = 1 << 22, 1 << 17
 # `bench.py:host_atari_replay_probe`'s 1M frames (28 GB) cut to 100k
 # (2.8 GB of host RAM); its hashed variant's 100k frames.
-HOST_REPLAY_CAPACITY, HOST_REPLAY_HASHED, HOST_REPLAY_CHUNK = 100_000, 100_000, 1024
-HOST_REPLAY_SAMPLES, HOST_REPLAY_TRANSFERS = 40, 10
+HOST_REPLAY_CAPACITY = HOST_REPLAY_HASHED = 100_000
 MAIN_POINT = {}
 
 
@@ -6633,85 +6558,20 @@ def phase_ingest_sac(card):
 
 
 def phase_host_replay(card):
-  """`PyUniformReplayBuffer` and `PyHashedReplayBuffer` as
-  `bench.py:host_atari_replay_probe` drives them, with 84x84x4 uint8
-  frames, capacity cut from 1M frames to 100k: fill frames/s, 2-step
-  samples at batch 256, the sampled batch's H2D GB/s, the hashed variant's
-  add rate and bytes stored."""
-  import numpy as np
-  import torch
-
-  from agents_tpu_torch.replay_buffers.py_uniform_replay import (
-      PyHashedReplayBuffer, PyUniformReplayBuffer)
-  from agents_tpu_torch.specs import array_spec
-  from agents_tpu_torch.trajectories import time_step as ts
-  from agents_tpu_torch.trajectories import trajectory as tj
-  from agents_tpu_torch.utils import nest_utils
-
-  spec = tj.trajectory_spec(
-      ts.time_step_spec(array_spec.ArraySpec((84, 84, 4), np.uint8)),
-      array_spec.BoundedArraySpec((), np.int32, 0, 3))
-  rng = np.random.RandomState(0)
-  block = array_spec.map_spec_nest(
-      lambda s: rng.randint(0, 255, (HOST_REPLAY_CHUNK,) + s.shape).astype(
-          s.dtype) if s.dtype == np.uint8 else np.zeros(
-              (HOST_REPLAY_CHUNK,) + s.shape, s.dtype), spec)
-  buf = PyUniformReplayBuffer(spec, HOST_REPLAY_CAPACITY,
-                              reuse_sample_buffers=True)
-  chunks = HOST_REPLAY_CAPACITY // HOST_REPLAY_CHUNK
-  t0 = time.perf_counter()
-  for _ in range(chunks):
-    buf.add_batch(block)
-  fill_s = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  for i in range(HOST_REPLAY_SAMPLES):
-    batch = buf.sample(256, num_steps=2, rng=np.random.RandomState(i))
-  sample_s = (time.perf_counter() - t0) / HOST_REPLAY_SAMPLES
-  leaves = nest_utils.flatten(batch)
-  batch_bytes = sum(x.nbytes for x in leaves)
-  on_card = [torch.from_numpy(x).to("cuda") for x in leaves]
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  for _ in range(HOST_REPLAY_TRANSFERS):
-    on_card = [torch.from_numpy(x).to("cuda") for x in leaves]
-  torch.cuda.synchronize()
-  transfer_s = (time.perf_counter() - t0) / HOST_REPLAY_TRANSFERS
-  copied_ok = all(np.array_equal(g.cpu().numpy(), x)
-                  for g, x in zip(on_card, leaves))
-  hbuf = PyHashedReplayBuffer(spec, HOST_REPLAY_HASHED,
-                              reuse_sample_buffers=True)
-  t0 = time.perf_counter()
-  for _ in range(HOST_REPLAY_HASHED // HOST_REPLAY_CHUNK):
-    hbuf.add_batch(block)
-  hashed_s = time.perf_counter() - t0
-  frames = HOST_REPLAY_HASHED // HOST_REPLAY_CHUNK * HOST_REPLAY_CHUNK
-  same = all(np.array_equal(a, b) for a, b in zip(
-      nest_utils.flatten(buf.sample(64, num_steps=2,
-                                    rng=np.random.RandomState(99))),
-      nest_utils.flatten(hbuf.sample(64, num_steps=2,
-                                     rng=np.random.RandomState(99)))))
-  windows_ok = bool((batch.observation.shape == (256, 2, 84, 84, 4)))
-  resident = sum(x.nbytes for x in nest_utils.flatten(buf._storage))
-  ok = (copied_ok and same and windows_ok
-        and len(buf) == chunks * HOST_REPLAY_CHUNK
-        and hbuf.num_unique_observations == HOST_REPLAY_CHUNK)
-  emit("host_replay", card=card, capacity_frames=HOST_REPLAY_CAPACITY,
-       capacity_cut_from=1_000_000, resident_bytes=resident,
-       frames_filled=len(buf),
-       fill_frames_per_s=chunks * HOST_REPLAY_CHUNK / fill_s,
-       sample_batch256_ms=sample_s * 1e3,
-       sample_frames_per_s=256 * 2 / sample_s, batch_bytes=batch_bytes,
-       host_to_device_ms=transfer_s * 1e3,
-       host_to_device_gb_per_s=batch_bytes / transfer_s / 1e9,
-       mnih15_cadence_env_frames_per_s_with_transfer=4.0 / (
-           sample_s + transfer_s),
-       hashed_frames=frames, hashed_add_frames_per_s=frames / hashed_s,
-       hashed_unique_observations=hbuf.num_unique_observations,
-       hashed_observation_bytes_stored=hbuf.observation_bytes_stored,
-       hashed_dedup_ratio=frames / max(hbuf.num_unique_observations, 1),
-       copy_equal=copied_ok, hashed_samples_equal_uniform=same, ok=ok)
+  """`bench_torch.py:host_atari_replay_probe` (84x84x4 uint8 frames in
+  `PyUniformReplayBuffer` and `PyHashedReplayBuffer`), capacity cut from
+  1M frames to 100k: fill frames/s, 2-step samples at batch 256, the
+  sampled batch's H2D GB/s, the hashed variant's add rate and bytes
+  stored, gated on the probe's checks."""
+  probe = host_atari_replay_probe(capacity=HOST_REPLAY_CAPACITY,
+                                  hashed_frames=HOST_REPLAY_HASHED,
+                                  device="cuda")
+  checks = probe.pop("checks")
+  ok = all(checks.values())
+  emit("host_replay", card=card, capacity_cut_from=1_000_000, **probe,
+       checks=checks, ok=ok)
   if not ok:
-    fail("host_replay", "host replay checks failed")
+    fail("host_replay", f"host replay checks failed: {checks}")
 
 
 def replay_phases(card):
@@ -6724,6 +6584,66 @@ def replay_phases(card):
   phase_ingest_sac(card)
   free_card()
   phase_host_replay(card)
+
+
+# `bench_torch.py`'s line: `bench.py`'s top-level keys, and `bench.py`'s
+# `detail` keys without `sac_halfcheetah` and with the twin's own.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {
+    "avg_return_last20", "timed_iterations", "batch_size",
+    "train_steps_per_env_batch_step", "wall_s", "chunk_ms_per_iteration",
+    "atari_conv_mnih15", "atari_host_replay_1m",
+    "sac_halfcheetah_live_throughput", "card", "torch", "cuda", "tf32",
+    "reduced"}
+BENCH_TIMEOUT_S = 300
+
+
+def json_numbers(nest):
+  """Every int and float in a parsed JSON nest (booleans excepted)."""
+  if isinstance(nest, dict):
+    nest = list(nest.values())
+  if isinstance(nest, list):
+    return [x for item in nest for x in json_numbers(item)]
+  if isinstance(nest, (int, float)) and not isinstance(nest, bool):
+    return [nest]
+  return []
+
+
+def bench_line_checks(line, card):
+  """The checks of `bench`'s line against `card` (`card_line()`)."""
+  detail = line.get("detail", {})
+  name, power_limit = (f.strip() for f in card.rsplit(",", 1))
+  value, avg_return = line.get("value"), detail.get("avg_return_last20")
+  return {
+      "keys": set(line) == BENCH_KEYS,
+      "detail_keys": set(detail) == BENCH_DETAIL_KEYS,
+      "numbers_finite": all(math.isfinite(x) for x in json_numbers(line)),
+      "value_zero_iff_unsolved": (
+          value is not None and avg_return is not None
+          and (value == 0) == (avg_return < 195)),
+      "card": detail.get("card") == {"name": name,
+                                     "power_limit": power_limit},
+      "tf32_off": detail.get("tf32") == {"matmul": False, "cudnn": False},
+      "smoke_cuts_listed": bool(detail.get("reduced"))}
+
+
+def phase_bench(card):
+  """`bench_torch.py --smoke` in a child process, its line checked."""
+  t0 = time.perf_counter()
+  out = subprocess.run(
+      [sys.executable, "bench_torch.py", "--smoke"],
+      cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+      text=True, timeout=BENCH_TIMEOUT_S)
+  if out.returncode != 0:
+    fail("bench", f"bench_torch.py --smoke exited with {out.returncode}: "
+         f"{out.stderr[-3000:]}")
+  line = json.loads(out.stdout.strip().splitlines()[-1])
+  checks = bench_line_checks(line, card)
+  ok = all(checks.values())
+  emit("bench", card=card, line=line, checks=checks,
+       seconds=time.perf_counter() - t0, ok=ok)
+  if not ok:
+    fail("bench", f"bench_torch.py's line failed its checks: {checks}")
 
 
 # The learning runs, each in a process of its own (see `learning_phases`).
@@ -6844,6 +6764,8 @@ def main(argv=()):
   host_phases(card)
   host_example_phases(card)
   replay_phases(card)
+  free_card()
+  phase_bench(card)
   learning_phases(card)
   emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
        "paths have no hand-written kernel to build or check")

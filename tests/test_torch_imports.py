@@ -69,7 +69,7 @@ BANDIT_MODULES = (
     "bandits.policies.linear_bandit_policy",
     "bandits.specs.bandit_spec_utils")
 # The port's modules outside its package, beside `chip_smoke.py`.
-ROOT_MODULES = ("torch_dryrun",)
+ROOT_MODULES = ("torch_dryrun", "bench_torch")
 
 
 def _port_modules():
@@ -460,7 +460,7 @@ def test_every_jax_example_has_a_port_twin():
   ``cql_sac_offline_host_torch.py`` (``cql_sac_offline_torch.py`` is the
   twin of ``tests/test_cql_offline_e2e.py``'s device pipeline), every
   other ``x.py`` is ``x_torch.py``. ``bench.py``, at the repository's
-  root, is not an example: its twin is ROADMAP A0, the port's benchmark.
+  root, is not an example: its twin is ``bench_torch.py`` beside it.
   """
   twins = {"cql_sac_offline.py": "cql_sac_offline_host_torch.py"}
   examples = os.path.join(ROOT, "examples")
@@ -472,6 +472,7 @@ def test_every_jax_example_has_a_port_twin():
   assert missing == []
   assert set(twins.values()) | {f[:-3] + "_torch.py" for f in jax_examples
                                 if f not in twins} <= set(EXAMPLES)
+  assert os.path.exists(os.path.join(ROOT, "bench_torch.py"))
 
 
 def test_bandit_entry_points_raise_without_a_card(monkeypatch):
