@@ -26,8 +26,15 @@ from typing import Any, Optional, Tuple
 import torch
 
 from agents_tpu_torch.trajectories import trajectory as tj
-from agents_tpu_torch.utils import common, nest_utils
+from agents_tpu_torch.utils import common, nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
+
+# A train step's spans (`utils/profiling.py`), opened by the agents' `train`:
+# the losses' forward, `torch.autograd.grad`, and `apply_gradients` with the
+# periodic target update.
+LOSS_SPAN = profiling.annotate("agent.loss")
+GRAD_SPAN = profiling.annotate("agent.grad")
+APPLY_SPAN = profiling.annotate("agent.apply")
 
 
 def check_network_devices(device, **networks) -> None:

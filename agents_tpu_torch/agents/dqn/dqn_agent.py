@@ -41,7 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+from agents_tpu_torch.agents.agent import (APPLY_SPAN, GRAD_SPAN, LOSS_SPAN,
+                                           Agent, apply_gradients,
                                            check_network_devices)
 from agents_tpu_torch.policies.q_policy import QPolicy
 from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
@@ -50,7 +51,7 @@ from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.trajectories import trajectory as tj
-from agents_tpu_torch.utils import common, nest_utils
+from agents_tpu_torch.utils import common, nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import resolve_device
 
@@ -225,15 +226,19 @@ class DqnAgent(Agent):
   def train(self, agent_state: DqnAgentState, experience,
             weights=None) -> Tuple[DqnAgentState, LossInfo]:
     q_network = agent_state.q_network
-    loss, extra = self._loss(q_network, agent_state, experience, weights)
-    params = list(q_network.parameters())
-    apply_gradients([(torch.autograd.grad(loss, params, allow_unused=True),
-                      params, agent_state.optimizer)],
-                    self.gradient_clipping, self.mesh)
+    with LOSS_SPAN:
+      loss, extra = self._loss(q_network, agent_state, experience, weights)
+    with GRAD_SPAN:
+      params = list(q_network.parameters())
+      grads = torch.autograd.grad(loss, params, allow_unused=True)
     train_step = agent_state.train_step + 1
-    common.periodic_soft_update(
-        train_step, self.target_update_period, q_network.parameters(),
-        agent_state.target_q_network.parameters(), self.target_update_tau)
+    with APPLY_SPAN:
+      apply_gradients([(grads, params, agent_state.optimizer)],
+                      self.gradient_clipping, self.mesh)
+      common.periodic_soft_update(
+          train_step, self.target_update_period, q_network.parameters(),
+          agent_state.target_q_network.parameters(), self.target_update_tau)
+    profiling.count("agent.train_steps")
     new_state = dataclasses.replace(agent_state, train_step=train_step)
     extra = nest_utils.tree_map(torch.Tensor.detach, extra)
     return new_state, LossInfo(loss=loss.detach(), extra=extra)

@@ -43,14 +43,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+from agents_tpu_torch.agents.agent import (APPLY_SPAN, GRAD_SPAN, LOSS_SPAN,
+                                           Agent, apply_gradients,
                                            check_network_devices,
                                            first_transition)
 from agents_tpu_torch.networks.network import seeded_generator
 from agents_tpu_torch.policies.actor_policy import ActorPolicy
 from agents_tpu_torch.policies.wrappers import GreedyPolicy
 from agents_tpu_torch.specs import array_spec
-from agents_tpu_torch.utils import common, nest_utils
+from agents_tpu_torch.utils import common, nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import resolve_device
 from agents_tpu_torch.utils.draws import Draws
@@ -232,13 +233,14 @@ class SacAgent(Agent):
   def train(self, agent_state: SacAgentState, experience,
             weights=None) -> Tuple[SacAgentState, LossInfo]:
     """experience: Trajectory [B, 2]."""
-    time_steps, actions, next_time_steps = first_transition(experience,
-                                                            "SacAgent")
     s = agent_state
-    critic_loss = self.critic_loss_weight * self.critic_loss(
-        s, time_steps, actions, next_time_steps, weights)
-    actor_loss, alpha_loss = self.actor_and_alpha_loss(s, time_steps,
-                                                       weights)
+    with LOSS_SPAN:
+      time_steps, actions, next_time_steps = first_transition(experience,
+                                                              "SacAgent")
+      critic_loss = self.critic_loss_weight * self.critic_loss(
+          s, time_steps, actions, next_time_steps, weights)
+      actor_loss, alpha_loss = self.actor_and_alpha_loss(s, time_steps,
+                                                         weights)
     groups = (
         (critic_loss, list(s.critic1_network.parameters())
          + list(s.critic2_network.parameters()), s.critic_optimizer),
@@ -246,16 +248,18 @@ class SacAgent(Agent):
         (alpha_loss, [s.log_alpha], s.alpha_optimizer))
     # Every gradient is taken before any optimizer steps: the losses read
     # the pre-step parameters, which the steps overwrite in place.
-    apply_gradients([(torch.autograd.grad(loss, params), params, optimizer)
-                     for loss, params, optimizer in groups],
-                    self.gradient_clipping, self.mesh)
-
+    with GRAD_SPAN:
+      grads = [(torch.autograd.grad(loss, params), params, optimizer)
+               for loss, params, optimizer in groups]
     train_step = s.train_step + 1
-    for source, target in ((s.critic1_network, s.target_critic1_network),
-                           (s.critic2_network, s.target_critic2_network)):
-      common.periodic_soft_update(
-          train_step, self.target_update_period, source.parameters(),
-          target.parameters(), self.target_update_tau)
+    with APPLY_SPAN:
+      apply_gradients(grads, self.gradient_clipping, self.mesh)
+      for source, target in ((s.critic1_network, s.target_critic1_network),
+                             (s.critic2_network, s.target_critic2_network)):
+        common.periodic_soft_update(
+            train_step, self.target_update_period, source.parameters(),
+            target.parameters(), self.target_update_tau)
+    profiling.count("agent.train_steps")
     extra = SacLossExtra(critic_loss=critic_loss.detach(),
                          actor_loss=actor_loss.detach(),
                          alpha_loss=alpha_loss.detach())

@@ -20,7 +20,11 @@ import torch
 from agents_tpu_torch.environments.torch_environment import BatchedTorchEnv
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.trajectories import trajectory as tj
-from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils import nest_utils, profiling
+
+# The observers' fold of each frame: the replay's insert, and the metrics'
+# updates beside it.
+_INSERT = profiling.annotate("replay.insert")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +78,9 @@ class TorchDriver(_DriverBase):
     frames = []
     for _ in range(num_steps):
       state, frame = self._step(params, state, draws)
-      observer_states = tuple(
-          obs(s, frame) for obs, s in zip(self.observers, observer_states))
+      with _INSERT:
+        observer_states = tuple(
+            obs(s, frame) for obs, s in zip(self.observers, observer_states))
       if self.return_trajectories:
         frames.append(frame)
     if self.return_trajectories:

@@ -461,17 +461,30 @@ Dependencies: numpy and torch. It imports no framework. Usage:
 
 The program runs on "cuda" when the artifact has one and a card is
 present, else on "cpu"; `platform=` picks one.
+
+`span_hook` (None by default) may be set to a factory of named context
+managers that takes ``request=True`` for the span of a whole call, such as
+the port's `agents_tpu_torch.utils.profiling.annotate`: `action` then
+opens "act.call" around each call, and inside it "act.prep"
+(the time step and the draw inputs on the host), "act.upload" (the copies
+to the program's device), "act.program" and "act.fetch" (the copies back,
+where the host waits for the device). Unset, each phase enters a null
+context.
 """
+import contextlib
 import json
 import os
 
 import numpy as np
 import torch
 
+SPANS = ("act.call", "act.prep", "act.upload", "act.program", "act.fetch")
+
 
 class ExportedPolicy:
 
   def __init__(self, artifact_dir, platform=None):
+    self.span_hook = None
     self.dir = artifact_dir
     with open(os.path.join(artifact_dir, "exported_manifest.json")) as f:
       self.manifest = json.load(f)
@@ -544,22 +557,39 @@ class ExportedPolicy:
     return np.concatenate([rng.standard_normal([rounds] + shape),
                            rng.random([rounds + 1] + shape)])
 
-  def _call(self, flat_ts, state, draws):
-    to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)
-                     for x in xs]
-    with torch.no_grad():
-      acts, next_state = self._program(self.params, to(draws), to(flat_ts),
-                                       to(state))
-    return ([a.cpu().numpy() for a in acts],
-            [s.cpu().numpy() for s in next_state])
+  @property
+  def span_hook(self):
+    return self._span_hook
 
+  @span_hook.setter
+  def span_hook(self, hook):
+    self._span_hook = hook
+    if hook is None:
+      self._spans = [contextlib.nullcontext() for _ in SPANS]
+    else:
+      self._spans = [hook(name, request=True) if name == "act.call"
+                     else hook(name) for name in SPANS]
+
+  @torch.no_grad()
   def action(self, observation_leaves, state=None, step_type=None,
              key_data=None):
-    batch = np.shape(observation_leaves[0])[0]
-    flat_ts = self.make_time_step(observation_leaves, step_type)
-    if state is None:
-      state = self.initial_state(batch)
-    if key_data is None:
-      key_data = np.zeros((2,), np.uint32)
-    return self._call(flat_ts, state, self.draw_inputs(batch, key_data))
+    call, prep, upload, program, fetch = self._spans
+    to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)
+                     for x in xs]
+    with call:
+      with prep:
+        batch = np.shape(observation_leaves[0])[0]
+        flat_ts = self.make_time_step(observation_leaves, step_type)
+        if state is None:
+          state = self.initial_state(batch)
+        if key_data is None:
+          key_data = np.zeros((2,), np.uint32)
+        draws = self.draw_inputs(batch, key_data)
+      with upload:
+        draws, flat_ts, state = to(draws), to(flat_ts), to(state)
+      with program:
+        acts, next_state = self._program(self.params, draws, flat_ts, state)
+      with fetch:
+        return ([a.cpu().numpy() for a in acts],
+                [s.cpu().numpy() for s in next_state])
 '''

@@ -43,10 +43,18 @@ from agents_tpu_torch.eval import metric_utils
 from agents_tpu_torch.metrics import torch_metrics
 from agents_tpu_torch.replay_buffers.uniform_replay import (UniformReplay,
                                                             check_shardable)
-from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils import nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import check_devices, resolve_device
 from agents_tpu_torch.utils.draws import as_draws
+
+
+# The iteration's spans (`utils/profiling.py`): one iteration is one
+# request; its collect and each train step's replay sample are spans of
+# their own, and the agent's train step opens its own.
+_ITERATION = profiling.annotate("loop.iteration", request=True)
+_COLLECT = profiling.annotate("loop.collect")
+_SAMPLE = profiling.annotate("loop.sample")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,11 +159,15 @@ class FusedTrainLoop:
                                       self.sample_batch_size, self.mesh,
                                       **kwargs)
 
+  @_ITERATION
   def iteration(self, state: LoopState) -> Tuple[LoopState, LossInfo]:
-    state = self._collect(state, self.collect_steps, self._iteration_driver)
+    with _COLLECT:
+      state = self._collect(state, self.collect_steps,
+                            self._iteration_driver)
     agent_state, replay_state = state.agent_state, state.replay_state
     for _ in range(self.train_steps):
-      experience, info = self._sample(replay_state, state.draws)
+      with _SAMPLE:
+        experience, info = self._sample(replay_state, state.draws)
       if self.prioritized:
         agent_state, loss_info = self.agent.train(
             agent_state, experience, weights=info.is_weights)

@@ -1,0 +1,9 @@
+"""Host-clock ms of the copies back to the host, where it waits for the card
+(`act.fetch`) per `act.call` entry, from the recorded stretch of the
+program's own spans after the act calls' timed window
+(`portbench/spans.py`)."""
+from portbench import spans
+
+
+def read(run):
+  return spans.span_ms(run, "act.fetch", "calls")

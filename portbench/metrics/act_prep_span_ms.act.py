@@ -1,0 +1,8 @@
+"""Host-clock ms of the host's time step and draw inputs (`act.prep`) per
+`act.call` entry, from the recorded stretch of the program's own spans after
+the act calls' timed window (`portbench/spans.py`)."""
+from portbench import spans
+
+
+def read(run):
+  return spans.span_ms(run, "act.prep", "calls")

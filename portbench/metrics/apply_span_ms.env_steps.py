@@ -1,0 +1,9 @@
+"""Host-clock ms of the gradient average, clipping, optimizer steps and target
+update (`agent.apply`) per `loop.iteration` entry, from the recorded stretch
+of the program's own spans after the fused DQN iterations' timed window
+(`portbench/spans.py`)."""
+from portbench import spans
+
+
+def read(run):
+  return spans.span_ms(run, "agent.apply", "iterations")

@@ -1,0 +1,8 @@
+"""Host-clock ms of `torch.autograd.grad` (`agent.grad`) per `loop.iteration`
+entry, from the recorded stretch of the program's own spans after the fused
+DQN iterations' timed window (`portbench/spans.py`)."""
+from portbench import spans
+
+
+def read(run):
+  return spans.span_ms(run, "agent.grad", "iterations")

@@ -1,0 +1,9 @@
+"""Host-clock ms of the replay samples of the train steps (`loop.sample`) per
+train step (the `agent.train_steps` counter), from the recorded stretch of
+the program's own spans after the SAC train steps' timed window
+(`portbench/spans.py`)."""
+from portbench import spans
+
+
+def read(run):
+  return spans.span_ms(run, "loop.sample", "train_steps")
