@@ -30,11 +30,27 @@ The train step is host-int driven: `DqnAgentState.train_step` is a Python
 int (the JAX package keeps a device int32), so the target-update branch
 needs no device `where` over every parameter and no sync. The parameters
 and optimizer moments are updated in place.
+
+On a card, a feed-forward train step runs as one CUDA graph where one is
+valid: the device is CUDA, every optimizer param group is `capturable`
+(Adam's step count on the card), the agent has no `mesh`, the Q network
+has no `state_spec`, and the step runs on the main thread. The first
+step on a given online network, target network, optimizer (with its state
+and hyperparameters) and input shape runs eagerly on a side stream, which
+creates the optimizer's state; the next captures the loss forward, `torch.autograd.grad`, clipping and
+the optimizer step, and every later step copies its batch into the
+graph's input buffers, replays it, clones its outputs and runs the due
+target update eagerly. Anywhere else (the CPU, a recurrent Q network,
+data parallelism, a non-capturable optimizer, the trainer thread of the
+asynchronous loop) the step runs eagerly, as above.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import threading
+import weakref
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -54,6 +70,9 @@ from agents_tpu_torch.trajectories import trajectory as tj
 from agents_tpu_torch.utils import common, nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import resolve_device
+
+# The span of a train step's part that records nothing (a capture's).
+_NO_SPAN = contextlib.nullcontext()
 
 
 class _ScheduledQPolicy(QPolicy):
@@ -138,6 +157,10 @@ class DqnAgent(Agent):
               time_step_spec, action_spec, q_network,
               observation_and_action_constraint_splitter=splitter),
           lambda p: eps(p["train_step"]))
+    # `train`'s CUDA graph, and the weak key (`_weak_key`) of the step
+    # warmed up but not yet captured.
+    self._train_graph: Optional[_TrainGraph] = None
+    self._warmed_up = None
 
   def init(self) -> DqnAgentState:
     target = copy.deepcopy(self.q_network).requires_grad_(False)
@@ -225,23 +248,179 @@ class DqnAgent(Agent):
 
   def train(self, agent_state: DqnAgentState, experience,
             weights=None) -> Tuple[DqnAgentState, LossInfo]:
+    if not self._graphable(agent_state):
+      return self._train_eagerly(agent_state, experience, weights)
+    key, signature = _graph_key(agent_state), _signature(experience, weights)
+    graph = self._train_graph
+    if graph is None or not graph.matches(key, signature):
+      warm = _weak_key(key, signature)
+      if warm != self._warmed_up:
+        # The first step on these objects and shapes: eagerly, on a side
+        # stream, as a capture requires; it creates the optimizer's state.
+        self._warmed_up = warm
+        return _on_side_stream(self.device, self._train_eagerly,
+                               agent_state, experience, weights)
+      graph = self._train_graph = _TrainGraph(key, signature)
+      self._warmed_up = None
+    return self._replay(graph, agent_state, experience, weights)
+
+  def _graphable(self, agent_state) -> bool:
+    """Whether a CUDA graph can hold this agent's train step. The step
+    must also run on the main thread: a loop that trains on a thread of
+    its own (`train/async_host_device_loop.py`) launches work from another
+    thread meanwhile, which a capture cannot have."""
+    return (self.device.type == "cuda" and self.mesh is None
+            and not self.q_network.state_spec
+            and threading.current_thread() is threading.main_thread()
+            and all(group.get("capturable", False)
+                    for group in agent_state.optimizer.param_groups))
+
+  def _train_eagerly(self, agent_state, experience, weights=None):
+    loss, extra = self._gradient_step(
+        agent_state, experience, weights,
+        spans=(LOSS_SPAN, GRAD_SPAN, APPLY_SPAN), update_target=True)
+    profiling.count("agent.train_steps")
+    new_state = dataclasses.replace(agent_state,
+                                    train_step=agent_state.train_step + 1)
+    return new_state, LossInfo(loss=loss, extra=extra)
+
+  def _gradient_step(self, agent_state, experience, weights,
+                     spans=(_NO_SPAN,) * 3, update_target=False):
+    """The loss forward, its gradient and the optimizer step, each under
+    its span of `spans`, then the due target update where `update_target`
+    (a CUDA graph holds the rest; the target update is the host's).
+    Returns (loss, extra), detached."""
+    loss_span, grad_span, apply_span = spans
     q_network = agent_state.q_network
-    with LOSS_SPAN:
+    with loss_span:
       loss, extra = self._loss(q_network, agent_state, experience, weights)
-    with GRAD_SPAN:
+    with grad_span:
       params = list(q_network.parameters())
       grads = torch.autograd.grad(loss, params, allow_unused=True)
-    train_step = agent_state.train_step + 1
-    with APPLY_SPAN:
+    with apply_span:
       apply_gradients([(grads, params, agent_state.optimizer)],
                       self.gradient_clipping, self.mesh)
-      common.periodic_soft_update(
-          train_step, self.target_update_period, q_network.parameters(),
-          agent_state.target_q_network.parameters(), self.target_update_tau)
+      if update_target:
+        self._update_target(agent_state, agent_state.train_step + 1)
+    return loss.detach(), nest_utils.tree_map(torch.Tensor.detach, extra)
+
+  def _update_target(self, agent_state, train_step):
+    common.periodic_soft_update(
+        train_step, self.target_update_period,
+        agent_state.q_network.parameters(),
+        agent_state.target_q_network.parameters(), self.target_update_tau)
+
+  def _replay(self, graph: "_TrainGraph", agent_state, experience, weights):
+    """One train step through `graph`, captured first if it is not yet:
+    `agent.loss` stages the batch, `agent.grad` replays the graph, and
+    `agent.apply` clones its outputs and runs the due target update."""
+    with LOSS_SPAN:
+      graph.stage(experience, weights)
+    with GRAD_SPAN:
+      if graph.graph is None:
+        graph.capture(self.device,
+                      lambda e, w: self._gradient_step(agent_state, e, w))
+      graph.graph.replay()
+    train_step = agent_state.train_step + 1
+    with APPLY_SPAN:
+      info = graph.results()
+      self._update_target(agent_state, train_step)
+    profiling.count("agent.graph_replays")
     profiling.count("agent.train_steps")
-    new_state = dataclasses.replace(agent_state, train_step=train_step)
-    extra = nest_utils.tree_map(torch.Tensor.detach, extra)
-    return new_state, LossInfo(loss=loss.detach(), extra=extra)
+    return dataclasses.replace(agent_state, train_step=train_step), info
+
+
+def _signature(experience, weights):
+  """The inputs' structure, shapes, dtypes and devices."""
+  return (type(experience), weights is None,
+          tuple((x.shape, x.dtype, x.device)
+                for x in nest_utils.flatten((experience, weights))))
+
+
+def _graph_key(agent_state):
+  """(the objects a graph reads, compared with `is`; the optimizer's
+  hyperparameters, which a graph bakes in). The optimizer's `state` and
+  `param_groups` are new objects after its `load_state_dict`."""
+  optimizer = agent_state.optimizer
+  objects = (agent_state.q_network, agent_state.target_q_network, optimizer,
+             optimizer.state, optimizer.param_groups)
+  hyperparameters = tuple(
+      tuple((k, v) for k, v in group.items() if k != "params")
+      for group in optimizer.param_groups)
+  return objects, hyperparameters
+
+
+def _weak_key(key, signature):
+  """`key` and `signature` with no strong reference, for the slot that
+  records a warm-up, so that a step on a state's copy (`Agent.loss`)
+  keeps none of it: the networks and the optimizer by weak reference,
+  equal while they live and are the same, the optimizer's `state` and
+  `param_groups`, which take none, by id. A graph is only ever captured
+  on a step's own objects."""
+  (network, target, optimizer, state, groups), hyperparameters = key
+  return (weakref.ref(network), weakref.ref(target), weakref.ref(optimizer),
+          id(state), id(groups), hyperparameters, signature)
+
+
+def _on_side_stream(device, fn, *args):
+  """`fn(*args)` on a new side stream of `device` that starts after the
+  current stream's work and which the current stream then waits for: the
+  warm-up a CUDA graph capture needs."""
+  current = torch.cuda.current_stream(device)
+  side = torch.cuda.Stream(device)
+  side.wait_stream(current)
+  with torch.cuda.stream(side):
+    out = fn(*args)
+  current.wait_stream(side)
+  return out
+
+
+class _TrainGraph:
+  """A train step captured as one CUDA graph, the static input buffers it
+  reads and the output buffers it writes.
+
+  It holds the objects it was captured on (`_graph_key`) by strong
+  reference, so none of them can be freed and another take its place; a
+  train step replays it only on those same objects and on inputs of the
+  same `_signature`.
+  """
+
+  def __init__(self, key, signature):
+    self.key, self.signature = key, signature
+    self.graph = None                         # torch.cuda.CUDAGraph
+    self.experience = self.weights = None     # static inputs
+    self.loss = self.extra = None             # static outputs
+
+  def matches(self, key, signature) -> bool:
+    (objects, hyperparameters), (mine, my_hyperparameters) = key, self.key
+    return (signature == self.signature
+            and all(a is b for a, b in zip(objects, mine))
+            and hyperparameters == my_hyperparameters)
+
+  def stage(self, experience, weights) -> None:
+    """Copy the inputs into the static buffers (made on the first call)."""
+    if self.experience is None:
+      self.experience = nest_utils.tree_map(torch.clone, experience)
+      self.weights = None if weights is None else weights.clone()
+      return
+    for static, x in zip(nest_utils.flatten(self.experience),
+                         nest_utils.flatten(experience)):
+      static.copy_(x)
+    if weights is not None:
+      self.weights.copy_(weights)
+
+  def capture(self, device, step) -> None:
+    """Capture ``step(experience, weights) -> (loss, extra)`` on the static
+    inputs, on `device`; the capture runs none of its work."""
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(self.graph):
+      self.loss, self.extra = step(self.experience, self.weights)
+
+  def results(self) -> LossInfo:
+    """The last replay's outputs, cloned: the next replay overwrites the
+    static buffers."""
+    return LossInfo(loss=self.loss.clone(),
+                    extra=nest_utils.tree_map(torch.clone, self.extra))
 
 
 class DdqnAgent(DqnAgent):

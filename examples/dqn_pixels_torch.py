@@ -7,7 +7,9 @@ The default `Config` is the construction of ``bench.py:conv_bench``
 convs (32, 8, 4), (64, 4, 2), (64, 3, 1) then fc 512, bfloat16 compute
 with float32 params, frames scaled by 1/255, Adam(2.5e-4, eps 1.5e-4),
 epsilon 0.05, gamma 0.99, a hard target update every 500 steps, Huber
-loss, 64 initial collect steps, seed 0.
+loss, 64 initial collect steps, seed 0. On a card Adam is `capturable`,
+so the agent replays each train step as one CUDA graph
+(``agents_tpu_torch/agents/dqn/dqn_agent.py``).
 
   --env=catch   the config of ``tests/test_catch_conv_e2e.py:51-65``:
                 Catch 8x5, B=64, conv (8, 3, 1), fc 64, float32, Adam 1e-3,
@@ -126,7 +128,11 @@ def build_loop(cfg: Config):
                     preprocessing=preprocessing, device=device,
                     generator=generator)
   lr, eps = cfg.learning_rate, cfg.adam_eps
-  optimizer_fn = lambda p: torch.optim.Adam(p, lr=lr, eps=eps)  # noqa: E731
+  # On a card, Adam keeps its step count there, so `DqnAgent.train` can
+  # replay the whole train step as one CUDA graph.
+  capturable = device.type == "cuda"
+  optimizer_fn = lambda p: torch.optim.Adam(  # noqa: E731
+      p, lr=lr, eps=eps, capturable=capturable)
   agent_kwargs = dict(epsilon_greedy=cfg.epsilon_greedy, gamma=cfg.gamma,
                       target_update_tau=cfg.target_update_tau,
                       target_update_period=cfg.target_update_period,

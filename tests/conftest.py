@@ -28,3 +28,6 @@ def pytest_configure(config):
   config.addinivalue_line(
       "markers", "slow: a long learning run, left out of the tier-1 run "
       "(-m 'not slow')")
+  config.addinivalue_line(
+      "markers", "card: needs an NVIDIA card; decides inside the test and "
+      "skips with a reason without one")
