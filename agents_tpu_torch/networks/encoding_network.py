@@ -11,7 +11,9 @@ Layouts follow flax, so converted weights apply unchanged:
   - the observation stays NHWC; ``permute(0, 3, 1, 2)`` views it as NCHW
     in channels-last memory, which cuDNN takes without a copy;
   - each conv pads as XLA's SAME does (`same_padding`): torch's
-    ``padding="same"`` refuses stride > 1;
+    ``padding="same"`` refuses stride > 1; with ``padding="VALID"`` it
+    does not pad (``(size - kernel) // stride + 1`` outputs, the
+    published Atari torsos' 84 -> 20 -> 9 -> 7);
   - the conv output is flattened in NHWC order, the order flax's first
     Dense kernel expects.
 
@@ -46,6 +48,17 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
   return total // 2, total - total // 2
 
 
+PADDINGS = ("SAME", "VALID")
+
+
+def conv_output_size(size: int, kernel: int, stride: int,
+                     padding: str = "SAME") -> int:
+  """Outputs of one conv along a spatial dim of `size`."""
+  if padding == "SAME":
+    return -(-size // stride)
+  return (size - kernel) // stride + 1
+
+
 def _check_conv_params(conv_layer_params):
   for layer in conv_layer_params:
     if (not isinstance(layer, (tuple, list)) or len(layer) != 3
@@ -73,6 +86,7 @@ class EncoderModule(nn.Module):
     kernel_init: fills each conv and Dense weight in place, called as
       ``kernel_init(weight, generator=generator)``; flax's
       ``variance_scaling(2.0, "fan_in", "truncated_normal")`` by default.
+    padding: "SAME" (XLA's, the default) or "VALID" (none).
   """
 
   def __init__(self, input_spec, conv_layer_params=(),
@@ -82,9 +96,12 @@ class EncoderModule(nn.Module):
                dtype: torch.dtype = torch.float32,
                preprocessing: Optional[Callable] = None, device="cuda",
                generator: Optional[torch.Generator] = None,
-               kernel_init: Callable = variance_scaling_):
+               kernel_init: Callable = variance_scaling_,
+               padding: str = "SAME"):
     super().__init__()
     _check_conv_params(conv_layer_params)
+    if padding not in PADDINGS:
+      raise ValueError(f"padding is one of {PADDINGS}, got {padding!r}")
     device = resolve_device(device)
     self.activation = activation
     self.dropout_rate = dropout_rate
@@ -111,14 +128,17 @@ class EncoderModule(nn.Module):
         kernel_init(conv.weight, generator=generator)
         nn.init.zeros_(conv.bias)
         (h_lo, h_hi), (w_lo, w_hi) = (same_padding(h, kernel, stride),
-                                      same_padding(w, kernel, stride))
+                                      same_padding(w, kernel, stride)) \
+            if padding == "SAME" else ((0, 0), (0, 0))
         if h_lo == h_hi and w_lo == w_hi:
           plan.append((len(self.convs), stride, None, (h_lo, w_lo)))
         else:
           plan.append((len(self.convs), stride, (w_lo, w_hi, h_lo, h_hi),
                        0))
         self.convs.append(conv)
-        h, w, channels = -(-h // stride), -(-w // stride), filters
+        h, w = (conv_output_size(h, kernel, stride, padding),
+                conv_output_size(w, kernel, stride, padding))
+        channels = filters
       self._conv_plans.append(plan)
       width += h * w * channels
     if conv_layer_params and not self.convs:

@@ -32,6 +32,19 @@ steps, each op a host dispatch.
 Initializers are flax's: the Dense layers and the input kernels
 `lecun_normal_`, each recurrent ``[H, H]`` block orthogonal, zero biases;
 the Q head U(±0.03) with bias -0.2, the value head `lecun_normal_`.
+
+`RecurrentDuelingQModule` is R2D2's network (Kapturowski et al. 2019,
+"Recurrent Experience Replay in Distributed Reinforcement Learning",
+section 2 and appendix): an `EncoderModule` conv torso and its fc layer,
+whose output is concatenated with the one-hot previous action and the
+previous reward (both zero at a FIRST step, as the carry is), then the
+masked LSTM, then dueling value and advantage streams of one hidden layer
+each, ``Q = V + A - mean(A)``. Its state spec is the carry ``(c, h)``;
+the previous action and reward come in as inputs.
+
+Spans (`utils/profiling.py`): ``lstm.unroll`` around the forward time
+loop, ``lstm.backward`` around the written-out backward; the counter
+``lstm.steps`` adds the time steps of each forward unroll.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from agents_tpu_torch.networks.encoding_network import EncoderModule
 from agents_tpu_torch.networks.network import (Network, cast_linear,
                                                lecun_normal_,
                                                seeded_generator)
@@ -51,8 +65,11 @@ from agents_tpu_torch.networks.q_network import _head, num_actions
 from agents_tpu_torch.networks.registry import register_factory
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import time_step as ts
-from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils import nest_utils, profiling
 from agents_tpu_torch.utils.device import resolve_device
+
+_UNROLL = profiling.annotate("lstm.unroll")
+_BACKWARD = profiling.annotate("lstm.backward")
 
 
 def _dense(width: int, out: int, device, generator) -> nn.Linear:
@@ -77,6 +94,12 @@ class _MaskedLSTMUnroll(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, gates_x, keep, w_h, c, h):
+    with _UNROLL:
+      return _MaskedLSTMUnroll._forward(ctx, gates_x, keep, w_h, c, h)
+
+  @staticmethod
+  def _forward(ctx, gates_x, keep, w_h, c, h):
+    profiling.count("lstm.steps", gates_x.shape[1])
     size = w_h.shape[1]
     w_t = w_h.t()
     keeps = keep.t().unsqueeze(-1).unbind(0)                   # T x [B, 1]
@@ -103,6 +126,11 @@ class _MaskedLSTMUnroll(torch.autograd.Function):
   @staticmethod
   @torch.autograd.function.once_differentiable
   def backward(ctx, d_outputs, d_c, d_h):
+    with _BACKWARD:
+      return _MaskedLSTMUnroll._backward(ctx, d_outputs, d_c, d_h)
+
+  @staticmethod
+  def _backward(ctx, d_outputs, d_c, d_h):
     keep, w_h = ctx.saved_tensors
     acts, tanh_gs, cells, hiddens, tanh_cs = (torch.stack(x)
                                               for x in ctx.steps)
@@ -286,6 +314,83 @@ class ActorDistributionRnnModule(_RnnNetwork):
                                is_leaf=array_spec._is_spec), state
 
 
+class RecurrentDuelingQModule(Network):
+  """R2D2's Q network: conv torso and fc, then with the one-hot previous
+  action and the previous reward the masked LSTM, then dueling streams
+  (see the module docstring). Float32 Q values ``[B, A]`` of one step, or
+  ``[B, T, A]`` of a sequence (a 2-D `step_type`).
+
+  Args:
+    input_spec: the frame spec ``[H, W, C]``.
+    num_actions: A.
+    conv_layer_params: (filters, kernel, stride) of the torso.
+    fc_layer_params: the torso's Dense widths after the convolutions.
+    lstm_size: H, the width of the carry.
+    dueling_fc_layer_params: the hidden widths of each stream.
+    preprocessing: applied to the frames first (e.g. scaling by 1/255).
+
+  The torso's convolutions are unpadded ("VALID"), as published.
+  """
+
+  def __init__(self, input_spec, num_actions: int,
+               conv_layer_params=((32, 8, 4), (64, 4, 2), (64, 3, 1)),
+               fc_layer_params: Sequence[int] = (512,),
+               lstm_size: int = 512,
+               dueling_fc_layer_params: Sequence[int] = (512,),
+               dtype: torch.dtype = torch.float32,
+               preprocessing: Optional[Callable] = None, device="cuda",
+               generator: Optional[torch.Generator] = None):
+    super().__init__(input_spec, state_spec=_lstm_state_spec(lstm_size))
+    device = resolve_device(device)
+    self.dtype = dtype
+    self.num_actions = num_actions
+    self.torso = EncoderModule(input_spec, conv_layer_params,
+                               fc_layer_params, dtype=dtype,
+                               preprocessing=preprocessing, device=device,
+                               generator=generator, padding="VALID")
+    width = self.torso.output_size + num_actions + 1
+    self.core = LSTMEncoder(
+        (array_spec.ArraySpec((width,), np.float32, "core_input"),),
+        input_fc_layer_params=(), lstm_size=lstm_size,
+        output_fc_layer_params=(), dtype=dtype, device=device,
+        generator=generator)
+    self.value_layers, self.advantage_layers = nn.ModuleList(), \
+        nn.ModuleList()
+    for layers in (self.value_layers, self.advantage_layers):
+      width = lstm_size
+      for out in dueling_fc_layer_params:
+        layers.append(_dense(width, out, device, generator))
+        width = out
+    self.value_head = _head(width, 1, -0.2, device, generator)
+    self.advantage_head = _head(width, num_actions, -0.2, device, generator)
+
+  def _stream(self, y, layers, head):
+    for layer in layers:
+      y = F.relu(cast_linear(y, layer, self.dtype))
+    return cast_linear(y, head, self.dtype)
+
+  def forward(self, observation, step_type, network_state, previous_action,
+              previous_reward):
+    """(Q values, (c, h)) of frames ``[B, ...]`` or ``[B, T, ...]``, with
+    `step_type`, `previous_action` and `previous_reward` ``[B]`` or
+    ``[B, T]``; a `network_state` of None starts from zeros."""
+    outer = tuple(step_type.shape)
+    frames = observation.reshape((-1,) + tuple(
+        observation.shape[len(outer):]))
+    x, _ = self.torso(frames)
+    x = x.reshape(outer + (-1,))
+    keep = (step_type != ts.StepType.FIRST).to(self.dtype)[..., None]
+    one_hot = F.one_hot(previous_action.long(), self.num_actions)
+    core_in = torch.cat([x, one_hot.to(self.dtype) * keep,
+                         previous_reward.to(self.dtype)[..., None] * keep],
+                        dim=-1)
+    y, state = self.core(core_in, step_type, network_state)
+    v = self._stream(y, self.value_layers, self.value_head)
+    a = self._stream(y, self.advantage_layers, self.advantage_head)
+    q = v + a - a.mean(dim=-1, keepdim=True)
+    return q.float(), state
+
+
 def _lstm_state_spec(lstm_size: int):
   """The carry's spec: ``(c, h)``, each float32 ``[lstm_size]``."""
   return (array_spec.ArraySpec((lstm_size,), np.float32, "lstm_c"),
@@ -333,4 +438,22 @@ def make_actor_distribution_rnn_network(
   return ActorDistributionRnnModule(
       input_spec, action_spec, tuple(input_fc_layer_params), lstm_size,
       tuple(output_fc_layer_params), continuous_projection, dtype, device,
+      seeded_generator(device, generator))
+
+
+@register_factory
+def make_recurrent_dueling_q_network(
+    input_spec, action_spec,
+    conv_layer_params=((32, 8, 4), (64, 4, 2), (64, 3, 1)),
+    fc_layer_params=(512,), lstm_size=512, dueling_fc_layer_params=(512,),
+    dtype: torch.dtype = torch.float32,
+    preprocessing: Optional[Callable] = None, device="cuda",
+    generator: Optional[torch.Generator] = None) -> RecurrentDuelingQModule:
+  """A `RecurrentDuelingQModule` (R2D2's network) on `device` (generator as
+  `make_q_rnn_network`)."""
+  device = resolve_device(device)
+  return RecurrentDuelingQModule(
+      input_spec, num_actions(action_spec), tuple(conv_layer_params),
+      tuple(fc_layer_params), lstm_size, tuple(dueling_fc_layer_params),
+      dtype, preprocessing, device,
       seeded_generator(device, generator))

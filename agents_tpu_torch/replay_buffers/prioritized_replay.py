@@ -26,6 +26,13 @@ priorities are updated in place: a state returned earlier shares them.
 The stratified uniforms come from one draw site, "per_u" of shape [S] in
 [0, 1), so a test can replay ``jax.random.uniform(key, (S,))``.
 
+Sequences (R2D2's replay, Kapturowski et al. 2019): with
+`sequence_stride` k > 1 a window may start only at the ring slots that
+are multiples of k (adjacent sequences of n frames overlap by n - k).
+Only those slots get a priority, at insert and by `update_priorities`;
+a sample searches the CDF of those slots alone, so no other slot can be
+drawn, and the IS weights count the valid starts among them.
+
 Over a data-parallel mesh (`sample_sharded`, `update_priorities_sharded`)
 each rank holds its own rows' storage and priorities, samples S/n windows
 by inverse CDF over its own priority mass, and max-normalizes the IS
@@ -93,6 +100,8 @@ class PrioritizedReplay:
     debug_min_size_asserts: accepted as in the JAX package; the underfill
       guard (`uniform_replay.check_min_size`) raises at every sample call
       here, with the flag or without it, since the count is a host int.
+    sequence_stride: k, the slots a window may start at are the multiples
+      of k (1: every slot).
     device: where the storage and priorities live; "cuda" unless the
       caller asks for "cpu".
   """
@@ -100,8 +109,12 @@ class PrioritizedReplay:
   def __init__(self, data_spec, batch_size: int, max_length: int,
                alpha: float = 0.6, epsilon: float = 1e-6,
                pack_large_rows: bool = True,
-               debug_min_size_asserts: bool = False, device="cuda"):
+               debug_min_size_asserts: bool = False,
+               sequence_stride: int = 1, device="cuda"):
     del pack_large_rows
+    if sequence_stride < 1:
+      raise ValueError(f"sequence_stride must be >= 1, got {sequence_stride}")
+    self.sequence_stride = int(sequence_stride)
     self.debug_min_size_asserts = bool(debug_min_size_asserts)
     self.data_spec = data_spec
     self.batch_size = int(batch_size)
@@ -140,6 +153,9 @@ class PrioritizedReplay:
     `priorities` ([B]) is given."""
     pos = state.count % self.capacity
     nest_utils.tree_map(lambda s, x: s[pos].copy_(x), state.storage, items)
+    if pos % self.sequence_stride:
+      state.priorities[pos].zero_()     # no window starts here
+      return dataclasses.replace(state, count=state.count + 1)
     if priorities is None:
       state.priorities[pos].copy_(state.max_priority.expand(self.batch_size))
       max_p = state.max_priority
@@ -165,8 +181,10 @@ class PrioritizedReplay:
       s.index_copy_(0, slots, x[n - keep:].to(device=s.device, dtype=s.dtype))
 
     nest_utils.tree_map(write, state.storage, items)
+    starts = (slots % self.sequence_stride == 0)[:, None]
     state.priorities.index_copy_(
-        0, slots, state.max_priority.expand(keep, self.batch_size))
+        0, slots, torch.where(starts, state.max_priority, 0.0).expand(
+            keep, self.batch_size))
     return dataclasses.replace(state, count=state.count + n)
 
   # -- read ------------------------------------------------------------------
@@ -208,24 +226,35 @@ class PrioritizedReplay:
     t_r = self._time_ids(state.count)                        # [capacity]
     valid = ((t_r >= 0) & (t_r >= state.count - size)
              & (t_r <= state.count - n))                     # [capacity]
-    # Valid start ids are count - size .. count - n: host arithmetic.
-    n_valid = float(max((size - n + 1) * self.batch_size, 1))
+    priorities = state.priorities
+    if self.sequence_stride > 1:
+      # Only the start slots: [P] of them, P = ceil(capacity / stride).
+      # Their masses are summed in float64: a float32 sum of ~1e5 of them
+      # moves the strata's edges by ~1e-3 of a mass, which picks another
+      # sequence for one draw in a few hundred.
+      t_r, valid = t_r[::self.sequence_stride], valid[::self.sequence_stride]
+      priorities = priorities[::self.sequence_stride].double()
+      n_valid = torch.clamp_min(valid.sum() * self.batch_size, 1).double()
+    else:
+      # Valid start ids are count - size .. count - n: host arithmetic.
+      n_valid = float(max((size - n + 1) * self.batch_size, 1))
 
-    ps = torch.where(valid[:, None], torch.pow(state.priorities, self.alpha),
+    ps = torch.where(valid[:, None], torch.pow(priorities, self.alpha),
                      0.0)
-    flat = ps.reshape(-1)                                    # [capacity*B]
-    cdf = chunked_cumsum(flat)
+    flat = ps.reshape(-1)                                    # [P*B]
+    cdf = chunked_cumsum(flat) if flat.dtype == torch.float32 \
+        else torch.cumsum(flat, 0)
     total = torch.clamp_min(cdf[-1], 1e-30)
 
     # Stratified: one uniform per equal-mass stratum (Schaul '15 §B.2.1),
     # clamped strictly below `total` (the JAX package's guard against a
     # last-stratum u == total landing past the last positive mass).
-    u = draws.uniform("per_u", (sample_batch_size,))
-    u = (torch.arange(sample_batch_size, dtype=torch.float32,
+    u = draws.uniform("per_u", (sample_batch_size,)).to(flat.dtype)
+    u = (torch.arange(sample_batch_size, dtype=flat.dtype,
                       device=self.device) + u) / sample_batch_size * total
     u = torch.minimum(u, total * (1.0 - 1e-7))
     idx = torch.searchsorted(cdf, u, right=True)
-    idx = torch.clamp_max(idx, self.capacity * self.batch_size - 1)
+    idx = torch.clamp_max(idx, flat.shape[0] - 1)
 
     pos = torch.div(idx, self.batch_size, rounding_mode="floor")
     rows = torch.remainder(idx, self.batch_size)
@@ -235,6 +264,7 @@ class PrioritizedReplay:
     w = torch.where(probs > 0,
                     torch.pow(n_valid * torch.clamp_min(probs, 1e-30),
                               -float(beta)), 0.0)
+    probs, w = probs.float(), w.float()
 
     batch = self._gather(state.storage, t0, rows, n)
     if num_steps is None:
@@ -250,6 +280,7 @@ class PrioritizedReplay:
                              epsilon=self.epsilon,
                              debug_min_size_asserts=(
                                  self.debug_min_size_asserts),
+                             sequence_stride=self.sequence_stride,
                              device=self.device)
 
   def sample_sharded(self, state: PrioritizedReplayState, draws,

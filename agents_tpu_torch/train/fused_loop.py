@@ -17,10 +17,11 @@ are updated in place.
 
 Prioritized replay plugs in as in the JAX package (:77-78, :122-157): a
 replay with `update_priorities` is sampled with `per_beta`, its IS weights
-go to ``agent.train(weights=...)``, and the loss's `td_error` goes back as
-the new priorities (the mean of |td| over its non-batch axes for a
-sequence loss). An agent whose loss has no `td_error` (C51: a
-cross-entropy) gets a warning, once per loop.
+go to ``agent.train(weights=...)``, and the loss's priorities go back:
+its own per-sequence `priority` where it gives one (R2D2's mix of the max
+and the mean of |td|), else its `td_error` (the mean of |td| over its
+non-batch axes for a sequence loss). An agent whose loss has neither (C51:
+a cross-entropy) gets a warning, once per loop.
 
 Data parallelism (`mesh=`, the JAX loop's :68-73, :123-128, :158-163):
 `init` still builds the state for the global batch B, and
@@ -55,6 +56,7 @@ from agents_tpu_torch.utils.draws import as_draws
 _ITERATION = profiling.annotate("loop.iteration", request=True)
 _COLLECT = profiling.annotate("loop.collect")
 _SAMPLE = profiling.annotate("loop.sample")
+_PRIORITIES = profiling.annotate("replay.priorities")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +173,9 @@ class FusedTrainLoop:
       if self.prioritized:
         agent_state, loss_info = self.agent.train(
             agent_state, experience, weights=info.is_weights)
-        replay_state = self._update_priorities(replay_state, info, loss_info)
+        with _PRIORITIES:
+          replay_state = self._update_priorities(replay_state, info,
+                                                 loss_info)
       else:
         agent_state, loss_info = self.agent.train(agent_state, experience)
     if self.mesh is not None:
@@ -180,10 +184,13 @@ class FusedTrainLoop:
                                replay_state=replay_state), loss_info
 
   def _update_priorities(self, replay_state, info, loss_info):
-    """The loss's TD errors back as priorities; without them the items
-    keep their insert-time max priority while the IS weights still bend
-    the loss, so PER silently degrades to a biased uniform sampler."""
-    td = getattr(loss_info.extra, "td_error", None)
+    """The loss's priorities (its `priority`, else its TD errors) back to
+    the replay; without them the items keep their insert-time max
+    priority while the IS weights still bend the loss, so PER silently
+    degrades to a biased uniform sampler."""
+    td = getattr(loss_info.extra, "priority", None)
+    if td is None:
+      td = getattr(loss_info.extra, "td_error", None)
     if td is None:
       if not self._warned_no_td_error:
         self._warned_no_td_error = True

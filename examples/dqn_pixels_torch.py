@@ -17,6 +17,20 @@ so the agent replays each train step as one CUDA graph
                 sample 128, 32 initial collect steps, a 100-episode return
                 deque, 2,400 iterations.
   --agent=c51   C51 (51 atoms on [-10, 10]) on the same torso.
+  --agent=r2d2  R2D2 (Kapturowski et al. 2019, Table 1;
+                ``agents_tpu_torch/agents/dqn/r2d2_agent.py``): the conv
+                torso unpadded ("VALID", 84 -> 20 -> 9 -> 7) and fc 512,
+                with the one-hot previous action and previous reward into
+                an LSTM of 512, then dueling streams of 512; one 84x84x1
+                frame per observation, 18 actions, float32; sequences of
+                40 burn-in + 80 trained frames starting every 40 ring
+                slots, sampled by priority (exponent 0.9, IS exponent
+                0.6, priority eta 0.9); 5-step double-Q targets under
+                value rescaling (eps 1e-3), gamma 0.997, the squared TD
+                error; Adam(1e-4, eps 1e-3), sample 64, a hard target
+                update every 2,500 steps, 128 initial collect steps. The
+                ring stores each frame's carry (c, h) beside it (4,104
+                more bytes a frame at LSTM 512).
   --smoke       a short run at a small width (B=16, ring 128, sample 32,
                 200 iterations), on the card or with --device cpu.
 
@@ -25,7 +39,8 @@ Like ``examples/dqn_cartpole_torch.py`` it writes ``train.jsonl`` and
 evaluates greedily over `num_eval_episodes` and prints a final JSON line.
 
 Usage:
-  python examples/dqn_pixels_torch.py [--env=pixels|catch] [--agent=dqn|c51]
+  python examples/dqn_pixels_torch.py [--env=pixels|catch]
+      [--agent=dqn|c51|r2d2]
       [--device cuda|cpu] [--smoke] [--cfg.<field>=<value> ...]
 """
 import dataclasses
@@ -45,7 +60,7 @@ MNIH15 = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 class Config:
   root_dir: str = os.path.join(_REPO, "runs", "dqn_pixels_torch")
   env: str = "pixels"                  # "pixels" (SyntheticPixels), "catch"
-  agent: str = "dqn"                   # "dqn" or "c51"
+  agent: str = "dqn"                   # "dqn", "c51" or "r2d2"
   pixels_size: int = 84
   pixels_frames: int = 4
   pixels_actions: int = 6
@@ -71,6 +86,12 @@ class Config:
   num_atoms: int = 51                  # C51 only
   min_q_value: float = -10.0
   max_q_value: float = 10.0
+  lstm_size: int = 512                 # R2D2 only, as the fields below
+  dueling_fc_layer_params: tuple = (512,)
+  burn_in: int = 40
+  train_sequence_length: int = 120     # burn-in and trained frames
+  n_step_update: int = 5
+  sequence_stride: int = 40            # ring slots between sequence starts
   return_buffer: int = 20              # episodes in the AverageReturn deque
   log_interval: int = 1000
   num_eval_episodes: int = 30
@@ -90,6 +111,19 @@ SMOKE = dict(env_batch_size=16, replay_capacity=128, sample_batch_size=32,
              initial_collect_steps=16, num_iterations=200, log_interval=100,
              num_eval_episodes=4)
 
+# R2D2's priority and IS-weight exponents (Kapturowski et al. 2019, Table 1).
+R2D2_PRIORITY_EXPONENT, R2D2_IMPORTANCE_EXPONENT = 0.9, 0.6
+
+R2D2 = dict(
+    agent="r2d2", pixels_frames=1, pixels_actions=18,
+    dtype="float32", learning_rate=1e-4, adam_eps=1e-3, gamma=0.997,
+    sample_batch_size=64, target_update_period=2500,
+    initial_collect_steps=128)
+
+R2D2_SMOKE = dict(SMOKE, replay_capacity=256, sample_batch_size=8,
+                  initial_collect_steps=128, num_iterations=20,
+                  log_interval=10)
+
 
 def build_loop(cfg: Config):
   """The env, agent, replay and fused loop of `cfg`."""
@@ -97,12 +131,14 @@ def build_loop(cfg: Config):
 
   from agents_tpu_torch import metrics
   from agents_tpu_torch.agents.categorical_dqn import CategoricalDqnAgent
-  from agents_tpu_torch.agents.dqn import DqnAgent
+  from agents_tpu_torch.agents.dqn import DqnAgent, R2d2Agent
   from agents_tpu_torch.environments import BatchedTorchEnv
   from agents_tpu_torch.environments.classic import Catch, SyntheticPixels
   from agents_tpu_torch.networks import (make_categorical_q_network,
-                                         make_q_network)
-  from agents_tpu_torch.replay_buffers import UniformReplay
+                                         make_q_network,
+                                         make_recurrent_dueling_q_network)
+  from agents_tpu_torch.replay_buffers import (PrioritizedReplay,
+                                               UniformReplay)
   from agents_tpu_torch.train import FusedTrainLoop
   from agents_tpu_torch.trajectories import trajectory as tj
   from agents_tpu_torch.utils import common
@@ -149,20 +185,37 @@ def build_loop(cfg: Config):
                "squared": common.element_wise_squared_loss}[cfg.td_loss]
     agent = DqnAgent(tss, asp, qnet, optimizer_fn, td_errors_loss_fn=loss_fn,
                      **agent_kwargs)
+  elif cfg.agent == "r2d2":
+    qnet = make_recurrent_dueling_q_network(
+        tss.observation, asp, lstm_size=cfg.lstm_size,
+        dueling_fc_layer_params=cfg.dueling_fc_layer_params, **net_kwargs)
+    agent = R2d2Agent(tss, asp, qnet, optimizer_fn, burn_in=cfg.burn_in,
+                      train_sequence_length=cfg.train_sequence_length,
+                      n_step_update=cfg.n_step_update, **agent_kwargs)
   else:
     raise ValueError(f"unknown agent {cfg.agent!r}")
-  replay = UniformReplay(tj.trajectory_spec(tss, asp),
-                         batch_size=cfg.env_batch_size,
-                         max_length=cfg.replay_capacity, device=device)
+  loop_kwargs = {}
+  if cfg.agent == "r2d2":
+    # The ring stores each frame's policy info (the carry) beside it.
+    replay = PrioritizedReplay(
+        tj.trajectory_spec(tss, asp, agent.collect_policy.info_spec),
+        batch_size=cfg.env_batch_size, max_length=cfg.replay_capacity,
+        alpha=R2D2_PRIORITY_EXPONENT, sequence_stride=cfg.sequence_stride,
+        device=device)
+    loop_kwargs["per_beta"] = R2D2_IMPORTANCE_EXPONENT
+  else:
+    replay = UniformReplay(tj.trajectory_spec(tss, asp),
+                           batch_size=cfg.env_batch_size,
+                           max_length=cfg.replay_capacity, device=device)
   return FusedTrainLoop(
       env, agent, replay,
       metrics=metrics.standard_collect_metrics(cfg.return_buffer),
-      sample_batch_size=cfg.sample_batch_size, device=device)
+      sample_batch_size=cfg.sample_batch_size, device=device, **loop_kwargs)
 
 
 def parse_pixel_args(argv) -> Config:
-  """--env=catch and --agent=c51 first, then `parse_args`'s --smoke,
-  --device and --cfg.<field>=<value>."""
+  """--env=catch and --agent=c51 or r2d2 (R2D2's fields) first, then
+  `parse_args`'s --smoke, --device and --cfg.<field>=<value>."""
   cfg, rest = Config(), []
   for arg in argv:
     if arg.startswith("--env="):
@@ -170,11 +223,14 @@ def parse_pixel_args(argv) -> Config:
       if env not in ("pixels", "catch"):
         raise SystemExit(f"unknown env {env!r}")
       cfg = dataclasses.replace(cfg, **CATCH) if env == "catch" else cfg
+    elif arg == "--agent=r2d2":
+      cfg = dataclasses.replace(cfg, **R2D2)
     elif arg.startswith("--agent="):
       cfg = dataclasses.replace(cfg, agent=arg.split("=", 1)[1])
     else:
       rest.append(arg)
-  return parse_args(rest, cfg, smoke=SMOKE)
+  smoke = R2D2_SMOKE if cfg.agent == "r2d2" else SMOKE
+  return parse_args(rest, cfg, smoke=smoke)
 
 
 if __name__ == "__main__":
