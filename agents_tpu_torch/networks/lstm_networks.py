@@ -27,7 +27,12 @@ function whose backward is written out (backpropagation through time:
 seven device ops a step, the recurrent weight's gradient one product over
 all steps): left to autograd, each step's graph took about four times the
 ops, and the train step of a recurrent PPO minibatch is nothing but such
-steps, each op a host dispatch.
+steps, each op a host dispatch. On a CUDA tensor each time step of the
+forward and of the backward is instead one launch of a hand-written
+kernel (`ops/lstm_recurrence.py`, float32 only); the Python loop is the
+plain version, which runs on the CPU and under `torch.export` (an
+exported artifact's loader imports only numpy and torch, so it cannot
+carry the kernel).
 
 Initializers are flax's: the Dense layers and the input kernels
 `lecun_normal_`, each recurrent ``[H, H]`` block orthogonal, zero biases;
@@ -44,7 +49,9 @@ the previous action and reward come in as inputs.
 
 Spans (`utils/profiling.py`): ``lstm.unroll`` around the forward time
 loop, ``lstm.backward`` around the written-out backward; the counter
-``lstm.steps`` adds the time steps of each forward unroll.
+``lstm.steps`` adds the time steps of each forward unroll,
+``lstm.kernel_steps`` those of each forward unroll that ran the kernel, and
+``lstm.backward_steps`` those of each backward.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from agents_tpu_torch.networks.projection_networks import (NormalProjection,
                                                            default_projection)
 from agents_tpu_torch.networks.q_network import _head, num_actions
 from agents_tpu_torch.networks.registry import register_factory
+from agents_tpu_torch.ops.lstm_recurrence import KERNEL
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import time_step as ts
 from agents_tpu_torch.utils import nest_utils, profiling
@@ -84,17 +92,35 @@ def _is_empty(state) -> bool:
   return state is None or (isinstance(state, tuple) and len(state) == 0)
 
 
+def _on_kernel(x) -> bool:
+  """Whether an unroll of `x` runs the CUDA kernel: a CUDA tensor, outside
+  `torch.export`'s tracing."""
+  return x.is_cuda and not torch.compiler.is_exporting()
+
+
 class _MaskedLSTMUnroll(torch.autograd.Function):
   """The reset-masked LSTM over T steps, with its backward written out.
 
   forward(gates_x [B, T, 4H] (the input products and the bias), keep
-  [B, T] (0 where the step is FIRST), w_h [4H, H], c [B, H], h [B, H])
-  -> (outputs [B, T, H], final c, final h).
+  [B, T] (0 where the step is FIRST), w_h [4H, H], c [B, H], h [B, H],
+  save) -> (outputs [B, T, H], final c, final h).
+
+  On a CUDA tensor (float32, else it raises) the kernel runs each step, and
+  keeps what the backward needs only where `save` says a gradient is
+  needed: grad mode is off inside `forward`, so the caller decides. On the
+  CPU and under `torch.export` the plain Python loop below runs.
   """
 
   @staticmethod
-  def forward(ctx, gates_x, keep, w_h, c, h):
+  def forward(ctx, gates_x, keep, w_h, c, h, save=True):
     with _UNROLL:
+      ctx.kernel = _on_kernel(gates_x)
+      if ctx.kernel:
+        profiling.count("lstm.steps", gates_x.shape[1])
+        profiling.count("lstm.kernel_steps", gates_x.shape[1])
+        y, c, h, ctx.steps = KERNEL.forward(gates_x, keep, w_h, c, h, save)
+        ctx.save_for_backward(keep, w_h)
+        return y, c, h
       return _MaskedLSTMUnroll._forward(ctx, gates_x, keep, w_h, c, h)
 
   @staticmethod
@@ -127,7 +153,13 @@ class _MaskedLSTMUnroll(torch.autograd.Function):
   @torch.autograd.function.once_differentiable
   def backward(ctx, d_outputs, d_c, d_h):
     with _BACKWARD:
-      return _MaskedLSTMUnroll._backward(ctx, d_outputs, d_c, d_h)
+      profiling.count("lstm.backward_steps", d_outputs.shape[1])
+      if ctx.kernel:
+        keep, w_h = ctx.saved_tensors
+        d_gates, d_w, d_c, d_h = KERNEL.backward(d_outputs, d_c, d_h, keep,
+                                                 w_h, ctx.steps)
+        return d_gates, None, d_w, d_c, d_h, None
+      return _MaskedLSTMUnroll._backward(ctx, d_outputs, d_c, d_h) + (None,)
 
   @staticmethod
   def _backward(ctx, d_outputs, d_c, d_h):
@@ -228,10 +260,11 @@ class LSTMEncoder(nn.Module):
                        self.lstm_hidden.bias.to(self.dtype))
     keep = (step_type != ts.StepType.FIRST).to(self.dtype)        # [B, T]
     c, h = network_state
-    y, c, h = _MaskedLSTMUnroll.apply(
-        gates_x.reshape(batch, steps, -1), keep,
-        self.lstm_hidden.weight.to(self.dtype), c.to(self.dtype),
-        h.to(self.dtype))
+    args = (gates_x.reshape(batch, steps, -1), keep,
+            self.lstm_hidden.weight.to(self.dtype), c.to(self.dtype),
+            h.to(self.dtype))
+    save = torch.is_grad_enabled() and any(x.requires_grad for x in args)
+    y, c, h = _MaskedLSTMUnroll.apply(*args, save)
     y = self._stack(y.reshape(batch * steps, -1), self.output_layers)
     y = y.reshape(batch, steps, -1)
     if not has_time:

@@ -336,18 +336,29 @@ for bit and which time nothing.
                   ``examples/ppo_cartpole_torch.py --preset=rnn``, the card
                   unrolling its networks over the CPU's rollout and
                   training on it with the CPU's permutations. Each tensor
-                  to max|card - cpu| <= 1e-5 + 1e-4 max|cpu|.
+                  to max|card - cpu| <= 1e-5 + 1e-4 max|cpu|; every forward
+                  step of a card unroll ran the LSTM kernel
+                  (`lstm.kernel_steps` against the steps routed to the
+                  card) and every CPU one the plain loop.
  30. rnn_dqn_main the CartPole bench point (B=4096, ring 512, sample 256)
                   with `make_q_rnn_network` at its defaults, `DdqnAgent`
                   and sequences of 10: 5 warm-up iterations, 5 windows of
                   20 under the sync debug mode (median ms/iteration,
                   env-steps/s), a 5-iteration profile (operator records and
-                  device ops per train step).
+                  device ops per train step). The LSTM kernel's launches
+                  over the timed windows and over the profile, per
+                  iteration and per unroll: one a forward or backward step
+                  and one a backward's start (against the `lstm.steps`,
+                  `lstm.backward_steps` counters and the `lstm.backward`
+                  span), every step on the kernel, the same per iteration
+                  in both, and the profile's kernels on the card by name
+                  (each function launched shows, none more often).
  31. ppo_rnn_main ``--preset=rnn`` (B=32, T=128, 10 epochs x 8 minibatches of
                   4 sequences, Adam 3e-4, LSTM actor and value at the
                   factories' defaults): 1 warm-up and 2 windows of 1
                   iteration under the sync debug mode, and the collect /
-                  GAE / train split.
+                  GAE / train split; the LSTM kernel's launches over the
+                  windows and, checked as in `rnn_dqn_main`, over the split.
  32. checkpoint_resume  save, rebuild from the seed, restore and continue,
                   `torch.equal` to the run without a break in the losses
                   and every tensor, number and generator state: (a) fused
@@ -364,7 +375,9 @@ for bit and which time nothing.
                   to a last-20 return above 83 (the JAX test's 35,
                   tightened to the JAX package's own runs over five seeds,
                   `tests/test_torch_reference_bars.py`), then greedy eval
-                  over exactly 30 episodes; a fourth child process.
+                  over exactly 30 episodes; the LSTM kernel's launches over
+                  the training, checked as in `rnn_dqn_main`; a fourth child
+                  process.
  34. host_parity  `HostDeviceTrainLoop` with SAC at (256, 256) over a
                   `BatchedPyEnvironment` of 8 seeded `RandomPyEnvironment`s
                   with HalfCheetah-v5's specs (observation (17,), action
@@ -413,7 +426,7 @@ for bit and which time nothing.
                   the card, mnih15 + fc 512 in fp32, sample 32, 8 train steps
                   per call, UTD 0.25, Adam 2.5e-4 eps 0.01) over 8 random
                   envs with the repaired `load_atari` specs (Pong's 6
-                  actions, 500-step episodes), cut to 2,000 ticks, 500 of
+                  actions, 500-step episodes), cut to 1,000 ticks, 500 of
                   them random: the trainer drained, env steps exact, train
                   steps <= 0.25 (env steps - min frames) + 8, every loss
                   finite, epsilon at the last train step equal to
@@ -431,8 +444,8 @@ for bit and which time nothing.
                   (256, 256, 256), sample 256, 10 CQL samples, alpha 5.0, 64
                   train steps per call, 10 eval envs) over random
                   HalfCheetah-spec envs, each phase cut (16,384 behaviour
-                  env steps, 32,768 dataset frames, 192 BC of 384 offline
-                  steps, an eval at 256), then phase C
+                  env steps, 16,384 dataset frames, 96 BC of 192 offline
+                  steps, an eval at 128), then phase C
                   again through `reuse_phase_ab`: the frames collected on
                   disk and in both rings, every loss finite, 3 snapshots,
                   both phase Cs equal bit for bit
@@ -504,10 +517,25 @@ for bit and which time nothing.
                   JAX package's own runs do not tighten), priorities
                   spread, then greedy eval over exactly 30 episodes; a
                   fifth child process.
- 46. kernels      the port's hand-written kernels on these paths (none: the
-                  JAX package has no Pallas kernel at HEAD).
- 47. total        the script's wall time; then {"kernels": []}, and as the
-                  last line {"ok": true, "device": {...}}.
+ 45a. lstm_kernel the LSTM recurrence's CUDA kernel (`ops/lstm_recurrence.py`)
+                  at R2D2's shapes (H=512): the trained unroll of 80 steps
+                  at 64 rows forward and backward, a burn-in of 40 without
+                  gradient, the collect step at 256 rows; each against the
+                  plain loop on the card (TF32 off, every output and
+                  gradient to max|kernel - plain| <= 1e-5 + 1e-4
+                  max|plain|), one launch a step and one for the backward's
+                  start; ms of each on CUDA events beside its bound (the
+                  least time at the fp32 peak and HBM bandwidth), the plain
+                  loop's and `torch.nn.LSTM`'s (cuDNN, no resets, width 531
+                  in, the input product included on both sides). Runs
+                  before the learning runs, on a quiet card; some 20 s,
+                  the kernel's build included.
+ 46. kernels      the port's hand-written kernels on these paths (the LSTM
+                  recurrence; the JAX package has no Pallas kernel at HEAD:
+                  its recurrence is a `lax.scan`).
+ 47. total        the script's wall time; then {"kernels": [...]} (the row
+                  of `lstm_kernel`), and as the last line {"ok": true,
+                  "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -840,14 +868,16 @@ def check_step_types(loop, state):
   return bad, int((st == StepType.LAST).sum())
 
 
-def profile_call(fn, count, unit, name="profile_trace.json", annotations=()):
+def profile_call(fn, count, unit, name="profile_trace.json", annotations=(),
+                 device_names=None):
   """Run `fn()`, which does `count` `unit`s of work, under the port's
   `profiling.trace` (`torch.profiler`, CPU and CUDA): (its result,
   per-unit stats: wall and device-busy ms, the busy share, device ops,
   trace events by category and the top device ops), read from the chrome
   trace written under ``runs/<name without .json>/``. `fn` may open
   `profiling.annotate` spans; the stats say which of `annotations` the
-  trace holds."""
+  trace holds. With `device_names` ({key: part of a name}) the stats count,
+  under "device_calls", the device ops whose name holds each part."""
   import torch
 
   from agents_tpu_torch.utils import profiling
@@ -882,6 +912,9 @@ def profile_call(fn, count, unit, name="profile_trace.json", annotations=()):
       f"{unit}s": count,
       **({"spans_in_trace": {s: s in names for s in annotations}}
          if annotations else {}),
+      **({"device_calls": {k: sum(1 for _, _, op in spans if part in op)
+                           for k, part in device_names.items()}}
+         if device_names else {}),
       f"wall_ms_per_{unit}": wall_us / 1e3 / count,
       f"device_ms_per_{unit}": busy_us / 1e3 / count,
       "device_busy_share": busy_us / wall_us,
@@ -893,11 +926,12 @@ def profile_call(fn, count, unit, name="profile_trace.json", annotations=()):
               for op, (us, c) in top]}
 
 
-def profile_window(loop, state, iterations, spans=()):
+def profile_window(loop, state, iterations, spans=(), device_names=None):
   """Device-busy share and the top device ops over `iterations` loop
-  iterations (`profile_call`); with `spans` (outer, inner) the window is
-  wrapped in a `profiling.annotate` span and the loop's `run` in a
-  decorated one, and the stats say whether both reached the trace."""
+  iterations (`profile_call`, which takes `device_names`); with `spans`
+  (outer, inner) the window is wrapped in a `profiling.annotate` span and
+  the loop's `run` in a decorated one, and the stats say whether both
+  reached the trace."""
   from agents_tpu_torch.utils import profiling
 
   run = loop.run
@@ -912,7 +946,8 @@ def profile_window(loop, state, iterations, spans=()):
     def window():
       return run(state, iterations)
   (state, _), stats = profile_call(window, iterations, "iteration",
-                                   annotations=spans)
+                                   annotations=spans,
+                                   device_names=device_names)
   return state, stats
 
 
@@ -4622,29 +4657,259 @@ def rnn_ppo_parity(compare):
           "loss": float(ginfo.loss)}
 
 
+# The LSTM kernel's three device functions, by a part of the names the
+# trace gives them (`agents_tpu_torch/csrc/lstm_recurrence.cu`).
+LSTM_KERNEL_FUNCTIONS = {"forward": "forward_step<",
+                         "backward": "backward_step<",
+                         "start": "backward_start("}
+
+
+@contextlib.contextmanager
+def lstm_recorded(counts):
+  """Zeroes the LSTM kernel's launch count (`KERNEL.launches`) and records
+  spans and counters over the block; afterwards `counts` holds the
+  launches, the forward steps of every unroll (`lstm.steps`, counted on
+  either path), those that ran the kernel (`lstm.kernel_steps`), the
+  backward steps (`lstm.backward_steps`), and the unrolls and backwards
+  (calls of the `lstm.unroll` and `lstm.backward` spans). A
+  `profile_call` inside the block joins its recording."""
+  from agents_tpu_torch.ops.lstm_recurrence import KERNEL
+  from agents_tpu_torch.utils import profiling
+
+  KERNEL.launches = 0
+  with profiling.record() as rec:
+    yield counts
+  out = rec.summary()
+  counters, spans = out["counters"], out["spans"]
+  counts.update(
+      launches=KERNEL.launches, steps=counters.get("lstm.steps", 0),
+      kernel_steps=counters.get("lstm.kernel_steps", 0),
+      backward_steps=counters.get("lstm.backward_steps", 0),
+      unrolls=spans.get("lstm.unroll", {}).get("calls", 0),
+      backwards=spans.get("lstm.backward", {}).get("calls", 0))
+
+
+def lstm_launch_checks(counts, units, device_calls=None):
+  """Whether the stretch that `lstm_recorded` filled `counts` over ran
+  every step of the LSTM on its kernel, one launch a forward or backward
+  step and one for each backward's start, and launched at all; with
+  `device_calls` (`profile_call`'s count of `LSTM_KERNEL_FUNCTIONS`),
+  whether the trace shows the card running each function that was
+  launched, and none more often than it was launched (the profiler can
+  drop an event: it read 104 of 105 forward steps once, exactly in other
+  runs). Returns (the fields to emit, per unit of work and per unroll;
+  ok)."""
+  launches = counts["launches"]
+  checks = {
+      "launched": launches > 0,
+      "every_step_on_the_kernel": counts["kernel_steps"] == counts["steps"],
+      "one_launch_a_step_and_one_a_backward": launches == (
+          counts["steps"] + counts["backward_steps"] + counts["backwards"])}
+  if device_calls is not None:
+    launched = {"forward": counts["steps"],
+                "backward": counts["backward_steps"],
+                "start": counts["backwards"]}
+    checks["card_ran_the_launches"] = all(
+        (device_calls[k] > 0) == (n > 0) and device_calls[k] <= n
+        for k, n in launched.items())
+  fields = dict(counts, units=units, launches_per_unit=launches / units,
+                launches_per_unroll=launches / max(counts["unrolls"], 1),
+                device_calls=device_calls, checks=checks)
+  return fields, all(checks.values())
+
+
 def phase_rnn_parity(card):
   """The recurrent networks, recurrent DDQN and recurrent PPO, card
   against CPU (TF32 off), each tensor to max|card - cpu| <= 1e-5 + 1e-4
-  max|cpu|; integers and step types equal."""
+  max|cpu|; integers and step types equal. Every forward step of an
+  unroll on the card runs the LSTM kernel, and every one on the CPU the
+  plain loop (the unroll's route, watched, gives each side's steps)."""
   import torch
+
+  from agents_tpu_torch.networks import lstm_networks
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   compare = BoundedComparison(RNN_RTOL, RNN_ATOL)
-  networks = rnn_network_parity(compare)
-  dqn = rnn_dqn_parity(compare)
-  ppo = rnn_ppo_parity(compare)
+  routed, route, lstm = {"cuda": 0, "cpu": 0}, lstm_networks._on_kernel, {}
+
+  def watched(x):
+    routed[x.device.type] += x.shape[1]
+    return route(x)
+
+  lstm_networks._on_kernel = watched
+  try:
+    with lstm_recorded(lstm):
+      networks = rnn_network_parity(compare)
+      dqn = rnn_dqn_parity(compare)
+      ppo = rnn_ppo_parity(compare)
+  finally:
+    lstm_networks._on_kernel = route
+  kernel_checks = {
+      "launched": lstm["launches"] > 0,
+      "card_steps_on_the_kernel": lstm["kernel_steps"] == routed["cuda"] > 0,
+      "cpu_steps_on_the_plain_loop": (lstm["steps"] - lstm["kernel_steps"]
+                                      == routed["cpu"])}
   # DDQN's online argmax is discontinuous: the numpy-made batches must keep
   # every choice clear of rounding, as QtOpt's elites are held.
   ok = (not compare.mismatched
-        and dqn["smallest_online_argmax_gap_of_max_abs_q"] > RNN_ARGMAX_GAP)
+        and dqn["smallest_online_argmax_gap_of_max_abs_q"] > RNN_ARGMAX_GAP
+        and all(kernel_checks.values()))
   emit("rnn_parity", card=card, widths={"input": [40], "lstm": 40,
                                         "output": [40]},
        networks=networks, ddqn=dqn, ppo=ppo, rtol=RNN_RTOL, atol=RNN_ATOL,
        criterion="max|card - cpu| <= atol + rtol * max|cpu| per tensor; "
-       "each DDQN step from the CPU's state", **compare.summary(), ok=ok)
+       "each DDQN step from the CPU's state",
+       lstm_kernel=dict(lstm, card_steps=routed["cuda"],
+                        cpu_steps=routed["cpu"], checks=kernel_checks),
+       **compare.summary(), ok=ok)
   if not ok:
-    fail("rnn_parity", "card and CPU disagree on the recurrent path")
+    fail("rnn_parity", "card and CPU disagree on the recurrent path, or a "
+         f"card unroll missed the LSTM kernel: {kernel_checks}")
+
+
+# The LSTM kernel at R2D2's shapes: (rows, steps, with gradient) of its
+# main path's unrolls; H = 512, 531 inputs; repeats timed per case.
+LSTM_KERNEL_SIZE, LSTM_KERNEL_INPUTS = 512, 531
+LSTM_KERNEL_CASES = {"trained": (64, 80, True), "burn_in": (64, 40, False),
+                     "collect": (256, 1, False)}
+LSTM_KERNEL_REPEATS = 20
+LSTM_KERNEL_RTOL, LSTM_KERNEL_ATOL = 1e-4, 1e-5
+FP32_PEAK, HBM_BYTES_PER_S = 67e12, 3.35e12
+
+
+def lstm_least_ms(rows, steps, size, grads):
+  """Least time of an unroll's recurrence (and its backward): each step's
+  ``[rows, H] x [H, 4H]`` product with its reads and writes, at the fp32
+  peak and HBM bandwidth (`portbench/lstm.py`'s count)."""
+  product = 2 * rows * size * 4 * size
+  nbytes = 4 * (4 * size * size + rows * 4 * size + 5 * rows * size)
+  step = max(product / FP32_PEAK, nbytes / HBM_BYTES_PER_S)
+  total = steps * step * (2 if grads else 1)
+  if grads:
+    total += max(2 * steps * rows * 4 * size * size / FP32_PEAK,
+                 4 * (steps * rows * 5 * size + 4 * size * size)
+                 / HBM_BYTES_PER_S)
+  return total * 1e3
+
+
+def phase_lstm_kernel(card):
+  """45a: the LSTM recurrence's kernel against the plain loop and cuDNN's
+  LSTM at R2D2's shapes; returns the kernel table's row."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from agents_tpu_torch.networks import lstm_networks
+  from agents_tpu_torch.ops.lstm_recurrence import KERNEL
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  size, width = LSTM_KERNEL_SIZE, LSTM_KERNEL_INPUTS
+  rng = np.random.RandomState(22)
+  to = lambda x: torch.from_numpy(x.astype(np.float32)).cuda()  # noqa: E731
+  w_i = to(rng.randn(4 * size, width) / np.sqrt(width))
+  bias = to(rng.randn(4 * size) * 0.1)
+  w_h = to(rng.randn(4 * size, size) / np.sqrt(size))
+
+  def unroll(leaves, keep, grads):
+    """The masked unroll of leaves (gates_x, w_h, c, h), with the gradients
+    of a loss on its outputs and final carry when `grads`."""
+    gates_x, w, c, h = leaves
+    y, c, h = lstm_networks._MaskedLSTMUnroll.apply(gates_x, keep, w, c, h,
+                                                    grads)
+    if not grads:
+      return [y, c, h]
+    loss = y.square().sum() + c.sum() + h.sum()
+    return [y, c, h] + list(torch.autograd.grad(loss, leaves))
+
+  @contextlib.contextmanager
+  def plain():
+    route = lstm_networks._on_kernel
+    lstm_networks._on_kernel = lambda x: False
+    try:
+      yield
+    finally:
+      lstm_networks._on_kernel = route
+
+  def event_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(LSTM_KERNEL_REPEATS):
+      fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / LSTM_KERNEL_REPEATS
+
+  t0 = time.perf_counter()
+  first = None
+  cases, gaps, ok = {}, {}, True
+  for name, (rows, steps, grads) in LSTM_KERNEL_CASES.items():
+    x = to(rng.randn(rows, steps, width) * 0.5)
+    keep = to((rng.rand(rows, steps) > 0.02).astype(np.float32))
+    c, h = to(rng.randn(rows, size) * 0.5), to(rng.randn(rows, size) * 0.5)
+    with torch.set_grad_enabled(grads):
+      gates_x = F.linear(x, w_i, bias).detach()
+      leaves = [t.clone().requires_grad_(grads) for t in (gates_x, w_h, c, h)]
+      launches = KERNEL.launches
+      got = unroll(leaves, keep, grads)
+      torch.cuda.synchronize()
+      launches = KERNEL.launches - launches
+      ok &= launches == (2 * steps + 1 if grads else steps)
+      if first is None:
+        first = time.perf_counter() - t0
+      with plain():
+        want = unroll(leaves, keep, grads)
+      gaps[name] = {}
+      for tag, a, b in zip(("outputs", "c", "h", "d_gates_x", "d_w_h",
+                            "d_c", "d_h"), got, want):
+        scale = b.abs().max().item()
+        gap = (a - b).abs().max().item()
+        gaps[name][tag] = gap / scale
+        ok &= gap <= LSTM_KERNEL_ATOL + LSTM_KERNEL_RTOL * scale
+      kernel_ms = event_ms(lambda: unroll(leaves, keep, grads))
+      with plain():
+        plain_ms = event_ms(lambda: unroll(leaves, keep, grads))
+      lstm = torch.nn.LSTM(width, size, batch_first=True).cuda()
+      lstm.requires_grad_(grads)
+      inputs = [t.clone().requires_grad_(grads) for t in (w_i, bias)]
+      carry = (h[None].contiguous(), c[None].contiguous())
+
+      def library():
+        y, (hn, cn) = lstm(x, carry)
+        if grads:
+          torch.autograd.grad(y.square().sum() + cn.sum() + hn.sum(),
+                              list(lstm.parameters()))
+
+      def input_product():
+        gates = F.linear(x, *inputs)
+        if grads:
+          torch.autograd.grad(gates.sum(), inputs)
+
+      library_ms = event_ms(library)
+      input_ms = event_ms(input_product)
+    cases[name] = dict(
+        rows=rows, steps=steps, gradient=grads, kernel_ms=kernel_ms,
+        bound_ms=lstm_least_ms(rows, steps, size, grads), plain_ms=plain_ms,
+        library_ms=library_ms, input_product_ms=input_ms, launches=launches)
+  row = {"name": "lstm_recurrence", "replaces": "agents_tpu/networks/"
+         "lstm_networks.py: the masked LSTM's lax.scan (no Pallas kernel)",
+         "source": "agents_tpu_torch/csrc/lstm_recurrence.cu",
+         "route": "CUDA C++, nvcc sm_90a, ctypes",
+         **{f"{name}_{k}": v for name, case in cases.items()
+            for k, v in case.items() if k.endswith("_ms")}}
+  emit("lstm_kernel", card=card, size=size, inputs=width, cases=cases,
+       relative_gaps=gaps, rtol=LSTM_KERNEL_RTOL, atol=LSTM_KERNEL_ATOL,
+       first_call_s=first,
+       note="library_ms runs the input product too (input_product_ms); "
+       "launches: the kernel's count over one call of each case",
+       ok=ok)
+  if not ok:
+    fail("lstm_kernel", "the kernel disagrees with the plain loop or "
+         "launched other than once a step")
+  return row
 
 
 def phase_rnn_dqn_main(card):
@@ -4654,13 +4919,17 @@ def phase_rnn_dqn_main(card):
 
   import torch
 
+  from agents_tpu_torch.ops.lstm_recurrence import KERNEL
+
   loop = build_rnn_dqn_loop("cuda", B_MAIN, MAIN["capacity"],
                             MAIN["sample_batch_size"])
   state = loop.init(seed=0, initial_collect_steps=100)
   state, losses = loop.run(state, RNN_DQN_WARMUP)
   torch.cuda.synchronize()
+  KERNEL.launches = 0
   state, losses, window_ms = timed_windows(
       loop, state, RNN_DQN_WINDOWS * RNN_DQN_WINDOW, RNN_DQN_WINDOWS)
+  timed_launches = KERNEL.launches / (RNN_DQN_WINDOWS * RNN_DQN_WINDOW)
   ms = statistics.median(window_ms)
   iterations = RNN_DQN_WARMUP + RNN_DQN_WINDOWS * RNN_DQN_WINDOW
   off_card = [tuple(t.shape) for t in loop_tensors(state)
@@ -4672,7 +4941,16 @@ def phase_rnn_dqn_main(card):
         and state.replay_state.count == 100 + iterations
         and state.agent_state.train_step == iterations
         and carry == [(B_MAIN, 40)] * 2)
-  state, prof = profile_window(loop, state, RNN_DQN_PROFILED)
+  # The profiled iterations: the LSTM's launches against the unrolls'
+  # steps and the kernels the card ran; every iteration launches alike.
+  lstm = {}
+  with lstm_recorded(lstm):
+    state, prof = profile_window(loop, state, RNN_DQN_PROFILED,
+                                 device_names=LSTM_KERNEL_FUNCTIONS)
+  lstm, lstm_ok = lstm_launch_checks(lstm, RNN_DQN_PROFILED,
+                                     prof["device_calls"])
+  lstm["timed_launches_per_unit"] = timed_launches
+  ok = ok and lstm_ok and timed_launches == lstm["launches_per_unit"]
   emit("rnn_dqn_main", card=card, agent="DdqnAgent", batch_size=B_MAIN,
        ring=MAIN["capacity"], sample_batch_size=MAIN["sample_batch_size"],
        sequence_length=RNN_SEQUENCE,
@@ -4687,7 +4965,8 @@ def phase_rnn_dqn_main(card):
        profile=prof, tensors_off_card=off_card, losses_finite=finite,
        last_loss=float(losses[-1]), replay_count=state.replay_state.count,
        illegal_step_type_transitions=bad_transitions,
-       last_frames_in_ring=lasts, carry_shapes=carry, ok=ok)
+       last_frames_in_ring=lasts, carry_shapes=carry, lstm_kernel=lstm,
+       ok=ok)
   if not ok:
     fail("rnn_dqn_main", "recurrent DQN bench point checks failed")
 
@@ -4699,6 +4978,7 @@ def phase_ppo_rnn_main(card):
 
   import torch
 
+  from agents_tpu_torch.ops.lstm_recurrence import KERNEL
   from agents_tpu_torch.utils import nest_utils
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
   from examples.ppo_cartpole_torch import parse_ppo_args
@@ -4708,13 +4988,19 @@ def phase_ppo_rnn_main(card):
   state = loop.init(cfg.seed)
   state, losses = loop.run(state, PPO_RNN_WARMUP)
   torch.cuda.synchronize()
+  KERNEL.launches = 0
   state, losses, window_ms = timed_windows(
       loop, state, PPO_RNN_WINDOWS * PPO_RNN_WINDOW, PPO_RNN_WINDOWS)
+  timed_launches = KERNEL.launches / (PPO_RNN_WINDOWS * PPO_RNN_WINDOW)
   ms = statistics.median(window_ms)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
-  state, split = iteration_split(loop, state)
+  lstm = {}
+  with lstm_recorded(lstm):
+    state, split = iteration_split(loop, state)
+  lstm, lstm_ok = lstm_launch_checks(lstm, 1)
+  lstm["timed_launches_per_unit"] = timed_launches
   state, experience = loop.collect(state)
   rollout = rollout_checks(experience)
   iterations = PPO_RNN_WARMUP + PPO_RNN_WINDOWS * PPO_RNN_WINDOW + 1
@@ -4722,7 +5008,8 @@ def phase_ppo_rnn_main(card):
            nest_utils.flatten(state.driver_state.policy_state)]
   ok = (not off_card and finite and rollout["illegal_step_type_transitions"]
         == 0 and state.agent_state.train_step == iterations
-        and carry == [(cfg.env_batch_size, cfg.lstm_size)] * 4)
+        and carry == [(cfg.env_batch_size, cfg.lstm_size)] * 4
+        and lstm_ok and timed_launches > 0)
   frames = cfg.env_batch_size * cfg.rollout_length
   mb_steps = cfg.num_epochs * cfg.num_minibatches
   emit("ppo_rnn_main", card=card, batch_size=cfg.env_batch_size,
@@ -4739,7 +5026,7 @@ def phase_ppo_rnn_main(card):
        train_ms_per_minibatch_step=split["train_ms"] / mb_steps,
        tensors_off_card=off_card, losses_finite=finite,
        last_loss=float(losses[-1]), rollout=rollout, carry_shapes=carry,
-       train_step=state.agent_state.train_step, ok=ok)
+       train_step=state.agent_state.train_step, lstm_kernel=lstm, ok=ok)
   if not ok:
     fail("ppo_rnn_main", "recurrent PPO CartPole point checks failed")
 
@@ -4757,11 +5044,14 @@ def phase_ppo_rnn_learn(card):
   cfg = parse_ppo_args(["--preset=rnn_learn"])
   loop = ppo_loop(cfg)
   state = loop.init(cfg.seed)
-  iterations, points = 0, []
-  while iterations < cfg.num_iterations:
-    state, losses = loop.run(state, PPO_RNN_LEARN_CHUNK)
-    iterations += PPO_RNN_LEARN_CHUNK
-    points.append([iterations, float(loop.results(state)["AverageReturn"])])
+  iterations, points, lstm = 0, [], {}
+  with lstm_recorded(lstm):
+    while iterations < cfg.num_iterations:
+      state, losses = loop.run(state, PPO_RNN_LEARN_CHUNK)
+      iterations += PPO_RNN_LEARN_CHUNK
+      points.append([iterations,
+                     float(loop.results(state)["AverageReturn"])])
+  lstm, lstm_ok = lstm_launch_checks(lstm, iterations)
   ret = points[-1][1]
   learn_s = time.perf_counter() - t0
   t_eval = time.perf_counter()
@@ -4769,7 +5059,7 @@ def phase_ppo_rnn_learn(card):
   episodes = int(out["NumberOfEpisodes"])
   torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
-  ok = ret > PPO_RNN_LEARN_GATE and finite and episodes == 30
+  ok = ret > PPO_RNN_LEARN_GATE and finite and episodes == 30 and lstm_ok
   emit("ppo_rnn_learn", card=card, batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
        minibatches=cfg.num_minibatches,
@@ -4782,11 +5072,11 @@ def phase_ppo_rnn_learn(card):
        eval_average_return=float(out["AverageReturn"]),
        eval_average_episode_length=float(out["AverageEpisodeLength"]),
        eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, ok=ok)
+       seconds=time.perf_counter() - t0, lstm_kernel=lstm, ok=ok)
   if not ok:
     fail("ppo_rnn_learn", f"last-20 return {ret} (gate > "
          f"{PPO_RNN_LEARN_GATE} within {cfg.num_iterations} iterations), "
-         f"{episodes} eval episodes of 30")
+         f"{episodes} eval episodes of 30, LSTM kernel {lstm['checks']}")
 
 
 def nest_mismatches(a, b, path="state"):
@@ -5393,8 +5683,8 @@ def host_phases(card):
 
 # `examples/dqn_atari_torch.py` at its Config (B=8, the 1M-frame ring, mnih15
 # + fc 512 in fp32, sample 32, 8 train steps per call, UTD 0.25) with the
-# run cut to 2,000 ticks over random envs with the Atari specs.
-ATARI_HOST = dict(total_env_steps=16_000, initial_collect_ticks=500,
+# run cut to 1,000 ticks over random envs with the Atari specs.
+ATARI_HOST = dict(total_env_steps=8_000, initial_collect_ticks=500,
                   progress_every_ticks=1000)
 ATARI_EPISODE_STEPS = 500
 ATARI_EXPORT_ROWS = 256
@@ -5402,9 +5692,9 @@ ATARI_EXPORT_ROWS = 256
 # (256, 256), critic (256, 256, 256), sample 256, 10 CQL samples, alpha
 # 5.0, 64 train steps per call, 10 eval envs), the "mixed" dataset, with
 # each phase cut.
-OFFLINE_HOST = dict(behavior_env_steps=16_384, dataset_frames=32_768,
-                    num_bc_steps=192, offline_train_steps=384,
-                    eval_interval=256, dataset_mix="mixed")
+OFFLINE_HOST = dict(behavior_env_steps=16_384, dataset_frames=16_384,
+                    num_bc_steps=96, offline_train_steps=192,
+                    eval_interval=128, dataset_mix="mixed")
 OFFLINE_EXPORT_ROWS = 256
 OFFLINE_EXPORT_RTOL, OFFLINE_EXPORT_ATOL = 1e-5, 1e-5
 # Where `AsyncHostDeviceTrainLoop.run`, at its start, copies the initial
@@ -6766,11 +7056,14 @@ def main(argv=()):
   replay_phases(card)
   free_card()
   phase_bench(card)
+  kernel = phase_lstm_kernel(card)
+  free_card()
   learning_phases(card)
-  emit("kernels", note="agents_tpu has no Pallas kernel at HEAD, so these "
-       "paths have no hand-written kernel to build or check")
+  emit("kernels", note="agents_tpu has no Pallas kernel at HEAD; the port's "
+       "one hand-written kernel is the LSTM recurrence (lstm_kernel)",
+       kernels=[kernel])
   emit("total", seconds=CLOCK.total())
-  print(json.dumps({"kernels": []}), flush=True)
+  print(json.dumps({"kernels": [kernel]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)
