@@ -3,19 +3,24 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 card, imports nothing of JAX or `agents_tpu`, and exits non-zero when
-`torch.cuda.is_available()` is false. Each phase prints one JSON line
-with its wall time since the line before (`phase_seconds`); any failed
-phase exits non-zero before the last line. The phases run in the order
-below, except the six long learning runs and six untimed phases:
-`sac_learn` runs after every timed phase (the host phases 34-39b, the
-replay phases 40-44 and `bench` included), while `td3_learn`, `cql_offline` with
+`torch.cuda.is_available()` is false. It checks; it does not measure the
+port's speed, which `python3 portbench/run.py` measures. Each phase prints
+one JSON line with its wall time since the line before (`phase_seconds`);
+any failed phase exits non-zero before the last line. A "sync-checked"
+stretch runs under ``torch.cuda.set_sync_debug_mode("error")``, which
+fails on any host sync; each crosses every periodic branch of its loop
+that the stretch reaches (a target update, the end of a training phase).
+The phases run in the order below, except the six long learning runs and
+five phases that run beside them: `sac_learn` runs after every other
+phase of this process (the host phases 34-39b, the replay phases 40-44,
+`bench` and `lstm_kernel` included), while `td3_learn`, `cql_offline` with
 `bc`, `qtopt_learn`, `ppo_rnn_learn`, `per_learn` and part (c) of
 `surface` (line `surface_bernoulli_ts`) run beside it in six child
 processes of this script (``chip_smoke.py --child NAME``) on the same
 card; after `sac_learn`, while the children finish, this process runs
 `bandit_learn`, `bandit_scenarios`, `discrete_parity`, `rnn_parity` and
 `parallel_env`, whose gates are exact or learning bars that repeat bit
-for bit and which time nothing.
+for bit.
 
   1. device       torch/CUDA versions, the card's name and power limit.
   2. parity       5 fused iterations at B=64, MLP (100, 50) on "cpu" and on
@@ -26,15 +31,12 @@ for bit and which time nothing.
   3. main         the CartPole bench operating point (B=4096 env rows, ring
                   512, sample 256, MLP (100, 50), eps 0.1, gamma 0.99, tau
                   0.05 every 5, Adam 1e-3): init with 100 collect steps,
-                  warm-up, then 500 timed iterations (5 windows of 100)
-                  under ``torch.cuda.set_sync_debug_mode("error")``, which
-                  fails on any host sync; tensors on the card, finite
-                  losses, exact replay count, legal step-type transitions.
-                  Prints ms/iteration and env-steps/s, and the device-busy
-                  share from a short profiled window taken through the
-                  port's `profiling.trace`, inside `profiling.annotate`
-                  spans (the window, and the loop's `run` decorated) that
-                  must appear in the trace.
+                  50 warm-up iterations, then 10 sync-checked ones (two
+                  target updates); tensors on the card, finite losses,
+                  exact replay count, legal step-type transitions; then one
+                  iteration traced through the port's `profiling.trace`
+                  inside `profiling.annotate` spans (the window, and the
+                  loop's `run` decorated) that must appear in the trace.
   4. learn        the same run continued to 6000 iterations; the last-20
                   AverageReturn must reach 195 (`DQN_CARTPOLE_REFERENCE_LIVE`;
                   the bars come from the port's copy of the windows).
@@ -43,51 +45,51 @@ for bit and which time nothing.
                   temporary root_dir (checkpoints, summaries through
                   `MultiWriter(JsonlSummaryWriter, TensorBoardEventWriter)`
                   and a `PolicyCheckpointTrigger` every 500) for 1,000
-                  iterations; the events file read back by the script's own
-                  reader (TFRecord framing, masked CRC-32C, every scalar
-                  equal to its JSONL line);
-                  a fresh loop and Learner on the directory resume at 1,000
-                  bit for bit; the greedy artifact's `loader.py` in a child
-                  that imports numpy and torch only acts on the 4,096 rows'
-                  observations on "cuda" and "cpu" as the live greedy policy
-                  does (rows whose top two Q values lie within 1e-5
-                  excepted); `load_policy(dir)` alone scores at least the
-                  `eval` bar over exactly 30 episodes. Prints the save and
-                  params-only save seconds, the artifacts' bytes, and the
-                  program's ms per call at B=1 and B=4096 beside the eager
-                  greedy policy's.
+                  iterations: a finite loss, checkpoints at 500 and 1,000;
+                  the events file read back by the script's own reader
+                  (TFRecord framing, masked CRC-32C, every scalar equal to
+                  its JSONL line); a fresh loop and Learner on the
+                  directory resume at 1,000 bit for bit; the greedy
+                  artifact batch-polymorphic with its policy config, its
+                  `loader.py` in a child that imports numpy and torch only
+                  acting on the 4,096 rows' observations on "cuda" and
+                  "cpu" as the live greedy policy does (rows whose top two
+                  Q values lie within 1e-5 excepted), and on one row on
+                  "cuda"; `load_policy(dir)` alone scores at least the
+                  `eval` bar over exactly 30 episodes.
   5b. eval_job    `examples/eval_job_torch.py`'s loop in a child
                   (``chip_smoke.py --eval-job ROOT``) over random envs with
                   CartPole's specs: it evaluates the export, the parent
                   refreshes its params at a higher train step, and the
-                  child evaluates again; both train steps reported.
+                  child evaluates again and exits 0; both train steps as
+                  written.
   5c. data_parallel  (a) the bench point (B=4096, ring 512, sample 256,
                   (100, 50), 100 collect steps) through `FusedTrainLoop(
-                  mesh=)` over a one-rank NCCL group: 20 warm-up and 100
-                  timed iterations (5 windows), ms/iteration beside
-                  `main`'s, collective bytes per iteration, whether an
-                  iteration is sync-free; (b) two gloo ranks on the card
-                  (`torch_dryrun.spawn_ranks`), 2,048 rows each, 3
-                  iterations of the fused DQN loop, of PER (alpha 0.6, beta
-                  0.4) and of sharded PPO (`examples/ppo_cartpole.py`'s
-                  config, 2 minibatch shards), each drawing from its own
-                  seeded generator; then one process over the global batch
-                  replaying the ranks' draws (PER sampled as 2 equal-mass
-                  shards): networks, Adam moments, normalizers, metric
-                  deques, replay rows and priorities per tensor to
-                  max|d| <= 1e-5 + 1e-4 max|ref|, integers exactly,
-                  replicated tensors bit-equal across ranks, and the bytes
-                  each iteration passes to `torch.distributed` under the
-                  gradient's bytes per optimizer step plus the optimizer
-                  state's plus the metric traffic, and no collective but
-                  the gradient's all-reduce (largest: the gradient's
-                  size) and the metric rows' all-gathers (at most 2 per
-                  row). PPO's whole run is held against a witness, the
-                  one process with every linear layer computed in the
-                  ranks' row blocks (the same values up to the GEMMs'
-                  rounding), and against the plain one process for its
-                  first 2 iterations; each iteration also from the
-                  ranks' state before it; per iteration, where the
+                  mesh=)` over a one-rank NCCL group: 20 warm-up
+                  iterations, whether one more is sync-free, then 10 (two
+                  target updates) with finite losses, their collective
+                  bytes and calls per iteration printed; (b) two gloo ranks
+                  on the card (`torch_dryrun.spawn_ranks`), 2,048 rows
+                  each, 3 iterations of the fused DQN loop, of PER (alpha
+                  0.6, beta 0.4) and of sharded PPO
+                  (`examples/ppo_cartpole.py`'s config, 2 minibatch
+                  shards), each drawing from its own seeded generator; then
+                  one process over the global batch replaying the ranks'
+                  draws (PER sampled as 2 equal-mass shards): networks,
+                  Adam moments, normalizers, metric deques, replay rows and
+                  priorities per tensor to max|d| <= 1e-5 + 1e-4 max|ref|,
+                  integers exactly, replicated tensors bit-equal across
+                  ranks, finite losses, and the bytes each iteration passes
+                  to `torch.distributed` under the gradient's bytes per
+                  optimizer step plus the optimizer state's plus the metric
+                  traffic, and no collective but the gradient's all-reduce
+                  (largest: the gradient's size) and the metric rows'
+                  all-gathers (at most 2 per row). PPO's whole run is held
+                  against a witness, the one process with every linear
+                  layer computed in the ranks' row blocks (the same values
+                  up to the GEMMs' rounding), and against the plain one
+                  process for its first 2 iterations; each iteration also
+                  from the ranks' state before it; per iteration, where the
                   clipped surrogate's ratios part and which items change
                   sides of the clip is printed. Which of gloo's
                   collectives take CUDA tensors directly is probed and
@@ -117,10 +119,9 @@ for bit and which time nothing.
                   networks, Adam moments and A, b, n (rtol 1e-5 / atol
                   1e-6).
   5e. bandit_main the same five scenarios at B=256: 10 warm-up rounds, then
-                  5 windows of 20 rounds under the sync debug mode: ms per
-                  round and env-rows/s (the example's `rounds_per_s`),
-                  and a profiled window of 10 rounds (device ops per
-                  round, busy share, top ops).
+                  100 sync-checked ones (past NeuralLinUCB's 100-step
+                  encoding phase); finite losses and metrics, the train
+                  step counted.
   5f. bandit_learn  `linucb_stationary` and `neural_eps_greedy` through the
                   example's `train_eval` for its 1,000 rounds (seed 0):
                   the last 200-round window's regret and suboptimal-arm
@@ -130,37 +131,37 @@ for bit and which time nothing.
                   `train_eval` for 20 rounds (windows of 10): finite
                   metrics, the JSONL written.
   5h. surface     the public surface the JAX package has beyond the paths
-                  above: (a) and (b) run after `bandit_main`, in the timed
-                  sequence; (c), which times nothing, in a child beside
-                  the learning runs (its own line, `surface_bernoulli_ts`).
-                  (a) The CartPole bench point through `FusedTrainLoop` with `UniformReplay(sort_for_locality=
-                  True)`: 5 windows of 20 sync-free iterations, alternated
-                  with the unsorted loop's, ms/iteration of both beside
-                  `main`'s (no gate); a 2-step sample of 256 from the
-                  sorted ring equal on "cpu" under the card's recorded
-                  draws (ids, rows and windows exactly, ids*B + rows in
-                  order). (b) On "cuda" against "cpu" (TF32 off; floats
-                  rtol 1e-5 / atol 1e-6, integers equal):
-                  `index_with_actions(multi_dim_actions=True)` over [4096,
-                  6, 5] Q values; `ActorPolicy(emit_log_probability=True)`
-                  at the SAC bench point's actor ((256, 256), B=32) on
-                  Pendulum observations, the actions and the
-                  log-probabilities of the rows whose log-probability a
-                  1e-6 relative move of the action moves by less than the
-                  tolerance (at least a third); `StreamingTensorNormalizer.
-                  update(outer_dims=(0, 1))` over [4096, 8, 3] three times;
-                  `pack_rows` / `unpack_rows` on 256 Atari rows of 28,224
-                  uint8. (c) Bernoulli Thompson sampling at the example's
-                  scenario (`BernoulliBandit([0.3, 0.5, 0.7, 0.65])`,
-                  B=256) trained 200 rounds, saved by `PolicySaver` with
-                  "cpu" and "cuda" programs, the posterior restored by
-                  `load_policy`; the artifact in a child that imports
-                  numpy and torch only acts on both platforms as the live
-                  policy drawing through `InputDraws` over the loader's
-                  inputs (0 of 256 apart); the Marsaglia-Tsang gamma
-                  transform on the card at alpha 0.5, 1, 5 and 50 (100,000
-                  variates each from numpy draws, seed 14) passes a KS test
-                  against `scipy.stats.gamma` at p > 1e-3.
+                  above: (a) and (b) run after `bandit_main`; (c) in a
+                  child beside the learning runs (its own line,
+                  `surface_bernoulli_ts`). (a) The CartPole bench point
+                  through `FusedTrainLoop` with `UniformReplay(
+                  sort_for_locality=True)`: 20 warm-up and 10 sync-checked
+                  iterations (two target updates) with finite losses; a
+                  2-step sample of 256 from the sorted ring equal on "cpu"
+                  under the card's recorded draws (ids, rows and windows
+                  exactly, ids*B + rows in order). (b) On "cuda" against
+                  "cpu" (TF32 off; floats rtol 1e-5 / atol 1e-6, integers
+                  equal): `index_with_actions(multi_dim_actions=True)` over
+                  [4096, 6, 5] Q values; `ActorPolicy(
+                  emit_log_probability=True)` at the SAC bench point's
+                  actor ((256, 256), B=32) on Pendulum observations, the
+                  actions and the log-probabilities of the rows whose
+                  log-probability a 1e-6 relative move of the action moves
+                  by less than the tolerance (at least a third);
+                  `StreamingTensorNormalizer.update(outer_dims=(0, 1))`
+                  over [4096, 8, 3] three times; `pack_rows` /
+                  `unpack_rows` on 256 Atari rows of 28,224 uint8. (c)
+                  Bernoulli Thompson sampling at the example's scenario
+                  (`BernoulliBandit([0.3, 0.5, 0.7, 0.65])`, B=256) trained
+                  200 rounds, saved by `PolicySaver` with "cpu" and "cuda"
+                  programs, the posterior restored by `load_policy`; the
+                  artifact in a child that imports numpy and torch only
+                  acts on both platforms as the live policy drawing
+                  through `InputDraws` over the loader's inputs (0 of 256
+                  apart); the Marsaglia-Tsang gamma transform on the card
+                  at alpha 0.5, 1, 5 and 50 (100,000 variates each from
+                  numpy draws, seed 14) passes a KS test against
+                  `scipy.stats.gamma` at p > 1e-3.
   6. conv_parity  (a) `examples/dqn_pixels_torch.py`'s loop on
                   SyntheticPixels 20x20x4, mnih15 torso, fp32 (TF32 off,
                   deterministic cuDNN), B=8, ring 64, sample 16: 3 fused
@@ -172,17 +173,16 @@ for bit and which time nothing.
                   the top-two gap exceeds 1e-2.
   7. conv_main    the pixel bench point (``bench.py:conv_bench``: B=128,
                   sample 256, ring 2048 of uint8 84x84x4 frames, mnih15 +
-                  fc 512 in bfloat16): 64 collect steps, 20 warm-up and 200
-                  timed iterations (5 windows) under the sync debug mode;
-                  the same checks as phase 3 plus the observation ring's
-                  dtype and bytes. Prints ms/iteration, env-steps/s,
-                  train-frames/s, a 20-iteration profile, and the analytic
-                  model GFLOP per iteration with the TFLOP/s it gives.
+                  fc 512 in bfloat16): 64 collect steps, 20 warm-up and 10
+                  sync-checked iterations (the target update comes every
+                  500 train steps); the same checks as phase 3 plus the
+                  observation ring's dtype and bytes.
   8. conv_learn   the example's ``--env=catch`` config: up to 2,400
                   iterations to a last-100 AverageReturn above 0.3, then
                   greedy `evaluate` over exactly 30 episodes.
-  9. c51          C51 (51 atoms on [-10, 10]) at the pixel bench point:
-                  100 iterations under the sync debug mode, finite losses.
+  9. c51          C51 (51 atoms on [-10, 10]) at the pixel bench point: 10
+                  warm-up and 10 sync-checked iterations, finite losses,
+                  the exact replay count.
  10. sac_parity   `examples/sac_pendulum_torch.py`'s loop at the SAC width
                   ((256, 256) actor and critics) on the device Pendulum,
                   B=8, ring 64, sample 32, 2 train steps per iteration:
@@ -195,13 +195,11 @@ for bit and which time nothing.
                   and replay on the device Pendulum: B=32, ring 4096,
                   sample 256, (256, 256), Adam 3e-4 x3, tau 0.005, gamma
                   0.99, reward scale 0.1, UTD 1.0 = 32 train steps per
-                  iteration, 64 collect steps): 2 warm-up and 15 timed
-                  iterations (5 windows) under the sync debug mode; exact
-                  replay count, finite losses and log alpha, legal step
-                  types, tensors on the card. Prints ms/iteration,
-                  env-steps/s, train-steps/s, a 3-iteration profile with
-                  operator records per train step, and the analytic GFLOP
-                  per train step.
+                  iteration, 64 collect steps): 2 warm-up iterations and 1
+                  sync-checked one (32 train steps; the target update
+                  comes every step); exact replay count and train steps,
+                  finite losses and log alpha, legal step types, tensors on
+                  the card.
  12. sac_learn    the example's ``--preset=live`` config (B=8, ring 8192,
                   sample 256, 4 train steps, (64, 64)): up to 8,000
                   iterations, checked every 250, to a last-20 AverageReturn
@@ -219,28 +217,25 @@ for bit and which time nothing.
                   1e-4 * max|cpu| (the Adam moments 1e-5 + 1e-3 *
                   max|cpu|).
  14. ppo_main     the PPO CartPole point (`examples/ppo_cartpole.py`'s
-                  config): 2 warm-up and 5 timed windows of 2 iterations
-                  under the sync debug mode (median ms/iteration,
-                  env-steps/s = B*T / that, minibatch steps/s); one
-                  iteration split into collect, GAE and train; profiles of
-                  1 iteration, of one `train` (operator records and
-                  device ops per minibatch step) and of GAE alone; legal
-                  step types, tensors on the card, finite losses.
- 15. ppo_learn    the same loop continued, checked every 10 iterations, to
-                  a last-20 AverageReturn of 195 within 150 iterations
-                  (`PPO_CARTPOLE_LIVE` of the port's copy of the windows,
+                  config): 2 warm-up and 12 sync-checked iterations, then a
+                  15th collected and trained apart; tensors on the card,
+                  finite losses, legal step types in that rollout, the
+                  train step counted.
+ 15. ppo_learn    the same loop continued from its 15th iteration, checked
+                  every 10 iterations, to a last-20 AverageReturn of 195
+                  within 150 iterations (`PPO_CARTPOLE_LIVE` of the port's
+                  copy of the windows,
                   ``agents_tpu_torch/benchmark/return_windows.py``), then
                   greedy eval over exactly 30 episodes on 10 fresh rows.
  16. ppo_schulman17  the example's --preset=schulman17_pendulum (B=1,
                   T=2049, 10 x 32 minibatches of 64, tanh, std 0.35, Adam
                   eps 1e-5 decayed linearly, clipping 0.5): 1 warm-up and 1
-                  timed iteration under the sync debug mode, the split of
-                  one more into the 2,049-step collect, GAE and the 320
-                  minibatch steps; finite losses, the decayed learning
-                  rate.
+                  sync-checked iteration; finite losses, tensors on the
+                  card, the learning rate decayed to its value after 2
+                  iterations.
  17. reinforce    REINFORCE with a (64, 64) value baseline on CartPole,
-                  B=32, T=128: 1 warm-up and 5 timed iterations under the
-                  sync debug mode, finite losses.
+                  B=32, T=128: 1 warm-up and 1 sync-checked iteration,
+                  finite losses, tensors on the card.
  18. td3_parity   `examples/td3_pendulum_torch.py`'s loop on the device
                   Pendulum at B=8, ring 64, sample 32, 2 train steps,
                   (64, 64): 16 collect steps then 5 fused iterations on
@@ -252,13 +247,12 @@ for bit and which time nothing.
                   rtol 1e-5 / atol 1e-5; step types exactly).
  19. td3_main     the TD3 bench point (the example's defaults: B=32, ring
                   4096, sample 256, (256, 256), 32 train steps per
-                  iteration, 64 collect steps): 2 warm-up iterations, then 5
-                  windows of 3 under the sync debug mode (median
-                  ms/iteration, train-steps/s, model TFLOP/s from
-                  `td3_train_step_flops`), a 3-iteration profile (operator
-                  records and device ops per train step, busy share, top
-                  ops); then DDPG at the same point, its OU state in the
-                  driver, 10 iterations under the sync debug mode.
+                  iteration, 64 collect steps): 2 warm-up iterations and 1
+                  sync-checked one (32 train steps: 16 actor steps, a target
+                  update each step); the checks of phase 11 and the actor's
+                  Adam steps; then DDPG at the same point, its OU state in
+                  the driver, 1 warm-up and 1 sync-checked iteration:
+                  finite losses, the OU state on the card and moving.
  20. td3_learn    the example's --preset=live (B=8, ring 8192, sample 256, 4
                   train steps, (64, 64)): up to 8,000 iterations, checked
                   every 250, to a last-20 return of -250 or more (the JAX
@@ -275,11 +269,10 @@ for bit and which time nothing.
  22. cql_main     the kumar20 preset's train step (10 samples: 2 critics x
                   21 Q passes of 256 rows, (256, 256, 256) critics, (256,
                   256) actor) over a ring of 32 rows x 4,096 Pendulum frames
-                  filled by `RandomPolicy`: 10 warm-up steps, 5 windows of
-                  20 under the sync debug mode past the BC steps (median ms
-                  per train step, train-steps/s, GFLOP per step, model
-                  TFLOP/s), 5 windows of the BC-phase step, and a
-                  10-step profile.
+                  filled by `RandomPolicy`: 10 sync-checked steps of the BC
+                  phase, then 10 past it (the target update comes every
+                  step); a finite loss and log alpha, tensors on the card,
+                  the ring's count, the train step counted.
  23. cql_offline  `examples/cql_sac_offline_torch.py`'s defaults end to end
                   with the dataset in a temporary directory: the SAC
                   behaviour policy (greedy return > -1,000), the npz round
@@ -307,11 +300,9 @@ for bit and which time nothing.
  26. qtopt_main   the QtOpt bench point (`--agent=qtopt` at the example's
                   defaults: B=32, ring 4096, sample 256, (256, 256) critic,
                   Adam 3e-4, 32 train steps per iteration, 64 collect
-                  steps): 2 warm-up iterations, 5 windows of 3 under the
-                  sync debug mode (median ms/iteration, train-steps/s,
-                  model TFLOP/s from `qtopt_train_step_flops`), a
-                  3-iteration profile, and CEM's share of a train step from
-                  timing `optimize` alone at sample 256.
+                  steps): 2 warm-up iterations and 1 sync-checked one (32
+                  train steps, CEM in each; the delayed critics copied
+                  every 5th); the checks of phase 11 but log alpha.
  27. discrete_parity  card against CPU, each step from the CPU's state:
                   Acrobot, MountainCar and ContinuousMountainCar for 200
                   steps of random actions over auto-resets (B=64); 3 fused
@@ -342,28 +333,28 @@ for bit and which time nothing.
                   card) and every CPU one the plain loop.
  30. rnn_dqn_main the CartPole bench point (B=4096, ring 512, sample 256)
                   with `make_q_rnn_network` at its defaults, `DdqnAgent`
-                  and sequences of 10: 5 warm-up iterations, 5 windows of
-                  20 under the sync debug mode (median ms/iteration,
-                  env-steps/s), a 5-iteration profile (operator records and
-                  device ops per train step). The LSTM kernel's launches
-                  over the timed windows and over the profile, per
+                  and sequences of 10: 5 warm-up iterations, 10
+                  sync-checked ones (two target updates) with the checks of
+                  phase 3 and the carry's shapes, and 5 traced. The LSTM
+                  kernel's launches over the traced iterations, per
                   iteration and per unroll: one a forward or backward step
                   and one a backward's start (against the `lstm.steps`,
                   `lstm.backward_steps` counters and the `lstm.backward`
                   span), every step on the kernel, the same per iteration
-                  in both, and the profile's kernels on the card by name
-                  (each function launched shows, none more often).
+                  as over the sync-checked ones, and the trace's kernels on
+                  the card by name (each function launched shows, none more
+                  often).
  31. ppo_rnn_main ``--preset=rnn`` (B=32, T=128, 10 epochs x 8 minibatches of
                   4 sequences, Adam 3e-4, LSTM actor and value at the
-                  factories' defaults): 1 warm-up and 2 windows of 1
-                  iteration under the sync debug mode, and the collect /
-                  GAE / train split; the LSTM kernel's launches over the
-                  windows and, checked as in `rnn_dqn_main`, over the split.
+                  factories' defaults): 1 warm-up and 1 sync-checked
+                  iteration, the LSTM kernel's launches over it checked as
+                  in `rnn_dqn_main` (without a trace); tensors on the card,
+                  finite losses, the carry's shapes, legal step types in
+                  one more rollout.
  32. checkpoint_resume  save, rebuild from the seed, restore and continue,
                   `torch.equal` to the run without a break in the losses
                   and every tensor, number and generator state: (a) fused
-                  DQN at the CartPole bench point, 50 + 50 iterations
-                  (checkpoint bytes, save and restore seconds); (b)
+                  DQN at the CartPole bench point, 50 + 50 iterations; (b)
                   ``--preset=rnn_learn`` PPO, 3 + 3, the LSTM carry and the
                   episodes in flight; (c) SAC at the `sac_parity` config,
                   3 + 3, its three Adams and log alpha; (d) the PER loop
@@ -392,11 +383,11 @@ for bit and which time nothing.
                   (`examples/sac_halfcheetah_torch.py`'s agent and replay:
                   B=32 random HalfCheetahs on a thread pool, ring 4096,
                   sample 256, 32 train steps per tick, (256, 256), reward
-                  scale 0.1; 64 random ticks): 5 windows of 2 ticks (ms per
-                  tick, env-steps/s, train-steps/s, the tick's split into
-                  device dispatch, action read and env step), host syncs
-                  per tick under ``set_sync_debug_mode("warn")`` (expected:
-                  1, the action read), a 2-tick profile.
+                  scale 0.1; 64 random ticks, 2 warm-up ticks): over 2
+                  ticks under ``set_sync_debug_mode("warn")`` the port
+                  syncs once a tick (the action read) besides the loss
+                  read; a finite loss and log alpha, tensors on the card,
+                  the replay count, train steps and env steps exact.
  36. async_sac_main  `bench_torch.py:sac_live_probe`: `AsyncHostDeviceTrainLoop`
                   at that point (UTD 1.0, `min_replay_frames` 64 B, 32 train
                   steps per call), one ramp run of 256 ticks, then 1,200
@@ -406,12 +397,14 @@ for bit and which time nothing.
                   and without a train call in flight; gates on the probe's
                   checks (the trainer's drain, exact env steps, train steps
                   <= UTD x env steps + 32, a finite loss), not on the UTD.
+                  It runs `bench_torch.py`'s own code and still prints its
+                  rates.
  37. host_ppo_main  `HostOnPolicyTrainLoop` at `examples/ppo_halfcheetah.py`'s
                   schulman17 config (B=1, T=2049, (64, 64) tanh, 10 x 32
                   minibatches, clip 0.2, gradient clipping 0.5) over a random
-                  HalfCheetah: 1 warm-up and 2 timed iterations, each split
-                  into collect, stacking and copy, and train; host syncs per
-                  env step.
+                  HalfCheetah: 1 warm-up iteration and 1 whose collect's
+                  host syncs are counted; finite losses, the train step, the
+                  rollout [1, 2049] on the card.
  38. parallel_env `ParallelPyEnvironment` of 4 random HalfCheetah workers
                   started after CUDA is initialized (so by spawn), overlapped
                   and blocking: 50 steps equal a `BatchedPyEnvironment` of
@@ -436,9 +429,7 @@ for bit and which time nothing.
                   networks) and no other, the ring's dtype and bytes,
                   the exported greedy program acting on 256 ring frames in a
                   numpy-and-torch-only child on "cuda" and "cpu" as the live
-                  policy (rows within 1e-5 of a tie excepted). Prints
-                  env-steps/s, train-steps/s, the realized UTD, the tick with
-                  and without a train call in flight, peak memory.
+                  policy (rows within 1e-5 of a tie excepted).
  39b. offline_host  `examples/cql_sac_offline_host_torch.py`'s `train_eval`
                   ("mixed") at its Config (B=32, actor (256, 256), critic
                   (256, 256, 256), sample 256, 10 CQL samples, alpha 5.0, 64
@@ -453,8 +444,6 @@ for bit and which time nothing.
                   train call, eval episodes exact, the export acting as the
                   live policy (the state after the last train call) in a
                   bare child (rtol 1e-5 / atol 1e-5).
-                  Prints each phase's rates, and phase C's ms per train step
-                  beside `cql_main`'s.
  40. per_parity   the PER fused DQN loop (B=64, ring 64, sample 32, (100, 50),
                   alpha 0.6, beta 0.4, TF32 off), card against CPU for 5
                   iterations, each from the CPU's state with the CPU's
@@ -465,12 +454,9 @@ for bit and which time nothing.
                   and networks at rtol 1e-5 / atol 1e-6.
  41. per_main     PER at the CartPole bench point (B=4096, ring 512: 2,097,152
                   priorities; sample 256; (100, 50)): 100 collect steps, 20
-                  warm-up iterations, 5 windows of 20 under the sync debug
-                  mode (median ms/iteration and env-steps/s beside `main`'s,
-                  the overhead of PER), the cumsum and searchsorted share
-                  of a profiled window, the sample, cumsum and search alone
-                  on CUDA events; exact replay count, finite losses, IS
-                  weights in (0, 1].
+                  warm-up and 10 sync-checked iterations (two target
+                  updates); exact replay count, finite losses, IS weights
+                  in (0, 1], priorities finite and spread.
  42. episodic     `EpisodicReplay` (B=64 CartPole rows, 256 slots of 64) for
                   300 `add_batch` calls on "cpu" and "cuda" with the same
                   frames: slots, lengths, ids, cursor and completed ids
@@ -485,14 +471,12 @@ for bit and which time nothing.
                   envs with Pendulum-v1's specs, rewards tagging each
                   frame), weights through the shm store every 200 steps;
                   a `MinSize` and a `SampleToInsertRatio` (8) leg of 400
-                  train steps: items/s, train-steps/s, the learner's split,
-                  drops, push and pull us, the realized ratio; gates: every
-                  pushed frame drained once with equal bytes, no sample
-                  before 512 items, the ratio inside its error buffer,
-                  each collector's pulled steps advancing and untorn (CRC),
-                  no sync inside a train call, the learner's `PolicySaver`
-                  exports (collect and greedy, "cpu" and "cuda" programs)
-                  at each publish's step, advancing.
+                  train steps: every pushed frame drained once with equal
+                  bytes, no sample before 512 items, the ratio inside its
+                  error buffer, each collector's pulled steps advancing and
+                  untorn (CRC), no sync inside a train call, the learner's
+                  `PolicySaver` exports (collect and greedy, "cpu" and
+                  "cuda" programs) at each publish's step, advancing.
  44. host_replay  `bench_torch.py:host_atari_replay_probe`:
                   `PyUniformReplayBuffer` and `PyHashedReplayBuffer` (84x84x4
                   uint8, capacity cut from 1M frames to 100k): fill
@@ -501,6 +485,8 @@ for bit and which time nothing.
                   gates on the probe's checks (every frame held, sampled
                   windows of consecutive stored frames in both buffers, the
                   copy equal, 1,024 unique hashed frames, equal samples).
+                  It runs `bench_torch.py`'s own code and still prints its
+                  rates.
  44a. bench      ``bench_torch.py --smoke`` in a child process (a fresh CUDA
                   context and its own TF32 setting): its last line has
                   `bench.py`'s top-level keys and the twin's `detail` keys,
@@ -524,12 +510,13 @@ for bit and which time nothing.
                   plain loop on the card (TF32 off, every output and
                   gradient to max|kernel - plain| <= 1e-5 + 1e-4
                   max|plain|), one launch a step and one for the backward's
-                  start; ms of each on CUDA events beside its bound (the
+                  start; timed, as the source of the port's kernel table:
+                  ms of each case on CUDA events beside its bound (the
                   least time at the fp32 peak and HBM bandwidth), the plain
                   loop's and `torch.nn.LSTM`'s (cuDNN, no resets, width 531
                   in, the input product included on both sides). Runs
-                  before the learning runs, on a quiet card; some 20 s,
-                  the kernel's build included.
+                  before the learning runs, on a quiet card; some 20 s, the
+                  kernel's build included.
  46. kernels      the port's hand-written kernels on these paths (the LSTM
                   recurrence; the JAX package has no Pallas kernel at HEAD:
                   its recurrence is a `lax.scan`).
@@ -550,18 +537,19 @@ import tempfile
 import time
 
 from bench_torch import (HALFCHEETAH_ACT, HALFCHEETAH_OBS, SAC_MIN_TICKS,
-                         SAC_POINT, card_line, conv_forward_flops,
-                         conv_iteration_flops, free_card, halfcheetah_specs,
+                         SAC_POINT, card_line, free_card, halfcheetah_specs,
                          host_atari_replay_probe, random_halfcheetah,
-                         run_timed, sac_live_probe)
+                         sac_live_probe)
 
 B_PARITY, B_MAIN = 64, 4096
 MAIN = dict(capacity=512, sample_batch_size=256, fc=(100, 50))
-TIMED_ITERATIONS, WARMUP_ITERATIONS, LEARN_ITERATIONS = 500, 50, 6000
+# `main`'s sync-checked stretch: two periods of the target update (every 5).
+WARMUP_ITERATIONS, MAIN_CHECKED, LEARN_ITERATIONS = 50, 10, 6000
 # The `profiling.annotate` spans `main` wraps around its profiled window
-# (a context manager) and the loop's `run` (a decorator).
+# (a context manager) and the loop's `run` (a decorator); each opens once
+# a window, so a window of one iteration shows both.
 MAIN_SPANS = ("main.profile_window", "main.loop_run")
-TIMED_WINDOWS = 5
+MAIN_PROFILED = 1
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
                         "chip_smoke")
@@ -571,45 +559,46 @@ CONV_PARITY = dict(pixels_size=20, env_batch_size=8, replay_capacity=64,
                    sample_batch_size=16, dtype="float32")
 CONV_RTOL, CONV_ATOL = 1e-4, 1e-5
 BF16_ATOL = 1e-2
-CONV_INITIAL, CONV_WARMUP, CONV_TIMED, CONV_PROFILED = 64, 20, 200, 20
+# The pixel loops' sync-checked stretches cross no periodic branch: their
+# target update comes every 500 train steps.
+CONV_INITIAL, CONV_WARMUP, CONV_CHECKED = 64, 20, 10
 CATCH_ITERATIONS, CATCH_CHUNK, CATCH_GATE = 2400, 400, 0.3
-C51_WARMUP, C51_TIMED = 10, 100
+C51_WARMUP, C51_CHECKED = 10, 10
 SAC_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
                   train_steps_per_iteration=2)
 SAC_RTOL = SAC_ATOL = 1e-5
-# The timed windows and profiles of the SAC, PPO, schulman17, TD3 and QtOpt
-# points are half their earlier depth, to keep the whole script well inside
-# its time limit with the recurrent phases (PERF.md §6, "Depth cut"); the
-# SAC, TD3 and QtOpt points' warm-ups and windows were cut again, from 5
-# to 2 and from 5 to 3 iterations, beside the host example phases; and
-# schulman17's timed iterations from 2 to 1 and the recurrent PPO point's
-# windows from 3 to 2 beside the `surface` phase.
-SAC_WARMUP, SAC_TIMED, SAC_PROFILED = 2, 15, 3
+# One iteration of the SAC, TD3 and QtOpt points is 32 train steps: past
+# every period of theirs (target updates every step; TD3's actor every 2nd;
+# QtOpt's delayed critics every 5th).
+SAC_WARMUP, SAC_CHECKED = 2, 1
 SAC_LEARN_CHUNK = 250
 PPO_PARITY_ITERATIONS = 2
 PPO_PARITY_SCHULMAN17 = dict(rollout_length=257, num_minibatches=4)
 PPO_RTOL, PPO_ATOL, PPO_MOMENT_RTOL = 1e-4, 1e-5, 1e-3
-PPO_WARMUP, PPO_TIMED_WINDOWS, PPO_WINDOW, PPO_PROFILED = 2, 5, 2, 1
+# `ppo_main` hands its state to `ppo_learn` after 15 iterations, the last
+# one collected and trained apart for its rollout's checks.
+PPO_WARMUP, PPO_CHECKED = 2, 12
 PPO_LEARN_CHUNK = 10
-SCHULMAN17_TIMED = 1
-REINFORCE_TIMED = 5
+SCHULMAN17_CHECKED = 1
+REINFORCE_CHECKED = 1
 TD3_PARITY = dict(env_batch_size=8, replay_capacity=64, sample_batch_size=32,
                   train_steps_per_iteration=2, actor_fc_layers=(64, 64),
                   critic_joint_fc_layers=(64, 64))
 TD3_PARITY_INITIAL, TD3_PARITY_ITERATIONS = 16, 5
-TD3_WARMUP, TD3_TIMED_WINDOWS, TD3_WINDOW, TD3_PROFILED = 2, 5, 3, 3
-DDPG_SYNC_FREE = 10
+TD3_WARMUP, TD3_CHECKED = 2, 1
+DDPG_CHECKED = 1
 TD3_LEARN_CHUNK, TD3_LEARN_GATE = 250, -250.0
 CQL_RTOL, CQL_ATOL = 1e-4, 1e-5
 CQL_PARITY_STEPS, CQL_PARITY_SAMPLE = 3, 256
 CQL_RING_ROWS, CQL_RING_FRAMES = 32, 4096
-CQL_WARMUP, CQL_TIMED_WINDOWS, CQL_WINDOW, CQL_PROFILED = 10, 5, 20, 10
+# Train steps in each of the two phases of the kumar20 step (BC, then
+# CQL); its target update comes every step.
+CQL_CHECKED = 10
 CQL_BC_GATE, CQL_OFFLINE_GATE, CQL_BEHAVIOR_GATE = -500.0, -700.0, -1000.0
 BC_SCORE_GATE = 0.8
 QTOPT_PARITY_B, QTOPT_PARITY_STEPS, QTOPT_PARITY_SAMPLE = 256, 3, 256
 QTOPT_RTOL, QTOPT_ATOL, QTOPT_GAP = 1e-4, 1e-5, 1e-5
-QTOPT_WARMUP, QTOPT_TIMED_WINDOWS, QTOPT_WINDOW, QTOPT_PROFILED = 2, 5, 3, 3
-QTOPT_CEM_CALLS = 32
+QTOPT_WARMUP, QTOPT_CHECKED = 2, 1
 QTOPT_LEARN_CHUNK, QTOPT_LEARN_GATE = 250, -250.0
 DISCRETE_B, DISCRETE_ENV_STEPS, DISCRETE_DQN_ITERATIONS = 64, 200, 3
 CHILD_TIMEOUT_S = 900
@@ -868,70 +857,17 @@ def check_step_types(loop, state):
   return bad, int((st == StepType.LAST).sum())
 
 
-def profile_call(fn, count, unit, name="profile_trace.json", annotations=(),
-                 device_names=None):
-  """Run `fn()`, which does `count` `unit`s of work, under the port's
-  `profiling.trace` (`torch.profiler`, CPU and CUDA): (its result,
-  per-unit stats: wall and device-busy ms, the busy share, device ops,
-  trace events by category and the top device ops), read from the chrome
-  trace written under ``runs/<name without .json>/``. `fn` may open
-  `profiling.annotate` spans; the stats say which of `annotations` the
-  trace holds. With `device_names` ({key: part of a name}) the stats count,
-  under "device_calls", the device ops whose name holds each part."""
+def profile_window(loop, state, iterations, spans=(), device_names=None):
+  """`iterations` loop iterations under the port's `profiling.trace`
+  (`torch.profiler`, CPU and CUDA), its chrome trace written under
+  ``runs/chip_smoke/profile/``. With `spans` (outer, inner) the window is
+  wrapped in a `profiling.annotate` span and the loop's `run` in a
+  decorated one, and "spans_in_trace" says whether both reached the trace;
+  with `device_names` ({key: part of a name}) "device_calls" counts the
+  device ops (kernels, copies and sets) whose name holds each part.
+  Returns (state, those fields)."""
   import torch
 
-  from agents_tpu_torch.utils import profiling
-
-  torch.cuda.synchronize()
-  log_dir = os.path.join(RUNS_DIR, os.path.splitext(name)[0])
-  with profiling.trace(log_dir):
-    t0 = time.perf_counter()
-    result = fn()
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-  with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
-    all_events = json.load(f)["traceEvents"]
-  events = [e for e in all_events if e.get("ph") == "X"]
-  # Device work only: kernels, copies and sets. Annotations on the device
-  # timeline span work that is already counted; the union of the spans is
-  # the busy time.
-  spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-                 for e in events if e.get("cat") in DEVICE_ACTIVITIES)
-  busy_us, busy_end, by_name = 0.0, float("-inf"), {}
-  for start, end, op in spans:
-    busy_us += max(0.0, end - max(start, busy_end))
-    busy_end = max(busy_end, end)
-    total, calls = by_name.get(op, (0.0, 0))
-    by_name[op] = (total + end - start, calls + 1)
-  top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-  categories = {}
-  for e in events:
-    categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
-  names = {e.get("name") for e in all_events}
-  return result, {
-      f"{unit}s": count,
-      **({"spans_in_trace": {s: s in names for s in annotations}}
-         if annotations else {}),
-      **({"device_calls": {k: sum(1 for _, _, op in spans if part in op)
-                           for k, part in device_names.items()}}
-         if device_names else {}),
-      f"wall_ms_per_{unit}": wall_us / 1e3 / count,
-      f"device_ms_per_{unit}": busy_us / 1e3 / count,
-      "device_busy_share": busy_us / wall_us,
-      f"device_ops_per_{unit}": len(spans) / count,
-      f"trace_events_per_{unit}": {str(k): v / count
-                                   for k, v in categories.items()},
-      "top": [{"name": op[:80], f"device_ms_per_{unit}": us / 1e3 / count,
-               f"calls_per_{unit}": c / count}
-              for op, (us, c) in top]}
-
-
-def profile_window(loop, state, iterations, spans=(), device_names=None):
-  """Device-busy share and the top device ops over `iterations` loop
-  iterations (`profile_call`, which takes `device_names`); with `spans`
-  (outer, inner) the window is wrapped in a `profiling.annotate` span and
-  the loop's `run` in a decorated one, and the stats say whether both
-  reached the trace."""
   from agents_tpu_torch.utils import profiling
 
   run = loop.run
@@ -945,38 +881,48 @@ def profile_window(loop, state, iterations, spans=(), device_names=None):
   else:
     def window():
       return run(state, iterations)
-  (state, _), stats = profile_call(window, iterations, "iteration",
-                                   annotations=spans,
-                                   device_names=device_names)
+  torch.cuda.synchronize()
+  log_dir = os.path.join(RUNS_DIR, "profile")
+  with profiling.trace(log_dir):
+    state, _ = window()
+    torch.cuda.synchronize()
+  with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+    events = json.load(f)["traceEvents"]
+  stats = {"iterations": iterations}
+  if spans:
+    names = {e.get("name") for e in events}
+    stats["spans_in_trace"] = {s: s in names for s in spans}
+  if device_names:
+    ops = [e["name"] for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_ACTIVITIES]
+    stats["device_calls"] = {k: sum(1 for op in ops if part in op)
+                             for k, part in device_names.items()}
   return state, stats
 
 
-def timed_windows(loop, state, iterations, windows=TIMED_WINDOWS):
-  """`iterations` iterations in `windows` windows of `bench_torch.py`'s
-  `run_timed` (each under ``set_sync_debug_mode("error")``, ended by a
-  synchronize outside it), so the spread between windows shows beside the
-  mean. Returns (state, the last window's losses, ms/iteration of each
-  window)."""
+def sync_checked(run, state, count):
+  """`run(state, count)` (a loop's `run`, or a function that takes `count`
+  train steps) under ``torch.cuda.set_sync_debug_mode("error")``, which
+  raises on any host sync inside it; the mode is off again after. Returns
+  what `run` returns: (state, losses)."""
   import torch
 
-  return run_timed(loop, state, torch.device("cuda"), iterations // windows,
-                   windows)
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    return run(state, count)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
 
 
 def phase_main_and_learn(card):
   import torch
 
   loop = build_loop("cuda", B_MAIN, **MAIN)
-  t_init = time.perf_counter()
   state = loop.init(seed=0, initial_collect_steps=100)
   state, losses = loop.run(state, WARMUP_ITERATIONS)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
+  state, losses = sync_checked(loop.run, state, MAIN_CHECKED)
 
-  state, losses, window_ms = timed_windows(loop, state, TIMED_ITERATIONS)
-  dt = sum(window_ms) / len(window_ms) * TIMED_ITERATIONS / 1e3
-
-  iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+  iterations = WARMUP_ITERATIONS + MAIN_CHECKED
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
@@ -985,17 +931,13 @@ def phase_main_and_learn(card):
   replay_count = state.replay_state.count
   ok = (not off_card and finite and bad_transitions == 0
         and replay_count == expected_count)
-  state, prof = profile_window(loop, state, 50, spans=MAIN_SPANS)
+  state, prof = profile_window(loop, state, MAIN_PROFILED, spans=MAIN_SPANS)
   ok = ok and all(prof["spans_in_trace"].values())
-  iterations += 50
-  MAIN_POINT["ms_per_iteration"] = dt * 1e3 / TIMED_ITERATIONS
+  iterations += MAIN_PROFILED
   emit("main", card=card, batch_size=B_MAIN, **{k: list(v) if isinstance(
       v, tuple) else v for k, v in MAIN.items()},
-       timed_iterations=TIMED_ITERATIONS, sync_debug_mode="error",
-       ms_per_iteration=dt * 1e3 / TIMED_ITERATIONS,
-       window_ms_per_iteration=window_ms,
-       env_steps_per_s=TIMED_ITERATIONS * B_MAIN / dt,
-       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       checked_iterations=MAIN_CHECKED, sync_debug_mode="error",
+       tensors_off_card=off_card,
        losses_finite=finite, replay_count=replay_count,
        expected_replay_count=expected_count,
        illegal_step_type_transitions=bad_transitions,
@@ -1003,19 +945,15 @@ def phase_main_and_learn(card):
   if not ok:
     fail("main", "main-path checks failed")
 
-  t0, learn_start = time.perf_counter(), iterations
   while iterations < LEARN_ITERATIONS:
     n = min(500, LEARN_ITERATIONS - iterations)
     state, losses = loop.run(state, n)
     iterations += n
   results = {k: float(v) for k, v in loop.results(state).items()}
-  learn_s = time.perf_counter() - t0
   gate = live_window("DQN_CARTPOLE_REFERENCE_LIVE").min_return
   ok = results["AverageReturn"] >= gate and bool(torch.isfinite(losses).all())
   emit("learn", card=card, iterations=iterations,
-       last20_average_return=results["AverageReturn"], metrics=results,
-       seconds=learn_s,
-       ms_per_iteration=learn_s * 1e3 / (iterations - learn_start), ok=ok)
+       last20_average_return=results["AverageReturn"], metrics=results, ok=ok)
   if not ok:
     fail("learn", f"last-20 AverageReturn {results['AverageReturn']} < "
          f"{gate}")
@@ -1023,113 +961,63 @@ def phase_main_and_learn(card):
 
 
 def phase_eval(loop, state, card):
-  import torch
-
-  t0 = time.perf_counter()
   out = loop.evaluate(state, 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
-  torch.cuda.synchronize()
   ok = episodes == 30
   emit("eval", card=card, episodes=episodes,
        average_return=float(out["AverageReturn"]),
-       average_episode_length=float(out["AverageEpisodeLength"]),
-       seconds=time.perf_counter() - t0, ok=ok)
+       average_episode_length=float(out["AverageEpisodeLength"]), ok=ok)
   if not ok:
     fail("eval", f"counted {episodes} episodes, asked for 30")
 
 
 EXPORT_INTERVAL, EXPORT_ITERATIONS, EXPORT_TIE = 500, 1000, 1e-5
-EXPORT_TIMED_CALLS = 50
 EVAL_JOB_TIMEOUT_S = 180
 
 # The child of `learner_export`: numpy and torch only, the artifact's own
-# loader, on "cuda" and on "cpu"; it times the program alone (inputs, the
-# draws of key 0 among them, on the card) at B=1 and B=4096.
+# loader, on "cuda" and on "cpu"; on "cuda" it also acts on one row, as the
+# batch-polymorphic program must.
 ARTIFACT_CHILD = """
-import importlib.util, json, sys, time
+import importlib.util, json, sys
 import numpy as np
 import torch
-directory, obs_path, out_path, calls = sys.argv[1:5]
+directory, obs_path, out_path = sys.argv[1:4]
 spec = importlib.util.spec_from_file_location(
     "artifact_loader", directory + "/loader.py")
 loader = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(loader)
 obs = np.load(obs_path)
-out, ms = {}, {}
+out = {}
 for platform in ("cuda", "cpu"):
   policy = loader.ExportedPolicy(directory, platform=platform)
   (out[platform],), _ = policy.action([obs])
-  if platform != "cuda":
-    continue
-  for b in (1, obs.shape[0]):
-    flat_ts = [torch.as_tensor(x).to("cuda")
-               for x in policy.make_time_step([obs[:b]])]
-    draws = [torch.as_tensor(x).to("cuda") for x in
-             policy.draw_inputs(b, np.zeros((2,), np.uint32))]
-    run = lambda: policy._program(policy.params, draws, flat_ts, [])
-    for _ in range(5):
-      run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(int(calls)):
-      run()
-    torch.cuda.synchronize()
-    ms[f"program_b{b}"] = (time.perf_counter() - t0) * 1e3 / int(calls)
-    t0 = time.perf_counter()
-    for _ in range(int(calls)):
-      policy.action([obs[:b]])
-    ms[f"loader_action_b{b}"] = (time.perf_counter() - t0) * 1e3 / int(calls)
+  if platform == "cuda":
+    policy.action([obs[:1]])
 np.savez(out_path, **out)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     "agents_tpu", "agents_tpu_torch", "jax", "jaxlib", "flax"))
-print(json.dumps({"ms": ms, "leaked": leaked,
-                  "torch": torch.__version__}))
+print(json.dumps({"leaked": leaked, "torch": torch.__version__}))
 """
 
 
-def artifact_actions(phase, directory, obs, root, calls=10):
+def artifact_actions(phase, directory, obs, root):
   """The artifact in `directory` acting on the numpy `obs` in a child that
   imports numpy and torch only (`ARTIFACT_CHILD`), on "cuda" and "cpu":
-  ({platform: actions}, the child's report, its seconds)."""
+  ({platform: actions}, the child's report)."""
   import numpy as np
 
   obs_path = os.path.join(root, "observations.npy")
   out_path = os.path.join(root, "artifact_actions.npz")
   np.save(obs_path, obs)
   env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-  t0 = time.perf_counter()
   child = subprocess.run(
-      [sys.executable, "-c", ARTIFACT_CHILD, directory, obs_path, out_path,
-       str(calls)], capture_output=True, text=True, timeout=300, env=env,
-      cwd=root)
-  seconds = time.perf_counter() - t0
+      [sys.executable, "-c", ARTIFACT_CHILD, directory, obs_path, out_path],
+      capture_output=True, text=True, timeout=300, env=env, cwd=root)
   if child.returncode != 0:
     fail(phase, "the artifact's child failed: " + child.stderr[-2000:])
   with np.load(out_path) as data:
     actions = {p: data[p] for p in data.files}
-  return actions, json.loads(child.stdout.strip().splitlines()[-1]), seconds
-
-
-def greedy_ms(policy, params, observation, calls=EXPORT_TIMED_CALLS):
-  """ms per eager call of `policy.action` on `observation` (on the card)."""
-  import torch
-
-  from agents_tpu_torch.trajectories import time_step as ts
-
-  b = observation.shape[0]
-  step = ts.TimeStep(
-      step_type=torch.ones(b, dtype=torch.int32, device="cuda"),
-      reward=torch.zeros(b, device="cuda"),
-      discount=torch.ones(b, device="cuda"), observation=observation)
-  with torch.no_grad():
-    for _ in range(5):
-      policy.action(params, step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-      policy.action(params, step)
-    torch.cuda.synchronize()
-  return (time.perf_counter() - t0) * 1e3 / calls
+  return actions, json.loads(child.stdout.strip().splitlines()[-1])
 
 
 def _crc32c(data: bytes) -> int:
@@ -1231,9 +1119,7 @@ def phase_learner_export(loop, state, card):
 
   from agents_tpu_torch.eval import metric_utils
   from agents_tpu_torch.metrics import torch_metrics
-  from agents_tpu_torch.policies.policy_saver import (PolicySaver,
-                                                      load_manifest,
-                                                      load_policy)
+  from agents_tpu_torch.policies.policy_saver import load_manifest, load_policy
   from agents_tpu_torch.train import (JsonlSummaryWriter, Learner,
                                       MultiWriter, PolicyCheckpointTrigger,
                                       TensorBoardEventWriter)
@@ -1251,15 +1137,12 @@ def phase_learner_export(loop, state, card):
   tb_dir = os.path.join(root, "tb")
   writer = MultiWriter(JsonlSummaryWriter(os.path.join(root, "train.jsonl")),
                        TensorBoardEventWriter(tb_dir))
-  t0 = time.perf_counter()
   learner = holder["learner"] = Learner(
       root, loop=loop, initial_state=state, triggers=[trigger],
       checkpoint_interval=EXPORT_INTERVAL, summary_writer=writer,
       summary_interval=EXPORT_INTERVAL)
   while learner.global_step < EXPORT_ITERATIONS:
     loss = learner.run(EXPORT_INTERVAL)
-  torch.cuda.synchronize()
-  run_s = time.perf_counter() - t0
   writer.close()
   # The events file read back by the script's own reader, beside the JSONL
   # lines the same writer wrote: every scalar in both, the same values.
@@ -1280,42 +1163,21 @@ def phase_learner_export(loop, state, card):
   ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"{steps[-1]}.pt"))
 
   # A fresh loop and Learner on the same directory resume at 1,000.
-  t_resume = time.perf_counter()
   loop2 = build_loop("cuda", B_MAIN, **MAIN)
   learner2 = Learner(root, loop=loop2, initial_state=loop2.init(seed=1),
                      checkpoint_interval=EXPORT_INTERVAL)
-  torch.cuda.synchronize()
-  resume_s = time.perf_counter() - t_resume
   mismatches = nest_mismatches(capture(learner.state),
                                capture(learner2.state))
   resumed_step = learner2.global_step
   del learner2, loop2
-
-  # A whole save and a params-only refresh of each of the trigger's three
-  # policies, timed directly into a directory of their own (the trigger's
-  # own saves ran inside `learner.run`).
-  agent_state = learner.state.agent_state
-  trio = (("greedy_policy", agent.policy, agent.policy_params),
-          ("collect_policy", agent.collect_policy,
-           agent.collect_policy_params),
-          ("policy", agent.policy.wrapped, agent.policy_params))
-  save_seconds = {"save": {}, "save_checkpoint": {}}
-  for name, policy, params_of in trio:
-    saver = PolicySaver(policy, train_step=EXPORT_ITERATIONS)
-    timed_dir = os.path.join(root, "timed", name)
-    for kind in ("save", "save_checkpoint"):
-      t0 = time.perf_counter()
-      getattr(saver, kind)(timed_dir, params_of(agent_state))
-      save_seconds[kind][name] = time.perf_counter() - t0
 
   # The greedy artifact in a numpy-and-torch-only child.
   greedy_dir = os.path.join(root, "policies", "greedy_policy")
   manifest = load_manifest(greedy_dir)
   q_net = agent.policy_params(learner.state.agent_state)
   obs = learner.state.driver_state.time_step.observation
-  artifact, report, child_s = artifact_actions(
-      "learner_export", greedy_dir, obs.cpu().numpy(), root,
-      EXPORT_TIMED_CALLS)
+  artifact, report = artifact_actions(
+      "learner_export", greedy_dir, obs.cpu().numpy(), root)
   b = obs.shape[0]
   step = ts.TimeStep(step_type=torch.ones(b, dtype=torch.int32, device="cuda"),
                      reward=torch.zeros(b, device="cuda"),
@@ -1327,11 +1189,8 @@ def phase_learner_export(loop, state, card):
   clear = (top2[:, 1] - top2[:, 0]) > EXPORT_TIE
   differ = {p: int((artifact[p][clear] != live[clear]).sum())
             for p in ("cuda", "cpu")}
-  eager_ms = {f"b{n}": greedy_ms(agent.policy, q_net, obs[:n])
-              for n in (1, b)}
 
   # load_policy(dir) alone, on the device CartPole.
-  t_eval = time.perf_counter()
   saved = load_policy(greedy_dir)
   metrics = (torch_metrics.AverageReturnMetric(30),
              torch_metrics.AverageEpisodeLengthMetric(30),
@@ -1341,7 +1200,6 @@ def phase_learner_export(loop, state, card):
       metrics)
   episodes = int(out["NumberOfEpisodes"])
   eval_return = float(out["AverageReturn"])
-  eval_s = time.perf_counter() - t_eval
   gate = live_window("DQN_CARTPOLE_REFERENCE_LIVE").min_return
   artifact_bytes = {
       name: sum(os.path.getsize(os.path.join(root, "policies", name, f))
@@ -1355,26 +1213,21 @@ def phase_learner_export(loop, state, card):
         and episodes == 30 and eval_return >= gate)
   emit("learner_export", card=card, batch_size=B_MAIN,
        iterations=EXPORT_ITERATIONS, checkpoint_interval=EXPORT_INTERVAL,
-       export_interval=EXPORT_INTERVAL, run_seconds=run_s,
-       ms_per_iteration=run_s * 1e3 / EXPORT_ITERATIONS,
-       checkpoints=steps, checkpoint_bytes=ckpt_bytes,
+       export_interval=EXPORT_INTERVAL, checkpoints=steps,
+       checkpoint_bytes=ckpt_bytes,
        tensorboard={"records": records, "crc_mismatches": crc_bad,
                     "file_version": file_version,
                     "scalars": len(tb_scalars), "jsonl_scalars": len(jsonl),
                     "tags": sorted({t for _, t, _ in tb_scalars}),
                     "ok": tb_ok},
-       resumed_at=resumed_step, resume_seconds=resume_s,
-       resume_mismatches=mismatches[:10],
-       export=manifest["torch_export"], export_train_step=
-       manifest["train_step"], save_seconds=save_seconds["save"],
-       save_checkpoint_seconds=save_seconds["save_checkpoint"],
-       artifact_bytes=artifact_bytes, child_seconds=child_s,
-       child_modules_leaked=report["leaked"], child_torch=report["torch"],
-       rows=b, rows_clear_of_ties=int(clear.sum()), tie=EXPORT_TIE,
-       actions_differing_from_live=differ,
-       exported_ms=report["ms"], eager_greedy_ms=eager_ms,
-       reloaded_eval_episodes=episodes, reloaded_eval_return=eval_return,
-       gate=gate, eval_seconds=eval_s, ok=ok)
+       resumed_at=resumed_step, resume_mismatches=mismatches[:10],
+       export=manifest["torch_export"],
+       export_train_step=manifest["train_step"],
+       artifact_bytes=artifact_bytes, child_modules_leaked=report["leaked"],
+       child_torch=report["torch"], rows=b,
+       rows_clear_of_ties=int(clear.sum()), tie=EXPORT_TIE,
+       actions_differing_from_live=differ, reloaded_eval_episodes=episodes,
+       reloaded_eval_return=eval_return, gate=gate, ok=ok)
   if not ok:
     fail("learner_export", "a learner, export or reload check failed")
   return root, manifest["train_step"], learner.state
@@ -1407,13 +1260,12 @@ def phase_eval_job(loop, state, card, root, train_step):
   from agents_tpu_torch.policies.policy_saver import PolicySaver
 
   greedy_dir = os.path.join(root, "policies", "greedy_policy")
-  t0 = time.perf_counter()
   proc = subprocess.Popen(
       [sys.executable, os.path.abspath(__file__), "--eval-job", root],
       stdout=subprocess.PIPE, text=True)
   watchdog = threading.Timer(EVAL_JOB_TIMEOUT_S, proc.kill)
   watchdog.start()
-  evals, refresh_s, refreshed = [], None, train_step + 1
+  evals, refreshed = [], train_step + 1
   try:
     for line in proc.stdout:
       if not line.startswith("{"):
@@ -1423,10 +1275,8 @@ def phase_eval_job(loop, state, card, root, train_step):
         continue
       evals.append(rec)
       if len(evals) == 1:
-        t_refresh = time.perf_counter()
         PolicySaver(loop.agent.policy, train_step=refreshed).save_checkpoint(
             greedy_dir, loop.agent.policy_params(state.agent_state))
-        refresh_s = time.perf_counter() - t_refresh
     code = proc.wait(timeout=60)
   finally:
     watchdog.cancel()
@@ -1435,8 +1285,7 @@ def phase_eval_job(loop, state, card, root, train_step):
       proc.wait()
   ok = (code == 0 and [e["train_step"] for e in evals]
         == [train_step, refreshed])
-  emit("eval_job", card=card, evals=evals, exit_code=code,
-       refresh_seconds=refresh_s, seconds=time.perf_counter() - t0, ok=ok)
+  emit("eval_job", card=card, evals=evals, exit_code=code, ok=ok)
   shutil.rmtree(root, ignore_errors=True)
   if not ok:
     fail("eval_job", f"the child reported {evals}, exit {code}")
@@ -1449,7 +1298,8 @@ DP_FUSED = dict(batch_size=B_MAIN, capacity=512, sample_batch_size=256,
                 fc=(100, 50))
 DP_PPO = dict(batch_size=32, rollout_length=128, num_epochs=10,
               num_minibatches=8, num_minibatch_shards=2, fc=(64, 64))
-DP_INITIAL, DP_WARMUP, DP_TIMED, DP_ITERATIONS = 100, 20, 100, 3
+# (a)'s collectives are counted over two periods of the target update.
+DP_INITIAL, DP_WARMUP, DP_COUNTED, DP_ITERATIONS = 100, 20, 10, 3
 DP_RANKS, DP_SEED, DP_TIMEOUT_S = 2, 11, 600
 DP_PPO_HELD = 2   # PPO's whole-run iterations held to the plain process
 DP_PPO_CLIPPING = 0.2   # PPOClipAgent's importance_ratio_clipping
@@ -1509,7 +1359,7 @@ def dp_compare(merged, reference):
 
 def phase_data_parallel(card):
   """(a) The bench point through `FusedTrainLoop(mesh=)` over a one-rank
-  NCCL group, timed; (b) two gloo ranks on the card, 2,048 rows each, for
+  NCCL group; (b) two gloo ranks on the card, 2,048 rows each, for
   the fused DQN loop, PER and sharded PPO, each against one process over
   the global batch and the ranks' draws."""
   import functools
@@ -1537,28 +1387,15 @@ def phase_data_parallel(card):
     state = shard_loop_state(state, mesh, DP_FUSED["batch_size"],
                              DP_FUSED["capacity"], draws=state.draws)
     state, _ = loop.run(state, DP_WARMUP)
-    torch.cuda.synchronize()
     try:
-      torch.cuda.set_sync_debug_mode("error")
-      state, _ = loop.run(state, 1)
+      state, _ = sync_checked(loop.run, state, 1)
       sync_free = True
     except RuntimeError:
       sync_free = False
-    finally:
-      torch.cuda.set_sync_debug_mode(0)
     mesh.reset_bytes()
-    window_ms = []
-    for _ in range(TIMED_WINDOWS):
-      t0 = time.perf_counter()
-      state, losses = loop.run(state, DP_TIMED // TIMED_WINDOWS)
-      torch.cuda.synchronize()
-      window_ms.append((time.perf_counter() - t0) * 1e3
-                       / (DP_TIMED // TIMED_WINDOWS))
-    nccl = {"ms_per_iteration": sum(window_ms) / len(window_ms),
-            "window_ms_per_iteration": window_ms,
-            "main_ms_per_iteration": MAIN_POINT.get("ms_per_iteration"),
-            "bytes_per_iteration": mesh.bytes_passed / DP_TIMED,
-            "collectives_per_iteration": mesh.calls / DP_TIMED,
+    state, losses = loop.run(state, DP_COUNTED)
+    nccl = {"bytes_per_iteration": mesh.bytes_passed / DP_COUNTED,
+            "collectives_per_iteration": mesh.calls / DP_COUNTED,
             "sync_free": sync_free,
             "losses_finite": bool(torch.isfinite(losses).all())}
     del loop, state
@@ -1586,11 +1423,9 @@ def phase_data_parallel(card):
   bandit_batches = dryrun.bandit_batches(
       DP_SEED, DP_BANDIT["batch_size"], DP_BANDIT["calls"],
       DP_BANDIT["context_dim"], DP_BANDIT["num_actions"])
-  t0 = time.perf_counter()
   ranks = dryrun.spawn_ranks(dp_rank, DP_RANKS, (jobs, bandit_batches),
                              os.path.join(workdir, "gloo"), backend="gloo",
                              device="cuda", timeout_s=DP_TIMEOUT_S)
-  ranks_s = time.perf_counter() - t0
   out, ok = {}, nccl["losses_finite"]
   for j, (name, (_, reference, rows, steps)) in enumerate(cases.items()):
     runs = [r["jobs"][j] for r in ranks]
@@ -1722,7 +1557,7 @@ def phase_data_parallel(card):
                                                 for r in runs],
                    "ok": bandit_ok, **DP_BANDIT}
   emit("data_parallel", card=card, nccl_one_rank=nccl,
-       gloo_two_ranks=out, ranks_seconds=ranks_s,
+       gloo_two_ranks=out,
        gloo_cuda_direct=[r["gloo_cuda_direct"] for r in ranks],
        tolerance="max|d| <= 1e-5 + 1e-4 max|ref| per tensor; replicated "
        "bit-equal across ranks", fused=DP_FUSED, ppo=DP_PPO,
@@ -1740,7 +1575,9 @@ BANDIT_SCENARIOS = ("linucb_stationary", "lints_stationary",
 # NeuralLinUCB's 100-round encoding phase.
 BANDIT_PARITY_WARMUP, BANDIT_PARITY_ROUNDS = 98, 4
 BANDIT_GAP = 1e-5        # of max|score|: decisions closer than this may part
-BANDIT_WARMUP, BANDIT_WINDOW, BANDIT_PROFILED = 10, 20, 10
+# `bandit_main`'s sync-checked rounds run past NeuralLinUCB's 100-step
+# encoding phase.
+BANDIT_WARMUP, BANDIT_CHECKED = 10, 100
 BANDIT_LEARN = ("linucb_stationary", "neural_eps_greedy")
 # The JAX example's runs at its default config over seeds 0-4
 # (`tests/test_torch_reference_bars.py bandit`, `bandit_bar`: the worst
@@ -1927,8 +1764,8 @@ def phase_bandit_parity(card):
 
 
 def phase_bandit_main(card):
-  """Each scenario at B=256: sync-free timed windows of rounds, env-rows per
-  second, and a profiled window."""
+  """Each scenario at B=256: a sync-checked stretch of rounds, finite
+  losses and metrics, the train step counted."""
   import torch
 
   from examples import bandits_train_eval_torch as example
@@ -1939,35 +1776,23 @@ def phase_bandit_main(card):
     loop, _, _ = example.build_loop(cfg, scenario)
     state = loop.init(seed=0)
     state, _ = loop.run(state, BANDIT_WARMUP)
-    torch.cuda.synchronize()
     try:
-      state, losses, window_ms = timed_windows(
-          loop, state, BANDIT_WINDOW * TIMED_WINDOWS)
+      state, losses = sync_checked(loop.run, state, BANDIT_CHECKED)
       sync_free = True
     except RuntimeError as e:
-      torch.cuda.set_sync_debug_mode(0)
-      sync_free, window_ms, losses = str(e)[:300], [], None
-    (state, _), profile = profile_call(
-        lambda: loop.run(state, BANDIT_PROFILED), BANDIT_PROFILED, "round",
-        name=f"bandit_{scenario}.json")
+      sync_free, losses = str(e)[:300], None
     results = {k: float(v) for k, v in loop.results(state).items()}
-    ms = sorted(window_ms)[len(window_ms) // 2] if window_ms else None
     case_ok = (sync_free is True and losses is not None
                and bool(torch.isfinite(losses).all())
                and all(math.isfinite(v) for v in results.values())
                and state.agent_state.train_step
-               == BANDIT_WARMUP + BANDIT_WINDOW * TIMED_WINDOWS
-               + BANDIT_PROFILED)
+               == BANDIT_WARMUP + BANDIT_CHECKED)
     ok = ok and case_ok
-    out[scenario] = {
-        "median_ms_per_round": ms, "window_ms_per_round": window_ms,
-        "env_rows_per_s": cfg.env_batch_size / ms * 1e3 if ms else None,
-        "sync_free": sync_free, "profile": profile, "metrics": results,
-        "ok": case_ok}
+    out[scenario] = {"sync_free": sync_free, "metrics": results,
+                     "ok": case_ok}
     del loop, state
   emit("bandit_main", card=card, batch_size=bandit_config("cuda")
-       .env_batch_size, windows=TIMED_WINDOWS,
-       rounds_per_window=BANDIT_WINDOW, scenarios=out, ok=ok)
+       .env_batch_size, checked_rounds=BANDIT_CHECKED, scenarios=out, ok=ok)
   if not ok:
     fail("bandit_main", "a scenario was not sync-free or not finite")
 
@@ -1980,15 +1805,16 @@ def phase_bandit_learn(card):
   out, ok = {}, True
   for scenario in BANDIT_LEARN:
     cfg = bandit_config("cuda")
-    t0 = time.perf_counter()
     _, records = example.train_eval(cfg, scenario)
     last, bar = records[-1], BANDIT_LEARN_BARS[scenario]
     case_ok = (last["round"] == cfg.num_rounds
                and last["RegretMetric"] <= bar["regret"]
                and last["SuboptimalArmsMetric"] <= bar["suboptimal_arms"])
     ok = ok and case_ok
-    out[scenario] = {"records": records, "bar": bar,
-                     "seconds": time.perf_counter() - t0, "ok": case_ok}
+    # The example's records, less its `rounds_per_s`.
+    out[scenario] = {"records": [{k: v for k, v in r.items()
+                                  if k != "rounds_per_s"} for r in records],
+                     "bar": bar, "ok": case_ok}
   emit("bandit_learn", card=card, scenarios=out, ok=ok)
   if not ok:
     fail("bandit_learn", "a scenario ended above the JAX package's bar")
@@ -2012,7 +1838,8 @@ def phase_bandit_scenarios(card):
                and records[-1]["round"] == BANDIT_SCENARIO_ROUNDS
                and state.agent_state.train_step == BANDIT_SCENARIO_ROUNDS)
     ok = ok and case_ok
-    out[scenario] = {"last": records[-1], "ok": case_ok}
+    out[scenario] = {"last": {k: v for k, v in records[-1].items()
+                              if k != "rounds_per_s"}, "ok": case_ok}
   emit("bandit_scenarios", card=card, rounds=BANDIT_SCENARIO_ROUNDS,
        scenarios=out, ok=ok)
   if not ok:
@@ -2020,8 +1847,8 @@ def phase_bandit_scenarios(card):
 
 
 def bandit_phases(card):
-  """The bandit slice's parity and timing; its learning and scenario runs
-  (`phase_bandit_learn`, `phase_bandit_scenarios`) are in
+  """The bandit slice's parity and sync-checked rounds; its learning and
+  scenario runs (`phase_bandit_learn`, `phase_bandit_scenarios`) are in
   `UNTIMED_PHASES`."""
   phase_bandit_parity(card)
   free_card()
@@ -2029,7 +1856,9 @@ def bandit_phases(card):
   free_card()
 
 
-SURFACE_WINDOW, SURFACE_WINDOWS = 20, 5
+# (a)'s sorted loop: its sync-checked stretch two periods of the target
+# update (every 5).
+SURFACE_WARMUP, SURFACE_CHECKED = 20, 10
 SURFACE_SAMPLE_STEPS = 2
 SURFACE_BTS_ROUNDS = 200
 SURFACE_KS_ALPHAS, SURFACE_KS_N, SURFACE_KS_P = (0.5, 1.0, 5.0, 50.0), \
@@ -2052,8 +1881,8 @@ def well_conditioned_rows(dist, action, log_prob, rtol=RTOL, atol=ATOL):
 
 
 def surface_sorted_sample():
-  """(a) of `phase_surface`: the sorted loop timed beside the unsorted one
-  and its sample against the CPU's."""
+  """(a) of `phase_surface`: the sorted loop's sync-checked stretch and
+  its sample against the CPU's."""
   import torch
 
   from agents_tpu_torch import metrics
@@ -2063,7 +1892,6 @@ def surface_sorted_sample():
   from agents_tpu_torch.utils import nest_utils
   from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
 
-  plain = build_loop("cuda", B_MAIN, **MAIN)
   base = build_loop("cuda", B_MAIN, **MAIN)
   replay = UniformReplay(base.replay.data_spec, B_MAIN, MAIN["capacity"],
                          sort_for_locality=True, device="cuda")
@@ -2071,21 +1899,13 @@ def surface_sorted_sample():
                        metrics=metrics.standard_collect_metrics(20),
                        sample_batch_size=MAIN["sample_batch_size"],
                        device="cuda")
-  states = {}
-  for name, loop in (("sorted", srt), ("unsorted", plain)):
-    state = loop.init(seed=0, initial_collect_steps=100)
-    states[name], _ = loop.run(state, SURFACE_WINDOW)
-  torch.cuda.synchronize()
-  window_ms = {"sorted": [], "unsorted": []}
-  for _ in range(SURFACE_WINDOWS):
-    for name, loop in (("sorted", srt), ("unsorted", plain)):
-      states[name], losses, ms = timed_windows(loop, states[name],
-                                               SURFACE_WINDOW, windows=1)
-      window_ms[name] += ms
+  state = srt.init(seed=0, initial_collect_steps=100)
+  state, _ = srt.run(state, SURFACE_WARMUP)
+  state, losses = sync_checked(srt.run, state, SURFACE_CHECKED)
   finite = bool(torch.isfinite(losses).all())
 
   recorded = RecordingDraws(Draws(1, "cuda"))
-  rstate = states["sorted"].replay_state
+  rstate = state.replay_state
   batch, info = replay.sample(rstate, recorded, MAIN["sample_batch_size"],
                               SURFACE_SAMPLE_STEPS)
   cpu_replay = UniformReplay(replay.data_spec, B_MAIN, MAIN["capacity"],
@@ -2101,16 +1921,10 @@ def surface_sorted_sample():
            and all(torch.equal(a.cpu(), b) for a, b in zip(
                nest_utils.flatten(batch), nest_utils.flatten(cpu_batch)))
            and bool((flat[1:] >= flat[:-1]).all()))
-  median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
   return {
       "batch_size": B_MAIN, **{k: list(v) if isinstance(v, tuple) else v
                                for k, v in MAIN.items()},
-      "window_iterations": SURFACE_WINDOW,
-      "sorted_window_ms_per_iteration": window_ms["sorted"],
-      "unsorted_window_ms_per_iteration": window_ms["unsorted"],
-      "sorted_ms_per_iteration": median(window_ms["sorted"]),
-      "unsorted_ms_per_iteration": median(window_ms["unsorted"]),
-      "main_ms_per_iteration": MAIN_POINT.get("ms_per_iteration"),
+      "checked_iterations": SURFACE_CHECKED,
       "losses_finite": finite, "sample_equal_to_cpu": equal,
       "ok": finite and equal}
 
@@ -2234,7 +2048,7 @@ def surface_bernoulli_ts(root):
   batch = cfg.env_batch_size
   obs = np.zeros((batch,) + env.observation_spec().shape,
                  env.observation_spec().dtype)
-  actions, report, child_s = artifact_actions("surface", export, obs, root)
+  actions, report = artifact_actions("surface", export, obs, root)
   spec = importlib.util.spec_from_file_location(
       "bts_loader", os.path.join(export, "loader.py"))
   loader = importlib.util.module_from_spec(spec)
@@ -2278,7 +2092,6 @@ def surface_bernoulli_ts(root):
       "restored": (torch.equal(restored.params.alpha, posterior.alpha)
                    and torch.equal(restored.params.beta, posterior.beta)),
       "actions_apart": apart, "child_leaked": report["leaked"],
-      "child_seconds": child_s, "child_ms": report["ms"],
       "action_counts": np.bincount(actions["cuda"],
                                    minlength=len(posterior.alpha)).tolist(),
       "gamma_ks_pvalues": ks}
@@ -2312,8 +2125,8 @@ def phase_surface(card):
 
 
 def phase_surface_bernoulli_ts(card):
-  """(c) of 5h: Bernoulli Thompson sampling's export; it times nothing, so
-  it runs in a child process beside the learning runs."""
+  """(c) of 5h: Bernoulli Thompson sampling's export, in a child process
+  beside the learning runs."""
   os.makedirs(RUNS_DIR, exist_ok=True)
   root = tempfile.mkdtemp(prefix="surface_", dir=RUNS_DIR)
   try:
@@ -2336,7 +2149,6 @@ def phase_conv_parity(card):
   from examples.dqn_pixels_torch import Config
   from examples.dqn_pixels_torch import build_loop as pixel_loop
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   deterministic = torch.backends.cudnn.deterministic
@@ -2390,8 +2202,7 @@ def phase_conv_parity(card):
              "mismatched": mismatched},
        bf16={"frames": 32, "atol": BF16_ATOL, "q_max_abs_diff": q_diff,
              "frames_with_top2_gap_over_atol": int(clear.sum()),
-             "greedy_action_mismatches": action_mismatch},
-       seconds=time.perf_counter() - t0, ok=ok)
+             "greedy_action_mismatches": action_mismatch}, ok=ok)
   if not ok:
     fail("conv_parity", "card and CPU disagree on the conv path")
 
@@ -2402,22 +2213,16 @@ def phase_conv_main(card):
   from examples.dqn_pixels_torch import Config
   from examples.dqn_pixels_torch import build_loop as pixel_loop
 
-  t_phase = time.perf_counter()
   cfg = Config()
   torch.cuda.reset_peak_memory_stats()
   loop = pixel_loop(cfg)
-  t_init = time.perf_counter()
   state = loop.init(seed=cfg.seed, initial_collect_steps=CONV_INITIAL)
   state, losses = loop.run(state, CONV_WARMUP)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
-
-  state, losses, window_ms = timed_windows(loop, state, CONV_TIMED)
-  ms = sum(window_ms) / len(window_ms)
+  state, losses = sync_checked(loop.run, state, CONV_CHECKED)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
-  expected_count = CONV_INITIAL + CONV_WARMUP + CONV_TIMED
+  expected_count = CONV_INITIAL + CONV_WARMUP + CONV_CHECKED
   bad_transitions, lasts = check_step_types(loop, state)
   replay_count = state.replay_state.count
   obs = state.replay_state.storage.observation
@@ -2427,26 +2232,11 @@ def phase_conv_main(card):
   ok = (not off_card and finite and bad_transitions == 0
         and replay_count == expected_count and obs.dtype == torch.uint8
         and obs_bytes == expected_bytes)
-  state, prof = profile_window(loop, state, CONV_PROFILED)
-  fwd = conv_forward_flops(cfg.pixels_size, cfg.pixels_frames,
-                           cfg.pixels_actions, cfg.conv_layer_params,
-                           cfg.fc_layer_params)
-  flops = conv_iteration_flops(
-      cfg.pixels_size, cfg.pixels_frames, cfg.pixels_actions,
-      cfg.env_batch_size, cfg.sample_batch_size, cfg.conv_layer_params,
-      cfg.fc_layer_params)
   emit("conv_main", card=card, batch_size=cfg.env_batch_size,
        sample_batch_size=cfg.sample_batch_size, ring=cfg.replay_capacity,
        conv=cfg.conv_layer_params, fc=cfg.fc_layer_params, dtype=cfg.dtype,
-       timed_iterations=CONV_TIMED, sync_debug_mode="error",
-       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
-       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
-       train_frames_per_s=cfg.sample_batch_size * 1e3 / ms,
-       model_gflop_per_forward_frame=fwd / 1e9,
-       model_gflop_per_iteration=flops / 1e9,
-       model_tflop_per_s=flops / ms / 1e9,
-       model_flops_share_of_989_tflops_bf16_peak=flops / ms / 1e9 / 989.0,
-       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       checked_iterations=CONV_CHECKED, sync_debug_mode="error",
+       tensors_off_card=off_card,
        losses_finite=finite, replay_count=replay_count,
        expected_replay_count=expected_count,
        replay_observation={"dtype": str(obs.dtype), "shape": list(obs.shape),
@@ -2454,8 +2244,7 @@ def phase_conv_main(card):
                            "expected_bytes": expected_bytes},
        illegal_step_type_transitions=bad_transitions,
        last_frames_in_ring=lasts,
-       peak_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-       profile=prof, seconds=time.perf_counter() - t_phase, ok=ok)
+       peak_memory_allocated_bytes=torch.cuda.max_memory_allocated(), ok=ok)
   if not ok:
     fail("conv_main", "pixel bench point checks failed")
 
@@ -2466,7 +2255,6 @@ def phase_conv_learn(card):
   from examples.dqn_pixels_torch import CATCH, Config
   from examples.dqn_pixels_torch import build_loop as pixel_loop
 
-  t0 = time.perf_counter()
   cfg = Config(**CATCH)
   loop = pixel_loop(cfg)
   state = loop.init(seed=cfg.seed,
@@ -2478,7 +2266,6 @@ def phase_conv_learn(card):
     ret = float(loop.results(state)["AverageReturn"])
     if ret > 0.5:
       break
-  learn_s = time.perf_counter() - t0
   out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
   finite = bool(torch.isfinite(losses).all())
@@ -2486,9 +2273,8 @@ def phase_conv_learn(card):
   emit("conv_learn", card=card, env=f"catch {cfg.catch_rows}x"
        f"{cfg.catch_columns}", batch_size=cfg.env_batch_size,
        iterations=iterations, last100_average_return=ret, gate=CATCH_GATE,
-       losses_finite=finite, ms_per_iteration=learn_s * 1e3 / iterations,
-       eval_episodes=episodes, eval_average_return=float(out["AverageReturn"]),
-       seconds=time.perf_counter() - t0, ok=ok)
+       losses_finite=finite, eval_episodes=episodes,
+       eval_average_return=float(out["AverageReturn"]), ok=ok)
   if not ok:
     fail("conv_learn", f"Catch return {ret} (gate {CATCH_GATE}), "
          f"{episodes} eval episodes of 30")
@@ -2500,25 +2286,21 @@ def phase_c51(card):
   from examples.dqn_pixels_torch import Config
   from examples.dqn_pixels_torch import build_loop as pixel_loop
 
-  t0 = time.perf_counter()
   cfg = Config(agent="c51")
   loop = pixel_loop(cfg)
   state = loop.init(seed=cfg.seed, initial_collect_steps=CONV_INITIAL)
   state, losses = loop.run(state, C51_WARMUP)
-  torch.cuda.synchronize()
-  state, losses, window_ms = timed_windows(loop, state, C51_TIMED, 1)
+  state, losses = sync_checked(loop.run, state, C51_CHECKED)
   finite = bool(torch.isfinite(losses).all())
-  expected_count = CONV_INITIAL + C51_WARMUP + C51_TIMED
+  expected_count = CONV_INITIAL + C51_WARMUP + C51_CHECKED
   ok = finite and state.replay_state.count == expected_count
   emit("c51", card=card, num_atoms=cfg.num_atoms,
        support=[cfg.min_q_value, cfg.max_q_value],
        batch_size=cfg.env_batch_size, sample_batch_size=cfg.sample_batch_size,
-       ring=cfg.replay_capacity, timed_iterations=C51_TIMED,
-       sync_debug_mode="error", ms_per_iteration=window_ms[0],
-       losses_finite=finite, last_loss=float(losses[-1]),
-       replay_count=state.replay_state.count,
-       expected_replay_count=expected_count,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ring=cfg.replay_capacity, checked_iterations=C51_CHECKED,
+       sync_debug_mode="error", losses_finite=finite,
+       last_loss=float(losses[-1]), replay_count=state.replay_state.count,
+       expected_replay_count=expected_count, ok=ok)
   if not ok:
     fail("c51", "C51 at the pixel bench point failed its checks")
 
@@ -2552,27 +2334,6 @@ def numpy_sac_params(rng, actor_fc, critic_fc, obs_dim=3, act_dim=1):
   return actor, critic(), critic()
 
 
-def sac_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
-                         critic_fc):
-  """Analytic FLOPs of one SAC train step, 2 per multiply-add of the dense
-  layers. Per sampled row, with A and C one actor and one critic forward:
-  the critic targets take the actor and two target critics (A + 2C); the
-  critic loss two critic forwards and their backward, about twice the
-  forward (2C + 4C); the actor loss the actor and two critics forward
-  (A + 2C), the critics' backward to the actions (2C) and the actor's
-  backward (2A). In all 4A + 12C."""
-  def macs(width, widths):
-    total = 0
-    for out in widths:
-      total += width * out
-      width = out
-    return total
-
-  a = macs(obs_dim, tuple(actor_fc) + (2 * act_dim,))
-  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
-  return 2 * sample_batch_size * (4 * a + 12 * c)
-
-
 def phase_sac_parity(card):
   import numpy as np
   import torch
@@ -2581,7 +2342,6 @@ def phase_sac_parity(card):
   from examples.sac_pendulum_torch import Config
   from examples.sac_pendulum_torch import build_loop as sac_loop
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   cfg = Config(**SAC_PARITY)
@@ -2614,8 +2374,7 @@ def phase_sac_parity(card):
        iterations=3, rtol=SAC_RTOL, atol=SAC_ATOL,
        largest_float_diff={"name": worst, "abs": diffs[worst]},
        loss_diff=diffs["losses"], log_alpha_diff=diffs["log_alpha"],
-       compared=len(diffs), mismatched=mismatched,
-       seconds=time.perf_counter() - t0, ok=ok)
+       compared=len(diffs), mismatched=mismatched, ok=ok)
   if not ok:
     fail("sac_parity", f"card and CPU disagree on {mismatched}")
 
@@ -2626,56 +2385,35 @@ def phase_sac_main(card):
   from examples.sac_pendulum_torch import Config
   from examples.sac_pendulum_torch import build_loop as sac_loop
 
-  t_phase = time.perf_counter()
   cfg = Config()
   loop = sac_loop(cfg)
-  t_init = time.perf_counter()
   state = loop.init(seed=cfg.seed,
                     initial_collect_steps=cfg.initial_collect_steps)
   state, losses = loop.run(state, SAC_WARMUP)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
-
-  state, losses, window_ms = timed_windows(loop, state, SAC_TIMED)
-  ms = sum(window_ms) / len(window_ms)
+  state, losses = sync_checked(loop.run, state, SAC_CHECKED)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   log_alpha = float(state.agent_state.log_alpha.detach())
   finite = bool(torch.isfinite(losses).all()) and math.isfinite(log_alpha)
-  expected_count = cfg.initial_collect_steps + SAC_WARMUP + SAC_TIMED
+  expected_count = cfg.initial_collect_steps + SAC_WARMUP + SAC_CHECKED
   bad_transitions, lasts = check_step_types(loop, state)
   replay_count = state.replay_state.count
-  expected_steps = (SAC_WARMUP + SAC_TIMED) * cfg.train_steps_per_iteration
+  expected_steps = (SAC_WARMUP + SAC_CHECKED) * cfg.train_steps_per_iteration
   ok = (not off_card and finite and bad_transitions == 0
         and replay_count == expected_count
         and state.agent_state.train_step == expected_steps)
-  state, prof = profile_window(loop, state, SAC_PROFILED)
-  steps = cfg.train_steps_per_iteration
-  flops = sac_train_step_flops(cfg.sample_batch_size, 3, 1,
-                               cfg.actor_fc_layers,
-                               cfg.critic_joint_fc_layers)
   emit("sac_main", card=card, batch_size=cfg.env_batch_size,
        ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
-       train_steps_per_iteration=steps, timed_iterations=SAC_TIMED,
-       sync_debug_mode="error", ms_per_iteration=ms,
-       window_ms_per_iteration=window_ms,
-       ms_per_train_step=ms / steps,
-       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
-       train_steps_per_s=steps * 1e3 / ms,
-       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
-           "cpu_op", 0.0) / steps,
-       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
-       model_gflop_per_train_step=flops / 1e9,
-       model_tflop_per_s=flops * steps / ms / 1e9,
-       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       train_steps_per_iteration=cfg.train_steps_per_iteration,
+       checked_iterations=SAC_CHECKED, sync_debug_mode="error",
+       tensors_off_card=off_card,
        losses_finite=finite, last_loss=float(losses[-1]),
        log_alpha=log_alpha, replay_count=replay_count,
        expected_replay_count=expected_count,
        train_step=state.agent_state.train_step,
        illegal_step_type_transitions=bad_transitions,
-       last_frames_in_ring=lasts, profile=prof,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       last_frames_in_ring=lasts, ok=ok)
   if not ok:
     fail("sac_main", "SAC bench point checks failed")
 
@@ -2688,7 +2426,6 @@ def phase_sac_learn(card):
 
   window = live_window("SAC_PENDULUM_LIVE")
   budget, gate = window.step_budget, window.min_return
-  t0 = time.perf_counter()
   cfg = Config(**LIVE)
   loop = sac_loop(cfg)
   state = loop.init(seed=cfg.seed,
@@ -2701,12 +2438,9 @@ def phase_sac_learn(card):
     points.append([iterations, ret])
     if ret >= gate:
       break
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
   eval_return = float(out["AverageReturn"])
-  torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
   ok = ret >= gate and finite and episodes == 30
   emit("sac_learn", card=card, batch_size=cfg.env_batch_size,
@@ -2716,10 +2450,7 @@ def phase_sac_learn(card):
        iterations=iterations, last20_average_return=ret,
        gate=gate, points=points, losses_finite=finite,
        log_alpha=float(state.agent_state.log_alpha.detach()),
-       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
-       eval_episodes=episodes, eval_average_return=eval_return,
-       eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, ok=ok)
+       eval_episodes=episodes, eval_average_return=eval_return, ok=ok)
   if not ok:
     fail("sac_learn", f"last-20 return {ret} (gate {gate}), "
          f"{episodes} eval episodes of 30")
@@ -2821,7 +2552,6 @@ def phase_ppo_parity(card):
   from examples.ppo_cartpole_torch import SCHULMAN17_PENDULUM, Config
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   out, ok = {}, True
@@ -2902,37 +2632,9 @@ def phase_ppo_parity(card):
   emit("ppo_parity", card=card, rtol=PPO_RTOL, atol=PPO_ATOL,
        adam_moment_rtol=PPO_MOMENT_RTOL,
        criterion="max|card - cpu| <= atol + rtol * max|cpu| per tensor", **out,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ok=ok)
   if not ok:
     fail("ppo_parity", "card and CPU disagree on the PPO path")
-
-
-def iteration_split(loop, state, repeats=1):
-  """One iteration timed in parts, each ended by a synchronize: the
-  rollout (collect), returns and advantages (GAE) alone, then the whole
-  `agent.train` (normalizers, GAE again and the epochs), ms each (the
-  mean of `repeats`). Returns (state, split)."""
-  import torch
-
-  split = {"collect_ms": 0.0, "gae_ms": 0.0, "train_ms": 0.0}
-  for _ in range(repeats):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, experience = loop.collect(state)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loop.agent.compute_return_and_advantage(state.agent_state, experience)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    agent_state, _ = loop.agent.train(state.agent_state, experience,
-                                      draws=state.draws)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    state = dataclasses.replace(state, agent_state=agent_state)
-    for k, dt in (("collect_ms", t1 - t0), ("gae_ms", t2 - t1),
-                  ("train_ms", t3 - t2)):
-      split[k] += dt * 1e3 / repeats
-  return state, split
 
 
 def rollout_checks(experience):
@@ -2948,81 +2650,47 @@ def rollout_checks(experience):
 
 
 def phase_ppo_main(card):
-  import statistics
-
   import torch
 
   from examples.ppo_cartpole_torch import Config
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
 
-  t_phase = time.perf_counter()
   cfg = Config()
   loop = ppo_loop(cfg)
   state = loop.init(cfg.seed)
   state, losses = loop.run(state, PPO_WARMUP)
-  torch.cuda.synchronize()
-  state, losses, window_ms = timed_windows(loop, state,
-                                           PPO_TIMED_WINDOWS * PPO_WINDOW,
-                                           PPO_TIMED_WINDOWS)
-  ms = statistics.median(window_ms)
-  iterations = PPO_WARMUP + PPO_TIMED_WINDOWS * PPO_WINDOW
+  state, losses = sync_checked(loop.run, state, PPO_CHECKED)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
-  state, split = iteration_split(loop, state)
-  state, prof = profile_window(loop, state, PPO_PROFILED)
+  # One more iteration, collected and trained apart for its rollout.
   state, experience = loop.collect(state)
-  mb_steps = cfg.num_epochs * cfg.num_minibatches
-  (agent_state, _), train_prof = profile_call(
-      lambda: loop.agent.train(state.agent_state, experience,
-                               draws=state.draws), mb_steps, "minibatch_step",
-      name="profile_train.json")
-  _, gae_prof = profile_call(
-      lambda: loop.agent.compute_return_and_advantage(agent_state,
-                                                      experience),
-      1, "call", name="profile_gae.json")
+  agent_state, _ = loop.agent.train(state.agent_state, experience,
+                                    draws=state.draws)
   state = dataclasses.replace(state, agent_state=agent_state)
   rollout = rollout_checks(experience)
-  iterations += 1 + PPO_PROFILED + 1
+  iterations = PPO_WARMUP + PPO_CHECKED + 1
   ok = (not off_card and finite and rollout["illegal_step_type_transitions"]
         == 0 and state.agent_state.train_step == iterations)
-  frames = cfg.env_batch_size * cfg.rollout_length
   emit("ppo_main", card=card, batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
        minibatches=cfg.num_minibatches,
        minibatch_size=cfg.env_batch_size * (cfg.rollout_length - 1)
        // cfg.num_minibatches, fc=list(cfg.actor_fc_layers),
-       sync_debug_mode="error", timed_windows=PPO_TIMED_WINDOWS,
-       iterations_per_window=PPO_WINDOW, ms_per_iteration_median=ms,
-       window_ms_per_iteration=window_ms, env_steps_per_s=frames * 1e3 / ms,
-       minibatch_steps_per_s=mb_steps * 1e3 / ms, split_ms=split,
-       profile=prof,
-       train_operator_records_per_minibatch_step=train_prof[
-           "trace_events_per_minibatch_step"].get("cpu_op", 0.0),
-       train_device_ops_per_minibatch_step=train_prof[
-           "device_ops_per_minibatch_step"],
-       train_profile=train_prof,
-       gae={"steps": cfg.rollout_length - 1,
-            "device_ops": gae_prof["device_ops_per_call"],
-            "device_ms": gae_prof["device_ms_per_call"],
-            "wall_ms": gae_prof["wall_ms_per_call"]},
+       sync_debug_mode="error", checked_iterations=PPO_CHECKED,
        tensors_off_card=off_card, losses_finite=finite,
        last_loss=float(losses[-1]), rollout=rollout,
-       train_step=state.agent_state.train_step,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       train_step=state.agent_state.train_step, ok=ok)
   if not ok:
     fail("ppo_main", "PPO CartPole point checks failed")
   return cfg, loop, state, iterations
 
 
 def phase_ppo_learn(card, cfg, loop, state, iterations):
-  import torch
-
   from examples.ppo_cartpole_torch import evaluate
 
   window = live_window("PPO_CARTPOLE_LIVE")
   budget, gate = window.step_budget, window.min_return
-  t0 = time.perf_counter()
   ret = float(loop.results(state)["AverageReturn"])
   points = [[iterations, ret]]
   while ret < gate and iterations < budget:
@@ -3030,21 +2698,16 @@ def phase_ppo_learn(card, cfg, loop, state, iterations):
     iterations += PPO_LEARN_CHUNK
     ret = float(loop.results(state)["AverageReturn"])
     points.append([iterations, ret])
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = evaluate(cfg, loop, state, cfg.seed + 101, 30)
   episodes = int(out["NumberOfEpisodes"])
-  torch.cuda.synchronize()
   ok = ret >= gate and episodes == 30
   emit("ppo_learn", card=card, batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, iterations=iterations,
        last20_average_return=ret, gate=gate,
-       budget=budget, points=points, learn_seconds=learn_s,
-       eval_episodes=episodes, eval_envs=cfg.num_eval_envs,
+       budget=budget, points=points, eval_episodes=episodes,
+       eval_envs=cfg.num_eval_envs,
        eval_average_return=float(out["AverageReturn"]),
-       eval_average_episode_length=float(out["AverageEpisodeLength"]),
-       eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, ok=ok)
+       eval_average_episode_length=float(out["AverageEpisodeLength"]), ok=ok)
   if not ok:
     fail("ppo_learn", f"last-20 return {ret} (gate {gate} within "
          f"{budget} iterations), {episodes} eval episodes of 30")
@@ -3056,42 +2719,32 @@ def phase_ppo_schulman17(card):
   from examples.ppo_cartpole_torch import SCHULMAN17_PENDULUM, Config
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
 
-  t_phase = time.perf_counter()
   cfg = Config(**SCHULMAN17_PENDULUM)
   loop = ppo_loop(cfg)
   state = loop.init(cfg.seed)
   state, losses = loop.run(state, 1)
-  torch.cuda.synchronize()
-  state, losses, window_ms = timed_windows(loop, state, SCHULMAN17_TIMED,
-                                           SCHULMAN17_TIMED)
-  ms = sum(window_ms) / len(window_ms)
+  state, losses = sync_checked(loop.run, state, SCHULMAN17_CHECKED)
   finite = bool(torch.isfinite(losses).all())
-  state, split = iteration_split(loop, state)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
+  iterations = SCHULMAN17_CHECKED + 1
   mb_steps = cfg.num_epochs * cfg.num_minibatches
   lr = state.agent_state.optimizer.param_groups[0]["lr"]
-  expected_lr = cfg.learning_rate * (1.0 - (SCHULMAN17_TIMED + 2) * mb_steps
+  expected_lr = cfg.learning_rate * (1.0 - iterations * mb_steps
                                      / (cfg.num_iterations * mb_steps))
   ok = (finite and not off_card
-        and state.agent_state.train_step == SCHULMAN17_TIMED + 2
+        and state.agent_state.train_step == iterations
         and math.isclose(lr, expected_lr, rel_tol=1e-9))
-  frames = cfg.env_batch_size * cfg.rollout_length
   emit("ppo_schulman17", card=card, env="pendulum (for HalfCheetah-v5)",
        batch_size=cfg.env_batch_size, rollout_length=cfg.rollout_length,
        epochs=cfg.num_epochs, minibatches=cfg.num_minibatches,
        minibatch_size=(cfg.rollout_length - 1) // cfg.num_minibatches,
        fc=list(cfg.actor_fc_layers), activation=cfg.activation,
-       sync_debug_mode="error", timed_iterations=SCHULMAN17_TIMED,
-       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
-       env_steps_per_s=frames * 1e3 / ms,
-       minibatch_steps_per_s=mb_steps * 1e3 / ms, split_ms=split,
-       collect_ms_per_env_step=split["collect_ms"] / cfg.rollout_length,
-       train_ms_per_minibatch_step=split["train_ms"] / mb_steps,
+       sync_debug_mode="error", checked_iterations=SCHULMAN17_CHECKED,
        losses=[float(x) for x in losses], losses_finite=finite,
        learning_rate=lr, expected_learning_rate=expected_lr,
        tensors_off_card=off_card, train_step=state.agent_state.train_step,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       ok=ok)
   if not ok:
     fail("ppo_schulman17", "schulman17 Pendulum point checks failed")
 
@@ -3128,27 +2781,21 @@ def build_reinforce_loop(device="cuda", seed=0):
 def phase_reinforce(card):
   import torch
 
-  t0 = time.perf_counter()
   loop = build_reinforce_loop()
   state = loop.init(0)
   state, losses = loop.run(state, 1)
-  torch.cuda.synchronize()
-  state, losses, window_ms = timed_windows(loop, state, REINFORCE_TIMED,
-                                           REINFORCE_TIMED)
-  ms = sum(window_ms) / len(window_ms)
+  state, losses = sync_checked(loop.run, state, REINFORCE_CHECKED)
   finite = bool(torch.isfinite(losses).all())
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   ok = (finite and not off_card
-        and state.agent_state.train_step == REINFORCE_TIMED + 1)
+        and state.agent_state.train_step == REINFORCE_CHECKED + 1)
   emit("reinforce", card=card, batch_size=32, rollout_length=128,
        fc=[64, 64], value_baseline=True, sync_debug_mode="error",
-       timed_iterations=REINFORCE_TIMED, ms_per_iteration=ms,
-       window_ms_per_iteration=window_ms,
-       env_steps_per_s=32 * 128 * 1e3 / ms,
+       checked_iterations=REINFORCE_CHECKED,
        losses=[float(x) for x in losses], losses_finite=finite,
        tensors_off_card=off_card, train_step=state.agent_state.train_step,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ok=ok)
   if not ok:
     fail("reinforce", "REINFORCE checks failed")
 
@@ -3169,31 +2816,6 @@ def numpy_deterministic_actor_params(rng, fc, obs_dim=3, act_dim=1):
                      "Dense_0": layer((width, act_dim), 0.3)}}
 
 
-def td3_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
-                         critic_fc, actor_update_period):
-  """Analytic FLOPs of one TD3 train step, 2 per multiply-add of the dense
-  layers, averaged over the actor's period p. Per sampled row, with A and
-  C one actor and one critic forward: the critic targets take the target
-  actor and two target critics (A + 2C), the critic loss two critic
-  forwards and their backward, about twice the forward (6C); on an actor
-  step the actor loss takes the actor and critic 1 forward, critic 1's
-  backward to the actions and the actor's backward (3A + 2C), on the
-  others only the forward it reports (A + C)."""
-  def macs(width, widths):
-    total = 0
-    for out in widths:
-      total += width * out
-      width = out
-    return total
-
-  a = macs(obs_dim, tuple(actor_fc) + (act_dim,))
-  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
-  p = actor_update_period
-  per_row = (a + 8 * c + (3 * a + 2 * c) / p
-             + (1.0 - 1.0 / p) * (a + c))
-  return 2 * sample_batch_size * per_row
-
-
 def phase_td3_parity(card):
   import numpy as np
   import torch
@@ -3202,7 +2824,6 @@ def phase_td3_parity(card):
   from examples.td3_pendulum_torch import Config
   from examples.td3_pendulum_torch import build_loop as td3_loop
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   out, ok = {}, True
@@ -3254,32 +2875,24 @@ def phase_td3_parity(card):
        train_steps_per_iteration=TD3_PARITY["train_steps_per_iteration"],
        initial_collect_steps=TD3_PARITY_INITIAL,
        iterations=TD3_PARITY_ITERATIONS, rtol=SAC_RTOL, atol=SAC_ATOL, **out,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ok=ok)
   if not ok:
     fail("td3_parity", "card and CPU disagree on the TD3/DDPG path")
 
 
 def phase_td3_main(card):
-  import statistics
-
   import torch
 
   from examples.td3_pendulum_torch import Config
   from examples.td3_pendulum_torch import build_loop as td3_loop
 
-  t_phase = time.perf_counter()
   cfg = Config()
   loop = td3_loop(cfg)
-  t_init = time.perf_counter()
   state = loop.init(seed=cfg.seed,
                     initial_collect_steps=cfg.initial_collect_steps)
   state, losses = loop.run(state, TD3_WARMUP)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
-  state, losses, window_ms = timed_windows(
-      loop, state, TD3_TIMED_WINDOWS * TD3_WINDOW, TD3_TIMED_WINDOWS)
-  ms = statistics.median(window_ms)
-  iterations = TD3_WARMUP + TD3_TIMED_WINDOWS * TD3_WINDOW
+  state, losses = sync_checked(loop.run, state, TD3_CHECKED)
+  iterations = TD3_WARMUP + TD3_CHECKED
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
@@ -3291,10 +2904,6 @@ def phase_td3_main(card):
         and state.replay_state.count == cfg.initial_collect_steps + iterations
         and state.agent_state.train_step == iterations * steps
         and actor_adam_steps == iterations * steps // cfg.actor_update_period)
-  state, prof = profile_window(loop, state, TD3_PROFILED)
-  flops = td3_train_step_flops(cfg.sample_batch_size, 3, 1,
-                               cfg.actor_fc_layers, cfg.critic_joint_fc_layers,
-                               cfg.actor_update_period)
   del loop, state
 
   # DDPG at the same point: the OU state rides in the driver.
@@ -3302,8 +2911,7 @@ def phase_td3_main(card):
   dstate = ddpg.init(seed=cfg.seed,
                      initial_collect_steps=cfg.initial_collect_steps)
   dstate, dlosses = ddpg.run(dstate, 1)
-  torch.cuda.synchronize()
-  dstate, dlosses, ddpg_ms = timed_windows(ddpg, dstate, DDPG_SYNC_FREE, 1)
+  dstate, dlosses = sync_checked(ddpg.run, dstate, DDPG_CHECKED)
   ou = dstate.driver_state.policy_state[1][0]
   ddpg_ok = (bool(torch.isfinite(dlosses).all()) and ou.device.type == "cuda"
              and bool((ou != 0).any()))
@@ -3313,27 +2921,16 @@ def phase_td3_main(card):
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
        train_steps_per_iteration=steps,
        actor_update_period=cfg.actor_update_period,
-       timed_windows=TD3_TIMED_WINDOWS, iterations_per_window=TD3_WINDOW,
-       sync_debug_mode="error", ms_per_iteration_median=ms,
-       window_ms_per_iteration=window_ms, ms_per_train_step=ms / steps,
-       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
-       train_steps_per_s=steps * 1e3 / ms,
-       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
-           "cpu_op", 0.0) / steps,
-       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
-       model_gflop_per_train_step=flops / 1e9,
-       model_tflop_per_s=flops * steps / ms / 1e9,
-       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       checked_iterations=TD3_CHECKED, sync_debug_mode="error",
+       tensors_off_card=off_card,
        losses_finite=finite, last_loss=float(losses[-1]),
        actor_adam_steps=actor_adam_steps,
        illegal_step_type_transitions=bad_transitions,
-       last_frames_in_ring=lasts, profile=prof,
-       ddpg={"iterations": DDPG_SYNC_FREE, "sync_debug_mode": "error",
-             "ms_per_iteration": ddpg_ms[0],
-             "train_steps_per_s": steps * 1e3 / ddpg_ms[0],
+       last_frames_in_ring=lasts,
+       ddpg={"checked_iterations": DDPG_CHECKED, "sync_debug_mode": "error",
              "last_loss": float(dlosses[-1]),
              "ou_state_abs_mean": float(ou.abs().mean()), "ok": ddpg_ok},
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       ok=ok)
   if not ok:
     fail("td3_main", "TD3 bench point checks failed")
 
@@ -3344,7 +2941,6 @@ def phase_td3_learn(card):
   from examples.td3_pendulum_torch import parse_td3_args
   from examples.td3_pendulum_torch import build_loop as td3_loop
 
-  t0 = time.perf_counter()
   cfg = parse_td3_args(["--preset=live"])
   loop = td3_loop(cfg)
   state = loop.init(seed=cfg.seed,
@@ -3357,12 +2953,9 @@ def phase_td3_learn(card):
     points.append([iterations, ret])
     if ret >= TD3_LEARN_GATE:
       break
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
   eval_return = float(out["AverageReturn"])
-  torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
   ok = ret >= TD3_LEARN_GATE and finite and episodes == 30
   emit("td3_learn", card=card, batch_size=cfg.env_batch_size,
@@ -3371,11 +2964,8 @@ def phase_td3_learn(card):
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
        iterations=iterations, budget=cfg.num_iterations,
        last20_average_return=ret, gate=TD3_LEARN_GATE, points=points,
-       losses_finite=finite, ms_per_iteration=learn_s * 1e3 / iterations,
-       learn_seconds=learn_s, eval_episodes=episodes,
-       eval_average_return=eval_return,
-       eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, ok=ok)
+       losses_finite=finite, eval_episodes=episodes,
+       eval_average_return=eval_return, ok=ok)
   if not ok:
     fail("td3_learn", f"last-20 return {ret} (gate {TD3_LEARN_GATE} within "
          f"{cfg.num_iterations} iterations), {episodes} eval episodes of 30")
@@ -3546,7 +3136,6 @@ def phase_cql_parity(card):
   from examples.cql_sac_offline_torch import KUMAR20, Config, build_agent
   from examples.cql_sac_offline_torch import build_env
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   cases = (("offline_default", Config(num_bc_steps=1), {}),
@@ -3590,59 +3179,12 @@ def phase_cql_parity(card):
   emit("cql_parity", card=card, steps=CQL_PARITY_STEPS,
        sample=CQL_PARITY_SAMPLE, rtol=CQL_RTOL, atol=CQL_ATOL,
        criterion="each step from the CPU's state before it: max|card - cpu| "
-       "<= atol + rtol * max|cpu| per tensor", **out,
-       seconds=time.perf_counter() - t0, ok=ok)
+       "<= atol + rtol * max|cpu| per tensor", **out, ok=ok)
   if not ok:
     fail("cql_parity", "card and CPU disagree on the CQL-SAC step")
 
 
-def cql_train_step_flops(sample_batch_size, obs_dim, act_dim, actor_fc,
-                         critic_fc, num_samples):
-  """Analytic FLOPs of one CQL-SAC train step past the BC steps, 2 per
-  multiply-add of the dense layers. Per sampled row, with A and C one actor
-  (its mean and log-std head) and one critic forward: the policy proposals
-  one actor forward (A); each critic (2n + 1) passes (the n policy and n
-  uniform proposals and the data action) and their backward, about twice
-  the forward (2 x 3(2n + 1)C); the TD targets the actor and two target
-  critics (A + 2C); the actor loss the actor and two critics forward, the
-  critics' backward to the actions and the actor's backward (3A + 4C). In
-  all 5A + (12n + 12)C."""
-  def macs(width, widths):
-    total = 0
-    for out in widths:
-      total += width * out
-      width = out
-    return total
-
-  a = macs(obs_dim, tuple(actor_fc) + (2 * act_dim,))
-  c = macs(obs_dim + act_dim, tuple(critic_fc) + (1,))
-  return 2 * sample_batch_size * (5 * a + (12 * num_samples + 12) * c)
-
-
-def timed_train_steps(agent, state, replay, rstate, draws, steps, windows,
-                      sample_batch_size):
-  """`steps` train steps on replay samples of `sample_batch_size` under the
-  sync debug mode, in `windows` windows each ended by a synchronize.
-  Returns (state, the last loss, ms per train step of each window)."""
-  import torch
-
-  window_ms, per_window = [], steps // windows
-  for _ in range(windows):
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    for _ in range(per_window):
-      experience, _ = replay.sample(rstate, draws, sample_batch_size,
-                                    num_steps=2)
-      state, info = agent.train(state, experience)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    window_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
-  return state, info.loss, window_ms
-
-
 def phase_cql_main(card):
-  import statistics
-
   import torch
 
   from agents_tpu_torch.drivers import TorchDriver
@@ -3653,7 +3195,6 @@ def phase_cql_main(card):
   from examples.cql_sac_offline_torch import KUMAR20, Config, build_agent
   from examples.cql_sac_offline_torch import build_env
 
-  t_phase = time.perf_counter()
   cfg = Config(**{**KUMAR20, "env_batch_size": CQL_RING_ROWS})
   env = build_env(cfg)
   tss, asp = env.time_step_spec(), env.action_spec()
@@ -3664,56 +3205,35 @@ def phase_cql_main(card):
   draws = Draws(cfg.seed, env.device)
   _, (rstate,) = driver.run((), driver.init(draws), (replay.init(),), draws,
                             CQL_RING_FRAMES)
-  torch.cuda.synchronize()
-  fill_s = time.perf_counter() - t_phase
   agent = build_agent(cfg, env, "cql", cfg.seed + 2)
-  state = agent.init()
-  steps = functools.partial(timed_train_steps, agent, replay=replay,
-                            rstate=rstate, draws=draws,
-                            sample_batch_size=cfg.offline_batch_size)
-  state, _, _ = steps(state, steps=CQL_WARMUP, windows=1)
-  state, _, bc_ms = steps(state, steps=CQL_TIMED_WINDOWS * CQL_WINDOW,
-                          windows=CQL_TIMED_WINDOWS)
+
+  def train_steps(state, steps):
+    for _ in range(steps):
+      experience, _ = replay.sample(rstate, draws, cfg.offline_batch_size,
+                                    num_steps=2)
+      state, info = agent.train(state, experience)
+    return state, info.loss
+
+  state, _ = sync_checked(train_steps, agent.init(), CQL_CHECKED)
   state = dataclasses.replace(state, train_step=cfg.num_bc_steps)
-  state, _, _ = steps(state, steps=CQL_WARMUP, windows=1)
-  state, loss, window_ms = steps(state, steps=CQL_TIMED_WINDOWS * CQL_WINDOW,
-                                 windows=CQL_TIMED_WINDOWS)
-  ms = MAIN_POINT["cql_ms_per_train_step"] = statistics.median(window_ms)
-  (state, _, _), prof = profile_call(
-      lambda: steps(state, steps=CQL_PROFILED, windows=1), CQL_PROFILED,
-      "train_step", name="profile_cql.json")
-  flops = cql_train_step_flops(cfg.offline_batch_size, 3, 1,
-                               cfg.actor_fc_layers, cfg.critic_joint_fc_layers,
-                               cfg.num_cql_samples)
+  state, loss = sync_checked(train_steps, state, CQL_CHECKED)
   off_card = [k for k, v in state_tensors(state).items()
               if k != "train_step" and not k.endswith(".step")
               and v.device.type != "cuda"]
   finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(
       state.log_alpha.detach()))
   ok = (finite and not off_card and rstate.count == CQL_RING_FRAMES
-        and state.train_step == cfg.num_bc_steps + CQL_WARMUP
-        + CQL_TIMED_WINDOWS * CQL_WINDOW + CQL_PROFILED)
+        and state.train_step == cfg.num_bc_steps + CQL_CHECKED)
   emit("cql_main", card=card, ring_rows=CQL_RING_ROWS,
-       ring_frames=CQL_RING_FRAMES, ring_fill_s=fill_s,
+       ring_frames=CQL_RING_FRAMES,
        sample_batch_size=cfg.offline_batch_size,
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
        num_cql_samples=cfg.num_cql_samples,
        critic_rows_per_pass=(2 * cfg.num_cql_samples + 1)
        * cfg.offline_batch_size,
-       sync_debug_mode="error", timed_windows=CQL_TIMED_WINDOWS,
-       steps_per_window=CQL_WINDOW, ms_per_train_step_median=ms,
-       window_ms_per_train_step=window_ms,
-       train_steps_per_s=1e3 / ms,
-       bc_phase_ms_per_train_step_median=statistics.median(bc_ms),
-       bc_phase_window_ms_per_train_step=bc_ms,
-       model_gflop_per_train_step=flops / 1e9,
-       model_tflop_per_s=flops / ms / 1e9,
-       operator_records_per_train_step=prof[
-           "trace_events_per_train_step"].get("cpu_op", 0.0),
-       device_ops_per_train_step=prof["device_ops_per_train_step"],
-       profile=prof, last_loss=float(loss), losses_finite=finite,
-       tensors_off_card=off_card, train_step=state.train_step,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       sync_debug_mode="error", checked_steps_per_phase=CQL_CHECKED,
+       last_loss=float(loss), losses_finite=finite,
+       tensors_off_card=off_card, train_step=state.train_step, ok=ok)
   if not ok:
     fail("cql_main", "kumar20 CQL train step checks failed")
 
@@ -3727,17 +3247,13 @@ def phase_cql_offline(card, data_dir):
                                               build_env, dataset_phase,
                                               greedy_eval, offline_phase)
 
-  t0 = time.perf_counter()
   cfg = Config()
   env = build_env(cfg)
   behavior, behavior_state, iterations, collect_return = behavior_phase(
       cfg, env)
   behavior_return, _ = greedy_eval(cfg, env, behavior, behavior_state,
                                    cfg.num_eval_episodes, cfg.seed + 7)
-  behavior_s = time.perf_counter() - t0
-  t1 = time.perf_counter()
   dataset_return = dataset_phase(cfg, env, behavior, behavior_state, data_dir)
-  dataset_s = time.perf_counter() - t1
   bc_phase = {}
 
   def on_step(step, agent, agent_state):
@@ -3745,13 +3261,10 @@ def phase_cql_offline(card, data_dir):
       bc_phase["return"], bc_phase["episodes"] = greedy_eval(
           cfg, env, agent, agent_state, cfg.num_eval_episodes, cfg.seed + 7)
 
-  t2 = time.perf_counter()
   agent, agent_state, losses, rstate = offline_phase(cfg, env, data_dir,
                                                      on_step=on_step)
   offline_return, episodes = greedy_eval(cfg, env, agent, agent_state,
                                          cfg.num_eval_episodes, cfg.seed + 7)
-  torch.cuda.synchronize()
-  offline_s = time.perf_counter() - t2
   finite = bool(torch.isfinite(losses).all())
   ok = (behavior_return > CQL_BEHAVIOR_GATE and bc_phase["return"]
         > CQL_BC_GATE and offline_return > CQL_OFFLINE_GATE and finite
@@ -3760,16 +3273,14 @@ def phase_cql_offline(card, data_dir):
   emit("cql_offline", card=card, batch_size=cfg.env_batch_size,
        behavior_iterations=iterations, behavior_last20_return=collect_return,
        behavior_greedy_return=behavior_return,
-       behavior_gate=CQL_BEHAVIOR_GATE, behavior_seconds=behavior_s,
+       behavior_gate=CQL_BEHAVIOR_GATE,
        dataset_frames=rstate.count, dataset_rows=cfg.env_batch_size,
-       dataset_policy_return=dataset_return, dataset_seconds=dataset_s,
+       dataset_policy_return=dataset_return,
        offline_train_steps=cfg.offline_train_steps,
        num_bc_steps=cfg.num_bc_steps, bc_phase_return=bc_phase["return"],
        bc_gate=CQL_BC_GATE, offline_return=offline_return,
        offline_gate=CQL_OFFLINE_GATE, eval_episodes=episodes,
-       last_loss=float(losses[-1]), losses_finite=finite,
-       offline_ms_per_train_step=offline_s * 1e3 / cfg.offline_train_steps,
-       offline_seconds=offline_s, seconds=time.perf_counter() - t0, ok=ok)
+       last_loss=float(losses[-1]), losses_finite=finite, ok=ok)
   if not ok:
     fail("cql_offline", f"behaviour {behavior_return}, after BC "
          f"{bc_phase['return']}, offline {offline_return}")
@@ -3785,7 +3296,6 @@ def phase_bc(card, cfg, env, data_dir, behavior, behavior_state):
   from agents_tpu_torch.agents.random import RandomAgent
   from examples.cql_sac_offline_torch import greedy_eval, offline_phase
 
-  t0 = time.perf_counter()
   agent, agent_state, losses, _ = offline_phase(cfg, env, data_dir,
                                                 kind="bc")
   ret, episodes = greedy_eval(cfg, env, agent, agent_state, 30, cfg.seed + 7)
@@ -3803,7 +3313,7 @@ def phase_bc(card, cfg, env, data_dir, behavior, behavior_state):
        eval_average_return=ret, behavior_greedy_return=behavior_return,
        random_policy_return=random_return, normalized_score=score,
        gate=BC_SCORE_GATE, last_loss=float(losses[-1]),
-       losses_finite=finite, seconds=time.perf_counter() - t0, ok=ok)
+       losses_finite=finite, ok=ok)
   if not ok:
     fail("bc", f"BC normalized score {score} (return {ret}, behaviour "
          f"{behavior_return}, random {random_return}; gate "
@@ -3929,7 +3439,6 @@ def phase_qtopt_parity(card):
   from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
   from examples.td3_pendulum_torch import Config
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   cfg = Config(agent="qtopt")
@@ -3993,51 +3502,24 @@ def phase_qtopt_parity(card):
        **compare.summary(),
        collect={"explored_rows": int(explore.sum()),
                 "greedy_rows_compared": int((clear & ~explore).sum()),
-                **collect.summary()},
-       seconds=time.perf_counter() - t0, ok=ok)
+                **collect.summary()}, ok=ok)
   if not ok:
     fail("qtopt_parity", "card and CPU disagree on the QtOpt path")
 
 
-def qtopt_train_step_flops(sample_batch_size, obs_dim, act_dim, critic_fc,
-                           num_samples, num_iterations, enable_td3=True):
-  """Analytic FLOPs of one QtOpt train step, 2 per multiply-add of the
-  critic's dense layers. Per sampled row, with C one critic forward: CEM
-  scores N candidates in each of its I iterations (N·I C) and the mode once
-  (C); the clipped double-Q target scores it on both delayed critics (2C);
-  the online critic's forward and its backward, about twice the forward
-  (3C). At (256, 256), N=32, I=3, S=256: 2 × 66,816 × 26,112 = 3.489
-  GFLOP."""
-  c, width = 0, obs_dim + act_dim
-  for out in tuple(critic_fc) + (1,):
-    c += width * out
-    width = out
-  rows = num_samples * num_iterations + 1 + (2 if enable_td3 else 0) + 3
-  return 2 * c * rows * sample_batch_size
-
-
 def phase_qtopt_main(card):
-  import statistics
-
   import torch
 
-  from agents_tpu_torch.trajectories import trajectory as tj
   from examples.td3_pendulum_torch import Config
   from examples.td3_pendulum_torch import build_loop as td3_loop
 
-  t_phase = time.perf_counter()
   cfg = Config(agent="qtopt")
   loop = td3_loop(cfg)
-  t_init = time.perf_counter()
   state = loop.init(seed=cfg.seed,
                     initial_collect_steps=cfg.initial_collect_steps)
   state, losses = loop.run(state, QTOPT_WARMUP)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
-  state, losses, window_ms = timed_windows(
-      loop, state, QTOPT_TIMED_WINDOWS * QTOPT_WINDOW, QTOPT_TIMED_WINDOWS)
-  ms = statistics.median(window_ms)
-  iterations = QTOPT_WARMUP + QTOPT_TIMED_WINDOWS * QTOPT_WINDOW
+  state, losses = sync_checked(loop.run, state, QTOPT_CHECKED)
+  iterations = QTOPT_WARMUP + QTOPT_CHECKED
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
@@ -4046,49 +3528,15 @@ def phase_qtopt_main(card):
   ok = (not off_card and finite and bad_transitions == 0
         and state.replay_state.count == cfg.initial_collect_steps + iterations
         and state.agent_state.train_step == iterations * steps)
-  state, prof = profile_call(lambda: loop.run(state, QTOPT_PROFILED),
-                             QTOPT_PROFILED, "iteration",
-                             name="profile_qtopt.json")
-  state = state[0]
-  # CEM alone: the train step's optimizer over S next time steps.
-  agent, astate = loop.agent, state.agent_state
-  experience, _ = loop.replay.sample(state.replay_state, state.draws,
-                                     cfg.sample_batch_size, num_steps=2)
-  next_steps = tj.to_n_step_transition(experience, cfg.gamma).next_time_step
-  agent.policy.optimize(astate.target_q_network, next_steps, astate.draws)
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  torch.cuda.set_sync_debug_mode("error")
-  with torch.no_grad():
-    for _ in range(QTOPT_CEM_CALLS):
-      agent.policy.optimize(astate.target_q_network, next_steps, astate.draws)
-  torch.cuda.set_sync_debug_mode(0)
-  torch.cuda.synchronize()
-  cem_ms = (time.perf_counter() - t0) * 1e3 / QTOPT_CEM_CALLS
-  flops = qtopt_train_step_flops(cfg.sample_batch_size, 3, 1,
-                                 cfg.critic_joint_fc_layers,
-                                 agent.policy.num_samples,
-                                 agent.policy.num_iterations)
   emit("qtopt_main", card=card, batch_size=cfg.env_batch_size,
        ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
-       critic=list(cfg.critic_joint_fc_layers), cem=cem_settings(agent.policy),
-       train_steps_per_iteration=steps, timed_windows=QTOPT_TIMED_WINDOWS,
-       iterations_per_window=QTOPT_WINDOW, sync_debug_mode="error",
-       ms_per_iteration_median=ms, window_ms_per_iteration=window_ms,
-       ms_per_train_step=ms / steps,
-       env_steps_per_s=cfg.env_batch_size * 1e3 / ms,
-       train_steps_per_s=steps * 1e3 / ms,
-       cem_ms_per_call=cem_ms, cem_share_of_train_step=cem_ms / (ms / steps),
-       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
-           "cpu_op", 0.0) / steps,
-       device_ops_per_train_step=prof["device_ops_per_iteration"] / steps,
-       model_gflop_per_train_step=flops / 1e9,
-       model_tflop_per_s=flops * steps / ms / 1e9,
-       init_and_warmup_s=init_s, tensors_off_card=off_card,
+       critic=list(cfg.critic_joint_fc_layers),
+       cem=cem_settings(loop.agent.policy),
+       train_steps_per_iteration=steps, checked_iterations=QTOPT_CHECKED,
+       sync_debug_mode="error", tensors_off_card=off_card,
        losses_finite=finite, last_loss=float(losses[-1]),
        illegal_step_type_transitions=bad_transitions,
-       last_frames_in_ring=lasts, profile=prof,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       last_frames_in_ring=lasts, ok=ok)
   if not ok:
     fail("qtopt_main", "QtOpt bench point checks failed")
 
@@ -4099,7 +3547,6 @@ def phase_qtopt_learn(card):
   from examples.td3_pendulum_torch import build_loop as td3_loop
   from examples.td3_pendulum_torch import parse_td3_args
 
-  t0 = time.perf_counter()
   cfg = parse_td3_args(["--preset=live", "--agent=qtopt"])
   loop = td3_loop(cfg)
   state = loop.init(seed=cfg.seed,
@@ -4112,12 +3559,9 @@ def phase_qtopt_learn(card):
     points.append([iterations, ret])
     if ret >= QTOPT_LEARN_GATE:
       break
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = loop.evaluate(state, cfg.seed + 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
   eval_return = float(out["AverageReturn"])
-  torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
   ok = ret >= QTOPT_LEARN_GATE and finite and episodes == 30
   emit("qtopt_learn", card=card, batch_size=cfg.env_batch_size,
@@ -4126,10 +3570,7 @@ def phase_qtopt_learn(card):
        critic=list(cfg.critic_joint_fc_layers), iterations=iterations,
        budget=cfg.num_iterations, last20_average_return=ret,
        gate=QTOPT_LEARN_GATE, points=points, losses_finite=finite,
-       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
-       eval_episodes=episodes, eval_average_return=eval_return,
-       eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, ok=ok)
+       eval_episodes=episodes, eval_average_return=eval_return, ok=ok)
   if not ok:
     fail("qtopt_learn", f"last-20 return {ret} (gate {QTOPT_LEARN_GATE} "
          f"within {cfg.num_iterations} iterations), {episodes} eval "
@@ -4342,7 +3783,6 @@ def phase_discrete_parity(card):
   """The discrete-action surface, card against CPU, TF32 off."""
   import torch
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   compare = BoundedComparison(QTOPT_RTOL, QTOPT_ATOL)
@@ -4359,8 +3799,7 @@ def phase_discrete_parity(card):
        policies=policies, rtol=QTOPT_RTOL, atol=QTOPT_ATOL,
        criterion="each env step and DQN iteration from the CPU's state; "
        "max|card - cpu| <= atol + rtol * max|cpu| per tensor; integers "
-       "and step types equal", **compare.summary(),
-       seconds=time.perf_counter() - t0, ok=ok)
+       "and step types equal", **compare.summary(), ok=ok)
   if not ok:
     fail("discrete_parity", "card and CPU disagree on the discrete surface")
 
@@ -4370,10 +3809,10 @@ def phase_discrete_parity(card):
 RNN_PARITY_B, RNN_PARITY_T = 64, 16
 RNN_DQN_PARITY_STEPS, RNN_DQN_PARITY_SAMPLE, RNN_SEQUENCE = 3, 256, 10
 RNN_RTOL, RNN_ATOL, RNN_ARGMAX_GAP = 1e-4, 1e-5, 1e-5
-RNN_DQN_WARMUP, RNN_DQN_WINDOWS, RNN_DQN_WINDOW, RNN_DQN_PROFILED = 5, 5, 20, 5
-# Windows of one iteration, 3 of them, so that the whole script stays well
-# inside its limit.
-PPO_RNN_WARMUP, PPO_RNN_WINDOWS, PPO_RNN_WINDOW = 1, 2, 1
+# `rnn_dqn_main`'s sync-checked stretch: two periods of the target update
+# (every 5); its profile one.
+RNN_DQN_WARMUP, RNN_DQN_CHECKED, RNN_DQN_PROFILED = 5, 10, 5
+PPO_RNN_WARMUP, PPO_RNN_CHECKED = 1, 1
 # The JAX package's runs at this config reach 185.6, 157.5, 179.4, 160.5
 # and 108.65 over seeds 0-4 (`tests/test_torch_reference_bars.py ppo_rnn`):
 # all five clear the JAX test's 35, so the bar is `ppo_rnn_bar`'s, the worst
@@ -4672,7 +4111,7 @@ def lstm_recorded(counts):
   either path), those that ran the kernel (`lstm.kernel_steps`), the
   backward steps (`lstm.backward_steps`), and the unrolls and backwards
   (calls of the `lstm.unroll` and `lstm.backward` spans). A
-  `profile_call` inside the block joins its recording."""
+  `profile_window` inside the block joins its recording."""
   from agents_tpu_torch.ops.lstm_recurrence import KERNEL
   from agents_tpu_torch.utils import profiling
 
@@ -4693,7 +4132,7 @@ def lstm_launch_checks(counts, units, device_calls=None):
   """Whether the stretch that `lstm_recorded` filled `counts` over ran
   every step of the LSTM on its kernel, one launch a forward or backward
   step and one for each backward's start, and launched at all; with
-  `device_calls` (`profile_call`'s count of `LSTM_KERNEL_FUNCTIONS`),
+  `device_calls` (`profile_window`'s count of `LSTM_KERNEL_FUNCTIONS`),
   whether the trace shows the card running each function that was
   launched, and none more often than it was launched (the profiler can
   drop an event: it read 104 of 105 forward steps once, exactly in other
@@ -4914,9 +4353,8 @@ def phase_lstm_kernel(card):
 
 def phase_rnn_dqn_main(card):
   """The CartPole bench point with the recurrent Q network (DDQN,
-  sequences of 10): sync-free timing, a short profile."""
-  import statistics
-
+  sequences of 10): a sync-checked stretch, then a short profile whose
+  kernels show the LSTM kernel's launches on the card."""
   import torch
 
   from agents_tpu_torch.ops.lstm_recurrence import KERNEL
@@ -4925,13 +4363,10 @@ def phase_rnn_dqn_main(card):
                             MAIN["sample_batch_size"])
   state = loop.init(seed=0, initial_collect_steps=100)
   state, losses = loop.run(state, RNN_DQN_WARMUP)
-  torch.cuda.synchronize()
   KERNEL.launches = 0
-  state, losses, window_ms = timed_windows(
-      loop, state, RNN_DQN_WINDOWS * RNN_DQN_WINDOW, RNN_DQN_WINDOWS)
-  timed_launches = KERNEL.launches / (RNN_DQN_WINDOWS * RNN_DQN_WINDOW)
-  ms = statistics.median(window_ms)
-  iterations = RNN_DQN_WARMUP + RNN_DQN_WINDOWS * RNN_DQN_WINDOW
+  state, losses = sync_checked(loop.run, state, RNN_DQN_CHECKED)
+  checked_launches = KERNEL.launches / RNN_DQN_CHECKED
+  iterations = RNN_DQN_WARMUP + RNN_DQN_CHECKED
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
@@ -4949,20 +4384,15 @@ def phase_rnn_dqn_main(card):
                                  device_names=LSTM_KERNEL_FUNCTIONS)
   lstm, lstm_ok = lstm_launch_checks(lstm, RNN_DQN_PROFILED,
                                      prof["device_calls"])
-  lstm["timed_launches_per_unit"] = timed_launches
-  ok = ok and lstm_ok and timed_launches == lstm["launches_per_unit"]
+  lstm["checked_launches_per_unit"] = checked_launches
+  ok = ok and lstm_ok and checked_launches == lstm["launches_per_unit"]
   emit("rnn_dqn_main", card=card, agent="DdqnAgent", batch_size=B_MAIN,
        ring=MAIN["capacity"], sample_batch_size=MAIN["sample_batch_size"],
        sequence_length=RNN_SEQUENCE,
        widths={"input": [40], "lstm": 40, "output": [40]},
        sync_debug_mode="error", warmup_iterations=RNN_DQN_WARMUP,
-       timed_windows=RNN_DQN_WINDOWS, iterations_per_window=RNN_DQN_WINDOW,
-       ms_per_iteration_median=ms, window_ms_per_iteration=window_ms,
-       env_steps_per_s=B_MAIN * 1e3 / ms, train_steps_per_s=1e3 / ms,
-       operator_records_per_train_step=prof["trace_events_per_iteration"].get(
-           "cpu_op", 0.0),
-       device_ops_per_train_step=prof["device_ops_per_iteration"],
-       profile=prof, tensors_off_card=off_card, losses_finite=finite,
+       checked_iterations=RNN_DQN_CHECKED, profile=prof,
+       tensors_off_card=off_card, losses_finite=finite,
        last_loss=float(losses[-1]), replay_count=state.replay_state.count,
        illegal_step_type_transitions=bad_transitions,
        last_frames_in_ring=lasts, carry_shapes=carry, lstm_kernel=lstm,
@@ -4972,13 +4402,11 @@ def phase_rnn_dqn_main(card):
 
 
 def phase_ppo_rnn_main(card):
-  """`examples/ppo_cartpole_torch.py --preset=rnn`: sync-free timing and
-  the collect / GAE / train split."""
-  import statistics
-
+  """`examples/ppo_cartpole_torch.py --preset=rnn`: a sync-checked
+  iteration whose unrolls run on the LSTM kernel, then a rollout's
+  checks."""
   import torch
 
-  from agents_tpu_torch.ops.lstm_recurrence import KERNEL
   from agents_tpu_torch.utils import nest_utils
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
   from examples.ppo_cartpole_torch import parse_ppo_args
@@ -4987,31 +4415,21 @@ def phase_ppo_rnn_main(card):
   loop = ppo_loop(cfg)
   state = loop.init(cfg.seed)
   state, losses = loop.run(state, PPO_RNN_WARMUP)
-  torch.cuda.synchronize()
-  KERNEL.launches = 0
-  state, losses, window_ms = timed_windows(
-      loop, state, PPO_RNN_WINDOWS * PPO_RNN_WINDOW, PPO_RNN_WINDOWS)
-  timed_launches = KERNEL.launches / (PPO_RNN_WINDOWS * PPO_RNN_WINDOW)
-  ms = statistics.median(window_ms)
+  lstm = {}
+  with lstm_recorded(lstm):
+    state, losses = sync_checked(loop.run, state, PPO_RNN_CHECKED)
+  lstm, lstm_ok = lstm_launch_checks(lstm, PPO_RNN_CHECKED)
   off_card = [tuple(t.shape) for t in loop_tensors(state)
               if t.device.type != "cuda"]
   finite = bool(torch.isfinite(losses).all())
-  lstm = {}
-  with lstm_recorded(lstm):
-    state, split = iteration_split(loop, state)
-  lstm, lstm_ok = lstm_launch_checks(lstm, 1)
-  lstm["timed_launches_per_unit"] = timed_launches
   state, experience = loop.collect(state)
   rollout = rollout_checks(experience)
-  iterations = PPO_RNN_WARMUP + PPO_RNN_WINDOWS * PPO_RNN_WINDOW + 1
+  iterations = PPO_RNN_WARMUP + PPO_RNN_CHECKED
   carry = [tuple(c.shape) for c in
            nest_utils.flatten(state.driver_state.policy_state)]
   ok = (not off_card and finite and rollout["illegal_step_type_transitions"]
         == 0 and state.agent_state.train_step == iterations
-        and carry == [(cfg.env_batch_size, cfg.lstm_size)] * 4
-        and lstm_ok and timed_launches > 0)
-  frames = cfg.env_batch_size * cfg.rollout_length
-  mb_steps = cfg.num_epochs * cfg.num_minibatches
+        and carry == [(cfg.env_batch_size, cfg.lstm_size)] * 4 and lstm_ok)
   emit("ppo_rnn_main", card=card, batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
        minibatches=cfg.num_minibatches,
@@ -5019,14 +4437,10 @@ def phase_ppo_rnn_main(card):
        widths={"input": list(cfg.actor_fc_layers), "lstm": cfg.lstm_size,
                "output": list(cfg.lstm_output_fc_layers)},
        sync_debug_mode="error", warmup_iterations=PPO_RNN_WARMUP,
-       timed_windows=PPO_RNN_WINDOWS, iterations_per_window=PPO_RNN_WINDOW,
-       ms_per_iteration_median=ms, window_ms_per_iteration=window_ms,
-       env_steps_per_s=frames * 1e3 / ms,
-       minibatch_steps_per_s=mb_steps * 1e3 / ms, split_ms=split,
-       train_ms_per_minibatch_step=split["train_ms"] / mb_steps,
-       tensors_off_card=off_card, losses_finite=finite,
-       last_loss=float(losses[-1]), rollout=rollout, carry_shapes=carry,
-       train_step=state.agent_state.train_step, lstm_kernel=lstm, ok=ok)
+       checked_iterations=PPO_RNN_CHECKED, tensors_off_card=off_card,
+       losses_finite=finite, last_loss=float(losses[-1]), rollout=rollout,
+       carry_shapes=carry, train_step=state.agent_state.train_step,
+       lstm_kernel=lstm, ok=ok)
   if not ok:
     fail("ppo_rnn_main", "recurrent PPO CartPole point checks failed")
 
@@ -5040,7 +4454,6 @@ def phase_ppo_rnn_learn(card):
   from examples.ppo_cartpole_torch import build_loop as ppo_loop
   from examples.ppo_cartpole_torch import evaluate, parse_ppo_args
 
-  t0 = time.perf_counter()
   cfg = parse_ppo_args(["--preset=rnn_learn"])
   loop = ppo_loop(cfg)
   state = loop.init(cfg.seed)
@@ -5053,11 +4466,8 @@ def phase_ppo_rnn_learn(card):
                      float(loop.results(state)["AverageReturn"])])
   lstm, lstm_ok = lstm_launch_checks(lstm, iterations)
   ret = points[-1][1]
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = evaluate(cfg, loop, state, cfg.seed + 101, 30)
   episodes = int(out["NumberOfEpisodes"])
-  torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
   ok = ret > PPO_RNN_LEARN_GATE and finite and episodes == 30 and lstm_ok
   emit("ppo_rnn_learn", card=card, batch_size=cfg.env_batch_size,
@@ -5067,12 +4477,10 @@ def phase_ppo_rnn_learn(card):
                "output": list(cfg.lstm_output_fc_layers)},
        iterations=iterations, last20_average_return=ret,
        gate=PPO_RNN_LEARN_GATE, points=points, losses_finite=finite,
-       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
        eval_episodes=episodes, eval_envs=cfg.num_eval_envs,
        eval_average_return=float(out["AverageReturn"]),
        eval_average_episode_length=float(out["AverageEpisodeLength"]),
-       eval_seconds=time.perf_counter() - t_eval,
-       seconds=time.perf_counter() - t0, lstm_kernel=lstm, ok=ok)
+       lstm_kernel=lstm, ok=ok)
   if not ok:
     fail("ppo_rnn_learn", f"last-20 return {ret} (gate > "
          f"{PPO_RNN_LEARN_GATE} within {cfg.num_iterations} iterations), "
@@ -5105,7 +4513,7 @@ def resume_case(build, init, iterations, directory):
   """`iterations` + `iterations` without a break, against `iterations`,
   a save, a fresh loop from the same seed, a restore and `iterations`
   more: whether the losses and every part of the final states are equal,
-  with the checkpoint's bytes and the save and restore seconds."""
+  with the checkpoint's bytes."""
   import torch
 
   from agents_tpu_torch.train import Checkpointer
@@ -5121,21 +4529,13 @@ def resume_case(build, init, iterations, directory):
   loop = build()
   state, first = loop.run(init(loop), iterations)
   checkpointer = Checkpointer(directory)
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
   checkpointer.save(iterations, state)
-  save_s = time.perf_counter() - t0
   carry = [c.clone()
            for c in nest_utils.flatten(state.driver_state.policy_state)]
   del loop, state
 
   loop = build()
-  template = init(loop)
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  restored = checkpointer.restore(template)
-  torch.cuda.synchronize()
-  restore_s = time.perf_counter() - t0
+  restored = checkpointer.restore(init(loop))
   carry_equal = all(torch.equal(a, b) for a, b in zip(
       nest_utils.flatten(restored.driver_state.policy_state), carry,
       strict=True))
@@ -5150,8 +4550,7 @@ def resume_case(build, init, iterations, directory):
           "losses_finite": bool(torch.isfinite(resumed).all()),
           "state_mismatched": mismatched[:10],
           "carry_restored": carry_equal, "tensors_on_card": on_card,
-          "checkpoint_bytes": os.path.getsize(path), "save_seconds": save_s,
-          "restore_seconds": restore_s,
+          "checkpoint_bytes": os.path.getsize(path),
           "ok": (bool(torch.equal(whole, resumed)) and not mismatched
                  and carry_equal and on_card)}
 
@@ -5207,9 +4606,10 @@ HOST_PARITY_RANDOM, HOST_PARITY_TICKS = 4, 3
 # The per-tensor bound of the PPO, CQL and QtOpt parity phases, for the
 # networks and Adam moments (PERF.md §6).
 HOST_PARITY_TENSOR_RTOL = 1e-4
-HOST_SAC_WARMUP, HOST_SAC_WINDOWS, HOST_SAC_WINDOW, HOST_SAC_PROFILED = (
-    2, 5, 2, 2)
-HOST_PPO_WARMUP, HOST_PPO_TIMED = 1, 2
+# Ticks and iterations whose host syncs are counted; the host loops have
+# no periodic branch.
+HOST_SAC_WARMUP, HOST_SAC_COUNTED = 2, 2
+HOST_PPO_WARMUP, HOST_PPO_COUNTED = 1, 1
 PARALLEL_WORKERS, PARALLEL_STEPS = 4, 50
 ASYNC_RESUME = dict(env_batch_size=8, replay_capacity=256,
                     sample_batch_size=32, train_steps_per_call=4,
@@ -5302,7 +4702,6 @@ def phase_host_parity(card):
   from agents_tpu_torch.utils import convert, nest_utils
   from agents_tpu_torch.utils.draws import Draws, RecordingDraws, ReplayDraws
 
-  t0 = time.perf_counter()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   cfg = sac_config(**HOST_PARITY)
@@ -5387,18 +4786,16 @@ def phase_host_parity(card):
        beyond_elementwise=beyond_elementwise,
        loss=[closs, gloss], compared=len(diffs), py_metrics=gres,
        draws_left=sum(draws.remaining().values()), mismatched=mismatched,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ok=ok)
   if not ok:
     fail("host_parity", f"card and CPU disagree on {mismatched}")
 
 
 def phase_host_sac_main(card):
-  """The sync host loop at `bench.py:sac_live_probe`'s point."""
-  import torch
-
+  """The sync host loop at `bench.py:sac_live_probe`'s point: the port's
+  host syncs over a stretch of ticks, one per tick."""
   from agents_tpu_torch.utils import nest_utils
 
-  t_phase = time.perf_counter()
   cfg = sac_config(**SAC_POINT)
   loop = sync_sac_loop(cfg, "cuda")
   B, K = cfg.env_batch_size, cfg.train_steps_per_call
@@ -5407,26 +4804,11 @@ def phase_host_sac_main(card):
       dev, time_step, cfg.initial_collect_ticks, seed=cfg.seed)
   dev, time_step, prev, action, loss = loop.run(dev, time_step, prev, action,
                                                 HOST_SAC_WARMUP)
-  torch.cuda.synchronize()
-  loop.split = dict.fromkeys(loop.split, 0.0)
-  window_ms, window_syncs = [], []
   SYNC_SITES.clear()
-  for _ in range(HOST_SAC_WINDOWS):
-    t0 = time.perf_counter()
-    (dev, time_step, prev, action, loss), n = count_syncs(
-        lambda: loop.run(dev, time_step, prev, action, HOST_SAC_WINDOW))
-    torch.cuda.synchronize()
-    window_ms.append((time.perf_counter() - t0) * 1e3 / HOST_SAC_WINDOW)
-    window_syncs.append(n)
-  syncs, sync_sites = sum(window_syncs), dict(SYNC_SITES)
-  timed = HOST_SAC_WINDOWS * HOST_SAC_WINDOW
-  split_ms = {k[:-2] + "_ms": v * 1e3 / timed
-              for k, v in loop.split.items()}
-  ms = sum(window_ms) / len(window_ms)
-  (dev, time_step, prev, action, loss), prof = profile_call(
-      lambda: loop.run(dev, time_step, prev, action, HOST_SAC_PROFILED),
-      HOST_SAC_PROFILED, "tick", "host_sac_trace.json")
-  ticks = HOST_SAC_WARMUP + timed + HOST_SAC_PROFILED
+  (dev, time_step, prev, action, loss), syncs = count_syncs(
+      lambda: loop.run(dev, time_step, prev, action, HOST_SAC_COUNTED))
+  sync_sites = dict(SYNC_SITES)
+  ticks = HOST_SAC_WARMUP + HOST_SAC_COUNTED
   expected_count = cfg.initial_collect_ticks - 1 + ticks
   off_card = [name for name, t in state_tensors(dev.agent_state).items()
               if t.device.type != "cuda" and name != "train_step"
@@ -5435,11 +4817,11 @@ def phase_host_sac_main(card):
       dev.replay_state.storage) if t.device.type != "cuda"]
   log_alpha = float(dev.agent_state.log_alpha.detach())
   # The port's syncs: one action read per tick and one loss read per
-  # `run`; a sync inside torch's own CUDA module (seen once, in the first
-  # window) is the debug mode's, not the loop's.
+  # `run`; a sync inside torch's own CUDA module is the debug mode's, not
+  # the loop's.
   port_syncs = sum(n for site, n in sync_sites.items()
                    if site.startswith("agents_tpu_torch"))
-  syncs_per_tick = (port_syncs - HOST_SAC_WINDOWS) / timed
+  syncs_per_tick = (port_syncs - 1) / HOST_SAC_COUNTED
   ok = (math.isfinite(loss) and math.isfinite(log_alpha) and not off_card
         and syncs_per_tick == 1.0
         and dev.replay_state.count == expected_count
@@ -5451,19 +4833,15 @@ def phase_host_sac_main(card):
        ring=cfg.replay_capacity, sample_batch_size=cfg.sample_batch_size,
        actor=list(cfg.actor_fc_layers), critic=list(cfg.critic_joint_fc_layers),
        train_steps_per_tick=K, reward_scale=cfg.reward_scale_factor,
-       timed_ticks=timed, ms_per_tick=ms, window_ms_per_tick=window_ms,
-       env_steps_per_s=B * 1e3 / ms, train_steps_per_s=K * 1e3 / ms,
-       split_ms_per_tick=split_ms, host_syncs=syncs,
-       host_syncs_per_window=window_syncs, host_sync_sites=sync_sites,
-       host_syncs_per_tick=syncs_per_tick,
+       counted_ticks=HOST_SAC_COUNTED, host_syncs=syncs,
+       host_sync_sites=sync_sites, host_syncs_per_tick=syncs_per_tick,
        sync_note="sync debug mode 'warn'; the port's sites, less one loss "
                  "read per run()",
-       operator_records_per_train_step=prof["trace_events_per_tick"].get(
-           "cpu_op", 0.0) / K, profile=prof, last_loss=loss,
-       log_alpha=log_alpha, replay_count=dev.replay_state.count,
+       last_loss=loss, log_alpha=log_alpha,
+       replay_count=dev.replay_state.count,
        expected_replay_count=expected_count,
        train_step=dev.agent_state.train_step, tensors_off_card=off_card,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       ok=ok)
   loop.env.close()
   if not ok:
     fail("host_sac_main", "host SAC point checks failed")
@@ -5495,14 +4873,11 @@ def phase_async_sac_main(card):
 
 def phase_host_ppo_main(card):
   """`HostOnPolicyTrainLoop` at `examples/ppo_halfcheetah.py`'s schulman17
-  config over a random HalfCheetah."""
-  import torch
-
+  config over a random HalfCheetah: host syncs per collect counted."""
   from agents_tpu_torch.utils.draws import Draws
   from examples.ppo_halfcheetah_torch import Config
   from examples.ppo_halfcheetah_torch import build_loop as ppo_loop
 
-  t_phase = time.perf_counter()
   cfg = Config()
   loop, eval_env = ppo_loop(cfg, halfcheetah_factory())
   eval_env.close()
@@ -5511,43 +4886,27 @@ def phase_host_ppo_main(card):
   for _ in range(HOST_PPO_WARMUP):
     agent_state, time_step, draws, info = loop.run_iteration(
         agent_state, time_step, draws)
-  torch.cuda.synchronize()
-  iteration_ms, splits, syncs, losses = [], [], [], []
-  for _ in range(HOST_PPO_TIMED):
-    t0 = time.perf_counter()
+  syncs, losses = [], []
+  for _ in range(HOST_PPO_COUNTED):
     SYNC_SITES.clear()
     (time_step, experience), n = count_syncs(
         lambda: loop.collect(agent_state, time_step, draws))
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     agent_state, info = loop.agent.train(agent_state, experience,
                                          draws=draws)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    iteration_ms.append((t2 - t0) * 1e3)
-    splits.append({"collect_ms": loop.split["collect_s"] * 1e3,
-                   "stack_copy_ms": loop.split["stack_copy_s"] * 1e3,
-                   "train_ms": (t2 - t1) * 1e3})
     syncs.append(n)
     losses.append(float(info.loss))
-  ms = sum(iteration_ms) / len(iteration_ms)
-  frames = cfg.env_batch_size * cfg.rollout_length
-  mb_steps = cfg.num_epochs * cfg.num_minibatches
   ok = (all(math.isfinite(x) for x in losses)
-        and agent_state.train_step == HOST_PPO_WARMUP + HOST_PPO_TIMED
+        and agent_state.train_step == HOST_PPO_WARMUP + HOST_PPO_COUNTED
         and tuple(experience.step_type.shape) == (1, cfg.rollout_length)
         and experience.observation.device.type == "cuda")
   emit("host_ppo_main", card=card, env="RandomPyEnvironment x 1 "
        "(HalfCheetah-v5 specs)", batch_size=cfg.env_batch_size,
        rollout_length=cfg.rollout_length, epochs=cfg.num_epochs,
        minibatches=cfg.num_minibatches, fc=list(cfg.actor_fc_layers),
-       timed_iterations=HOST_PPO_TIMED, ms_per_iteration=ms,
-       iteration_ms=iteration_ms, env_steps_per_s=frames * 1e3 / ms,
-       minibatch_steps_per_s=mb_steps * 1e3 / ms, split=splits,
-       host_syncs_per_collect=syncs, host_sync_sites=dict(SYNC_SITES),
+       counted_iterations=HOST_PPO_COUNTED, host_syncs_per_collect=syncs,
+       host_sync_sites=dict(SYNC_SITES),
        host_syncs_per_env_step=[n / cfg.rollout_length for n in syncs],
-       losses=losses, train_step=agent_state.train_step,
-       seconds=time.perf_counter() - t_phase, ok=ok)
+       losses=losses, train_step=agent_state.train_step, ok=ok)
   loop.env.close()
   if not ok:
     fail("host_ppo_main", "host PPO checks failed")
@@ -5570,7 +4929,6 @@ def phase_parallel_env(card):
 
   from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
 
-  t0 = time.perf_counter()
   cuda_up = torch.cuda.is_initialized()
   ctors = [functools.partial(RandomPyEnvironment, *halfcheetah_specs(),
                              episode_end_probability=0.05, seed=seed)
@@ -5579,16 +4937,13 @@ def phase_parallel_env(card):
   for blocking in (False, True):
     penv = ParallelPyEnvironment(ctors, blocking=blocking)
     benv = BatchedPyEnvironment([c() for c in ctors])
-    rng, equal, steps_s = np.random.RandomState(0), True, 0.0
+    rng, equal = np.random.RandomState(0), True
     try:
       pairs = [(penv.reset(), benv.reset())]
       for _ in range(PARALLEL_STEPS):
         action = rng.uniform(-1, 1, (PARALLEL_WORKERS, HALFCHEETAH_ACT)
                              ).astype(np.float32)
-        t_step = time.perf_counter()
-        p = penv.step(action)
-        steps_s += time.perf_counter() - t_step
-        pairs.append((p, benv.step(action)))
+        pairs.append((penv.step(action), benv.step(action)))
       for p, b in pairs:
         equal &= all(np.array_equal(x, y) for x, y in zip(
             nest_utils.flatten(p), nest_utils.flatten(b)))
@@ -5598,15 +4953,13 @@ def phase_parallel_env(card):
       benv.close()
     results["blocking" if blocking else "overlapped"] = {
         "start_methods": methods, "steps_equal": bool(equal),
-        "ms_per_step": steps_s * 1e3 / PARALLEL_STEPS,
         "workers_alive_after_close": penv.workers_alive}
   ok = cuda_up and all(r["start_methods"] == ["spawn"] * PARALLEL_WORKERS
                        and r["steps_equal"]
                        and r["workers_alive_after_close"] == 0
                        for r in results.values())
   emit("parallel_env", card=card, workers=PARALLEL_WORKERS,
-       steps=PARALLEL_STEPS, cuda_initialized=cuda_up, **results,
-       seconds=time.perf_counter() - t0, ok=ok)
+       steps=PARALLEL_STEPS, cuda_initialized=cuda_up, **results, ok=ok)
   if not ok:
     fail("parallel_env", f"parallel env checks failed: {results}")
 
@@ -5619,7 +4972,6 @@ def phase_async_resume(card):
   from agents_tpu_torch.train.checkpointer import capture
   from examples.sac_halfcheetah_torch import build_loop as sac_loop
 
-  t0 = time.perf_counter()
   cfg = sac_config(**ASYNC_RESUME)
   B = cfg.env_batch_size
   with tempfile.TemporaryDirectory() as tmp:
@@ -5661,7 +5013,7 @@ def phase_async_resume(card):
        state_mismatched=mismatched[:10], train_steps=[
            first["train_steps"], second["train_steps"]],
        env_steps=[first["env_steps"], second["env_steps"]], checks=checks,
-       seconds=time.perf_counter() - t0, ok=ok)
+       ok=ok)
   if not ok:
     fail("async_resume", f"async resume checks failed: {checks}")
 
@@ -5793,7 +5145,6 @@ def phase_atari_host(card):
   from agents_tpu_torch.train.checkpointer import capture
   from examples import dqn_atari_torch as ex
 
-  t_phase = time.perf_counter()
   free_card()
   torch.cuda.reset_peak_memory_stats()
   os.makedirs(RUNS_DIR, exist_ok=True)
@@ -5804,14 +5155,12 @@ def phase_atari_host(card):
   syncs, built = {}, {}
 
   def recording(build_loop):
-    # The example's loop, timed, with the syncs of its `run` recorded (the
-    # export after the run syncs by design), and the tensors of a fresh
-    # agent state counted: the run copies those to the host at its start.
+    # The example's loop with the syncs of its `run` recorded (the export
+    # after the run syncs by design), and the tensors of a fresh agent
+    # state counted: the run copies those to the host at its start.
     def build(*args, **kwargs):
-      t_build = time.perf_counter()
       loop = build_loop(*args, **kwargs)
-      torch.cuda.synchronize()
-      built.update(loop=loop, seconds=time.perf_counter() - t_build,
+      built.update(loop=loop,
                    initial_tensors=tensor_leaves(capture(loop.agent.init())))
       run = loop.run
 
@@ -5825,7 +5174,7 @@ def phase_atari_host(card):
   with recorded_losses(DqnAgent) as losses, \
       wrapped(ex, "build_loop", recording):
     out = ex.train_eval(cfg, make_env=lambda: random_atari(next(seeds)))
-  loop, build_s = built["loop"], built["seconds"]
+  loop = built["loop"]
   losses = losses["DqnAgent"]
   ticks = cfg.total_env_steps // B
   min_frames = cfg.initial_collect_ticks * B
@@ -5848,7 +5197,7 @@ def phase_atari_host(card):
   # frames of the ring's first ticks.
   frames = obs[:ATARI_EXPORT_ROWS // B].reshape(
       (ATARI_EXPORT_ROWS,) + tuple(obs.shape[2:]))
-  actions, report, child_s = artifact_actions(
+  actions, report = artifact_actions(
       "atari_host", out["policy_dir"], frames.cpu().numpy(), root)
   with torch.no_grad():
     live = agent.policy.action(state.q_network,
@@ -5884,7 +5233,6 @@ def phase_atari_host(card):
       "train_jsonl_written": os.path.exists(os.path.join(root,
                                                          "train.jsonl"))}
   ok = all(checks.values())
-  wall = out["wall_s"]
   emit("atari_host", card=card,
        env=f"RandomPyEnvironment x {B} (load_atari specs: (84, 84, 4) "
        "uint8, 6 actions)", batch_size=B,
@@ -5899,14 +5247,7 @@ def phase_atari_host(card):
              f"total_env_steps 12,500,000 -> {cfg.total_env_steps}",
              f"initial_collect_ticks 2,500 -> {cfg.initial_collect_ticks}",
              f"progress_every_ticks 2,000 -> {cfg.progress_every_ticks}"],
-       build_seconds=build_s, run_seconds=wall,
        env_steps=out["env_steps"], train_steps=out["train_steps"],
-       env_steps_per_s=out["env_steps"] / wall,
-       train_steps_per_s=out["train_steps"] / wall,
-       utd_realized=out["train_steps"] / max(out["env_steps"] - min_frames,
-                                              1),
-       tick_ms_trainer_idle=out["tick_ms_trainer_idle"],
-       tick_ms_trainer_busy=out["tick_ms_trainer_busy"],
        ticks_trainer_idle=out["ticks_trainer_idle"],
        ticks_trainer_busy=out["ticks_trainer_busy"],
        last_loss=out["last_loss"], epsilon_at_last_step=epsilon,
@@ -5916,10 +5257,10 @@ def phase_atari_host(card):
        trainer_thread_syncs=trainer_syncs, main_thread_syncs=main_syncs,
        export_rows=ATARI_EXPORT_ROWS, rows_clear_of_ties=int(clear.sum()),
        tie=EXPORT_TIE, actions_differing_from_live=differ,
-       export=manifest["torch_export"], exported_ms=report["ms"],
-       child_seconds=child_s, child_modules_leaked=report["leaked"],
+       export=manifest["torch_export"],
+       child_modules_leaked=report["leaked"],
        peak_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-       checks=checks, seconds=time.perf_counter() - t_phase, ok=ok)
+       checks=checks, ok=ok)
   if not ok:
     fail("atari_host", f"Atari host checks failed: {checks}")
 
@@ -5960,7 +5301,6 @@ def phase_offline_host(card):
   from agents_tpu_torch.utils import dataset_io
   from examples import cql_sac_offline_host_torch as ex
 
-  t_phase = time.perf_counter()
   free_card()
   os.makedirs(RUNS_DIR, exist_ok=True)
   base = tempfile.mkdtemp(prefix="offline_host_", dir=RUNS_DIR)
@@ -5982,13 +5322,11 @@ def phase_offline_host(card):
         return agent_state, loss
       return chunk
 
-    t0 = time.perf_counter()
     with recorded_losses(SacAgent, CqlSacAgent) as losses, \
         wrapped(ex, "train_chunk", recording):
       result = ex.train_eval(c, make_env=halfcheetah_factory(), stats=stats)
     runs[name] = dict(result=result, stats=stats, chunk_syncs=chunk_syncs,
-                      live=live, losses=losses,
-                      seconds=time.perf_counter() - t0)
+                      live=live, losses=losses)
   first, again = runs["first"], runs["reuse"]
   a, b_, c_ = (first["stats"]["phase_a"], first["stats"]["phase_b"],
                first["stats"]["phase_c"])
@@ -6027,7 +5365,7 @@ def phase_offline_host(card):
   live_params = agent.policy_params(first["live"]["state"])
   obs = np.random.RandomState(3).randn(OFFLINE_EXPORT_ROWS,
                                        HALFCHEETAH_OBS).astype(np.float32)
-  actions, report, child_s = artifact_actions(
+  actions, report = artifact_actions(
       "offline_host", greedy["first"], obs, base)
   with torch.no_grad():
     live = agent.policy.action(live_params, first_step(
@@ -6070,7 +5408,6 @@ def phase_offline_host(card):
       "result_keys": sorted(first["result"]) == sorted(again["result"]),
       "export_acts_as_live": export_ok}
   ok = all(checks.values())
-  steps_c = c_["train_steps"]
   emit("offline_host", card=card,
        env=f"random_halfcheetah x {B} (HalfCheetah-v5 specs, 1,000-step "
        "episodes)", batch_size=B, actor=list(cfg.actor_fc_layers),
@@ -6084,34 +5421,18 @@ def phase_offline_host(card):
                  f"{k} {getattr(ex.Config(), k)} -> {v}"
                  for k, v in OFFLINE_HOST.items() if k != "dataset_mix"],
        phase_a={"env_steps": a["env_steps"], "train_steps": a["train_steps"],
-                "wall_s": a["wall_s"],
-                "env_steps_per_s": a["env_steps"] / a["wall_s"],
-                "train_steps_per_s": a["train_steps"] / a["wall_s"],
-                "tick_ms_trainer_idle": a["tick_ms_trainer_idle"],
-                "tick_ms_trainer_busy": a["tick_ms_trainer_busy"],
-                "snapshot_env_steps": a["snapshot_env_steps"],
-                "seconds": a["seconds"]},
-       phase_b={"collects": b_["collects"], "seconds": b_["seconds"],
-                "frames_per_s": sum(col["ticks"] for col in b_["collects"])
-                * B / b_["seconds"],
+                "snapshot_env_steps": a["snapshot_env_steps"]},
+       phase_b={"collects": b_["collects"],
                 "non_boundary_frames_per_collect": per_collect,
                 "frames_per_row_on_disk": rows_frames},
-       phase_c={"train_steps": steps_c, "train_seconds": c_["train_seconds"],
-                "ms_per_train_step": c_["train_seconds"] * 1e3 / steps_c,
-                "cql_main_ms_per_train_step": MAIN_POINT.get(
-                    "cql_ms_per_train_step"),
-                "ring_count": c_["ring_count"],
-                "reuse_ms_per_train_step": again["stats"]["phase_c"][
-                    "train_seconds"] * 1e3 / steps_c,
-                "seconds": c_["seconds"]},
+       phase_c={"train_steps": c_["train_steps"],
+                "ring_count": c_["ring_count"]},
        eval_losses=eval_losses, result=first["result"],
        reuse_result=again["result"],
-       run_seconds={n: r["seconds"] for n, r in runs.items()},
        export_max_abs_diff=export_diff, export_rows=OFFLINE_EXPORT_ROWS,
-       exported_ms=report["ms"], child_seconds=child_s,
        child_modules_leaked=report["leaked"],
        counted_eval_episodes=int(counted["NumberOfEpisodes"]),
-       checks=checks, seconds=time.perf_counter() - t_phase, ok=ok)
+       checks=checks, ok=ok)
   if not ok:
     fail("offline_host", f"offline host checks failed: {checks}")
 
@@ -6132,8 +5453,8 @@ PER_PARITY_INITIAL, PER_PARITY_STEPS, PER_PARITY_MIN_COMPARED = 16, 5, 3
 # A sample is clear of a CDF boundary when its uniform lies more than this
 # many ulps of the total from the CDF entries around it (the gap rule).
 PER_GAP_ULPS = 4
-PER_INITIAL, PER_WARMUP, PER_TIMED_WINDOWS, PER_WINDOW = 100, 20, 5, 20
-PER_PROFILED, PER_ISOLATED_CALLS = 10, 50
+# `per_main`'s sync-checked stretch: two periods of the target update.
+PER_INITIAL, PER_WARMUP, PER_CHECKED = 100, 20, 10
 # `tests/test_prioritized_replay.py:165-204`'s config; its bar is the JAX
 # test's 100, which the JAX package's own runs over seeds 0-4 (117.2 to
 # 200.0) do not tighten (`tests/test_torch_reference_bars.py`, `per_bar`).
@@ -6144,14 +5465,13 @@ PER_LEARN_GATE = 100.0
 EPISODIC = dict(batch_size=64, num_slots=256, max_episode_len=64)
 EPISODIC_CALLS, EPISODIC_DRAIN_EVERY, EPISODIC_SAMPLE = 300, 50, 256
 INGEST_LEG_STEPS, INGEST_RATIO, INGEST_COLLECTORS = 400, 8.0, 2
-INGEST_ENV_BATCH, INGEST_PULLS = 8, 200
+INGEST_ENV_BATCH = 8
 # A collector's rewards tag each frame: collector * 2**22 + env * 2**17 +
 # the env's count of time steps, exact in float32.
 INGEST_COLLECTOR_TAG, INGEST_ENV_TAG = 1 << 22, 1 << 17
 # `bench.py:host_atari_replay_probe`'s 1M frames (28 GB) cut to 100k
 # (2.8 GB of host RAM); its hashed variant's 100k frames.
 HOST_REPLAY_CAPACITY = HOST_REPLAY_HASHED = 100_000
-MAIN_POINT = {}
 
 
 def build_per_loop(device, batch_size, capacity, sample_batch_size, fc):
@@ -6304,114 +5624,39 @@ def phase_per_parity(card):
          f"fewer than {PER_PARITY_MIN_COMPARED} steps compared ({compared})")
 
 
-def device_ms_by_op(fn, names):
-  """`fn()` under `torch.profiler`: the device milliseconds of the ops
-  `names` (`key_averages`), and the window's wall milliseconds."""
-  import torch
-  from torch.profiler import ProfilerActivity, profile
-
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-  out = {}
-  for event in prof.key_averages():
-    if event.key in names:
-      us = getattr(event, "device_time_total", None)
-      if us is None:
-        us = getattr(event, "cuda_time_total", 0.0)
-      out[event.key] = out.get(event.key, 0.0) + us / 1e3
-  return out, wall_ms
-
-
-def event_ms(fn, calls):
-  """Milliseconds per call of `fn()` between two CUDA events, after a
-  warm-up call."""
-  import torch
-
-  fn()
-  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-  torch.cuda.synchronize()
-  start.record()
-  for _ in range(calls):
-    fn()
-  end.record()
-  torch.cuda.synchronize()
-  return start.elapsed_time(end) / calls
-
-
 def phase_per_main(card):
   """PER at the CartPole bench point (B=4096, ring 512: 2,097,152
-  priorities, 8 MiB; sample 256; (100, 50)): timed windows under the sync
-  debug mode beside `main`, the sample's share, the busy share."""
+  priorities, 8 MiB; sample 256; (100, 50)): a sync-checked stretch, the
+  replay count, finite losses, IS weights in (0, 1] and spread
+  priorities."""
   import torch
 
-  from agents_tpu_torch.replay_buffers.prioritized_replay import \
-      chunked_cumsum
   from agents_tpu_torch.utils.draws import Draws
 
   loop = build_per_loop("cuda", B_MAIN, **MAIN)
-  t_init = time.perf_counter()
   state = loop.init(seed=0, initial_collect_steps=PER_INITIAL)
   state, _ = loop.run(state, PER_WARMUP)
-  torch.cuda.synchronize()
-  init_s = time.perf_counter() - t_init
-  timed = PER_TIMED_WINDOWS * PER_WINDOW
-  state, losses, window_ms = timed_windows(loop, state, timed,
-                                           PER_TIMED_WINDOWS)
-  ms = sorted(window_ms)[len(window_ms) // 2]
+  state, losses = sync_checked(loop.run, state, PER_CHECKED)
   replay, rstate = loop.replay, state.replay_state
-  count_ok = rstate.count == PER_INITIAL + PER_WARMUP + timed
+  count_ok = rstate.count == PER_INITIAL + PER_WARMUP + PER_CHECKED
   finite = bool(torch.isfinite(losses).all())
-  draws = Draws(1, "cuda")
-  _, info = replay.sample(rstate, draws, MAIN["sample_batch_size"],
+  _, info = replay.sample(rstate, Draws(1, "cuda"), MAIN["sample_batch_size"],
                           num_steps=2, beta=PER_BETA)
   w = info.is_weights
   weights_ok = bool(((w > 0) & (w <= 1)).all())
   priorities = rstate.priorities
   priorities_ok = bool(torch.isfinite(priorities).all()) and float(
       priorities.std()) > 0.0
-  state, prof = profile_window(loop, state, PER_PROFILED)
-  by_op, wall_ms = device_ms_by_op(
-      lambda: loop.run(state, PER_PROFILED),
-      ("aten::cumsum", "aten::searchsorted"))
-  sample_device_ms = sum(by_op.values()) / PER_PROFILED
-  flat = priorities.reshape(-1)
-  u = torch.rand(MAIN["sample_batch_size"], device="cuda")
-  cdf = chunked_cumsum(flat)
-  isolated = {
-      "sample": event_ms(lambda: replay.sample(
-          rstate, draws, MAIN["sample_batch_size"], num_steps=2,
-          beta=PER_BETA), PER_ISOLATED_CALLS),
-      "chunked_cumsum": event_ms(lambda: chunked_cumsum(flat),
-                                 PER_ISOLATED_CALLS),
-      "searchsorted": event_ms(lambda: torch.searchsorted(cdf, u, right=True),
-                               PER_ISOLATED_CALLS)}
-  main_ms = MAIN_POINT.get("ms_per_iteration")
   ok = count_ok and finite and weights_ok and priorities_ok
   emit("per_main", card=card, batch_size=B_MAIN, **{
       k: list(v) if isinstance(v, tuple) else v for k, v in MAIN.items()},
        alpha=PER_ALPHA, beta=PER_BETA, priorities=priorities.numel(),
        priority_bytes=priorities.numel() * priorities.element_size(),
-       timed_iterations=timed, sync_debug_mode="error",
-       ms_per_iteration=ms, window_ms_per_iteration=window_ms,
-       env_steps_per_s=B_MAIN * 1e3 / ms,
-       main_ms_per_iteration=main_ms,
-       main_env_steps_per_s=B_MAIN * 1e3 / main_ms if main_ms else None,
-       per_overhead=ms / main_ms - 1.0 if main_ms else None,
-       init_and_warmup_s=init_s, replay_count=rstate.count,
-       replay_count_exact=count_ok, losses_finite=finite,
-       is_weights_in_0_1=weights_ok,
-       is_weights_min=float(w.min()), priorities_finite_and_spread=priorities_ok,
-       profile=prof,
-       sample_device_ms_per_iteration_by_op=by_op and {
-           k: v / PER_PROFILED for k, v in by_op.items()},
-       cumsum_and_searchsorted_share=sample_device_ms * PER_PROFILED / wall_ms,
-       isolated_ms=isolated,
-       sample_share_isolated=isolated["sample"] / ms, ok=ok)
+       checked_iterations=PER_CHECKED, sync_debug_mode="error",
+       replay_count=rstate.count, replay_count_exact=count_ok,
+       losses_finite=finite, is_weights_in_0_1=weights_ok,
+       is_weights_min=float(w.min()),
+       priorities_finite_and_spread=priorities_ok, ok=ok)
   if not ok:
     fail("per_main", "PER checks failed (replay count, losses, IS weights "
          "or priorities)")
@@ -6423,7 +5668,6 @@ def phase_per_learn(card):
   greedy eval over exactly 30 episodes."""
   import torch
 
-  t0 = time.perf_counter()
   loop = build_per_loop("cuda", **PER_LEARN)
   state = loop.init(seed=0, initial_collect_steps=PER_LEARN_INITIAL)
   iterations, points = 0, []
@@ -6434,21 +5678,16 @@ def phase_per_learn(card):
                    float(loop.results(state)["AverageReturn"])])
   ret = points[-1][1]
   std = float(state.replay_state.priorities.std())
-  learn_s = time.perf_counter() - t0
-  t_eval = time.perf_counter()
   out = loop.evaluate(state, 101, num_episodes=30, max_steps=2000)
   episodes = int(out["NumberOfEpisodes"])
-  torch.cuda.synchronize()
   finite = bool(torch.isfinite(losses).all())
   ok = ret > PER_LEARN_GATE and std > 0.0 and finite and episodes == 30
   emit("per_learn", card=card, **{
       k: list(v) if isinstance(v, tuple) else v for k, v in PER_LEARN.items()},
        alpha=PER_ALPHA, beta=PER_BETA, iterations=iterations,
        last20_average_return=ret, gate=PER_LEARN_GATE, points=points,
-       priority_std=std, losses_finite=finite,
-       ms_per_iteration=learn_s * 1e3 / iterations, learn_seconds=learn_s,
-       eval_episodes=episodes, eval_average_return=float(out["AverageReturn"]),
-       eval_seconds=time.perf_counter() - t_eval, ok=ok)
+       priority_std=std, losses_finite=finite, eval_episodes=episodes,
+       eval_average_return=float(out["AverageReturn"]), ok=ok)
   if not ok:
     fail("per_learn", f"last-20 return {ret} (gate > {PER_LEARN_GATE}), "
          f"priority std {std}, {episodes} eval episodes of 30")
@@ -6502,36 +5741,29 @@ def phase_episodic(card):
     fired = []
     callback = CompletionCallback([fired.append])
     state, trace, pending = replay.init(), [], []
-    drain_s = 0.0
     if device == "cpu":
       draws = RecordingDraws(Draws(5, "cpu"))
-    else:     # the CPU's draws, copied to the card before the timed calls
+    else:     # the CPU's draws, copied to the card before the checked calls
       draws = ReplayDraws(runs["cpu"]["draws"].records, "cuda")
     if device == "cuda":
       torch.cuda.synchronize()
       torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
     for i, frame in enumerate(device_frames, start=1):
       state, done = replay.add_batch(state, frame, return_completed=True)
       pending.append(done)
       trace.append([getattr(state, f).clone() for f in fields] + [done])
       if i % EPISODIC_DRAIN_EVERY == 0:
-        t_drain = time.perf_counter()
         torch.cuda.set_sync_debug_mode(0)
         callback(torch.cat(pending))
         if device == "cuda":
           torch.cuda.set_sync_debug_mode("error")
         pending = []
-        drain_s += time.perf_counter() - t_drain
     sampled = {completed_only: replay.sample_episodes(
         state, draws, EPISODIC_SAMPLE, completed_only=completed_only,
         return_info=True) for completed_only in (True, False)}
     torch.cuda.set_sync_debug_mode(0)
-    if device == "cuda":
-      torch.cuda.synchronize()
     runs[device] = dict(state=state, trace=trace, sampled=sampled,
-                        fired=fired, draws=draws, drain_s=drain_s,
-                        seconds=time.perf_counter() - t0)
+                        fired=fired, draws=draws)
   mismatched = []
   for i, (ct, gt) in enumerate(zip(runs["cpu"]["trace"],
                                    runs["cuda"]["trace"])):
@@ -6561,8 +5793,6 @@ def phase_episodic(card):
        sync_debug_mode="error outside the callback drains",
        completed_episodes=completed, slot_ring_wrapped=wrapped,
        callbacks_fired=len(gpu["fired"]), callbacks_equal=fired_ok,
-       ms_per_add_batch=(gpu["seconds"] - gpu["drain_s"]) * 1e3
-       / EPISODIC_CALLS, drain_seconds=gpu["drain_s"],
        mismatched=mismatched[:10], ok=ok)
   if not ok:
     fail("episodic", f"card and CPU disagree on {mismatched[:10]}, "
@@ -6675,7 +5905,6 @@ def ingest_leg(card, name, samples_per_insert):
 
   from agents_tpu_torch.environments.test_envs import RandomPyEnvironment
   from agents_tpu_torch.policies.policy_saver import load_manifest
-  from agents_tpu_torch.train.variable_container import VariableContainer
   from examples import sac_train_job_torch as job
   from examples.sac_collect_job_torch import snapshot_crc32
 
@@ -6705,8 +5934,7 @@ def ingest_leg(card, name, samples_per_insert):
     return got
 
   def checked_train_call():
-    at_sample.append((diff(), lim.inserts, learner.replay_state.count,
-                      time.perf_counter(), learner.total_items))
+    at_sample.append((diff(), lim.inserts, learner.replay_state.count))
     torch.cuda.set_sync_debug_mode("error")
     try:
       train_call()
@@ -6729,16 +5957,8 @@ def ingest_leg(card, name, samples_per_insert):
   reports, leftovers = [], []
   try:
     learner.publish()
-    t0 = time.perf_counter()
     while learner.train_steps < INGEST_LEG_STEPS:
       learner.step()
-    torch.cuda.synchronize()
-    # Rates from the first train call on: before it the learner waits for
-    # the collectors to start and fill `min_replay_items`.
-    t_end = time.perf_counter()
-    startup_s, leg_s = at_sample[0][3] - t0, t_end - at_sample[0][3]
-    items = learner.total_items - at_sample[0][4]
-    seconds = dict(learner.seconds)
     pushes = len(crcs)
     for proc in children:
       proc.terminate()
@@ -6757,12 +5977,6 @@ def ingest_leg(card, name, samples_per_insert):
     for server in learner.servers:
       while (out := server.drain(max_frames=4096)) is not None:
         leftovers.append(out)
-    reader = VariableContainer(shm, learner.collect_params())
-    t_pull = time.perf_counter()
-    for _ in range(INGEST_PULLS):
-      reader.pull()
-    pull_us = (time.perf_counter() - t_pull) * 1e6 / INGEST_PULLS
-    reader.close()
     dropped = learner.dropped()
   finally:
     for proc in children:
@@ -6803,17 +6017,10 @@ def ingest_leg(card, name, samples_per_insert):
       "leg": name, "limiter": type(lim).__name__,
       "samples_per_insert": samples_per_insert or None,
       "train_steps": learner.train_steps,
-      "seconds_to_first_train_call": startup_s,
-      "seconds_from_first_train_call": leg_s,
-      "items_ingested": learner.total_items,
-      "items_ingested_per_s": items / leg_s,
-      "train_steps_per_s": learner.train_steps / leg_s,
-      "split_seconds": seconds, "dropped": dropped,
+      "items_ingested": learner.total_items, "dropped": dropped,
       "weight_pushes": pushes,
-      "push_us": seconds["push"] * 1e6 / max(pushes, 1), "pull_us": pull_us,
       "weight_bytes": sum(v.numel() * v.element_size() for v in
                           learner.collect_params().state_dict().values()),
-      "realized_samples_per_insert": lim.samples / max(lim.inserts, 1),
       "diff_range": [min(diffs), max(diffs)] if samples_per_insert else None,
       "diff_bounds": ([lim.min_diff, lim.max_diff]
                       if samples_per_insert else None),
@@ -6825,7 +6032,7 @@ def ingest_leg(card, name, samples_per_insert):
       "collector_ticks": [r["ticks"] for r in reports],
       "export_train_steps": exported, "export_programs": programs,
       "export_modes": export_modes, "exports_advancing": exports_ok,
-      "export_s": seconds["export"], "ingest": ingested, "ok": ok}
+      "ingest": ingested, "ok": ok}
 
 
 def phase_ingest_sac(card):
