@@ -462,23 +462,43 @@ Dependencies: numpy and torch. It imports no framework. Usage:
 The program runs on "cuda" when the artifact has one and a card is
 present, else on "cpu"; `platform=` picks one.
 
+On "cuda" the program is replayed as one CUDA graph per input signature
+(the shape and dtype of every time-step, state and draw leaf, and so the
+batch size), on a stream of the policy's own. A signature's first call
+runs the program op by op, which warms cuDNN, cuBLAS and the allocator;
+its second captures the graph and replays it; every later call replays
+it. A graph copies its inputs in from pinned host buffers, runs the
+program and copies its outputs out to pinned host buffers, so a call
+stages its arrays, launches the graph and waits once. A replay skips the
+program's own checks of its inputs: a call whose signature has no graph
+goes the op-by-op route. Calls are serialised by a lock, since they share
+the graph's buffers; a capture takes in no other thread's work.
+`refresh_params` copies new values into the tensors the graphs read, or
+drops every graph where a leaf's shape or dtype changed. On "cpu" every
+call runs the program op by op.
+
 `span_hook` (None by default) may be set to a factory of named context
 managers that takes ``request=True`` for the span of a whole call, such as
 the port's `agents_tpu_torch.utils.profiling.annotate`: `action` then
 opens "act.call" around each call, and inside it "act.prep"
 (the time step and the draw inputs on the host), "act.upload" (the copies
-to the program's device), "act.program" and "act.fetch" (the copies back,
-where the host waits for the device). Unset, each phase enters a null
+to the program's device; on a replay, the staging into pinned buffers),
+"act.program" (the program op by op, or the graph's launch, inside which
+"act.replay" opens) and "act.fetch" (the copies back, where the host
+waits for the device: on a replay, the one wait for the whole graph and
+the copies out of the pinned buffers). Unset, each phase enters a null
 context.
 """
 import contextlib
 import json
 import os
+import threading
 
 import numpy as np
 import torch
 
-SPANS = ("act.call", "act.prep", "act.upload", "act.program", "act.fetch")
+SPANS = ("act.call", "act.prep", "act.upload", "act.program", "act.replay",
+         "act.fetch")
 
 
 class ExportedPolicy:
@@ -498,13 +518,33 @@ class ExportedPolicy:
     self.device = torch.device(platform)
     path = os.path.join(artifact_dir, self.manifest["programs"][platform])
     self._program = torch.export.load(path).module()
+    # The card's route: the policy's stream, the output leaves (shape,
+    # dtype) of each signature seen once and not yet captured, and each
+    # captured signature's graph.
+    self._stream = (torch.cuda.Stream(self.device)
+                    if self.device.type == "cuda" else None)
+    self._lock = threading.Lock()
+    self._seen, self._graphs = {}, {}
     self.refresh_params()
 
   def refresh_params(self):
-    """Re-read params_flat.npz (written atomically by the exporter)."""
-    z = np.load(os.path.join(self.dir, "params_flat.npz"))
-    self.params = [torch.from_numpy(z[f"p{i}"]).to(self.device)
-                   for i in range(self.manifest["num_params_leaves"])]
+    """Re-read params_flat.npz (written atomically by the exporter).
+    Where graphs are captured and every leaf keeps its shape and dtype,
+    the new values are copied into the tensors the graphs read; otherwise
+    the parameters are new tensors and every graph is dropped."""
+    with np.load(os.path.join(self.dir, "params_flat.npz")) as z:
+      new = [torch.from_numpy(z[f"p{i}"])
+             for i in range(self.manifest["num_params_leaves"])]
+    with self._lock:
+      if self._graphs and all(
+          p.shape == x.shape and p.dtype == x.dtype
+          for p, x in zip(self.params, new)):
+        for p, x in zip(self.params, new):
+          p.copy_(x)
+      else:
+        self._seen.clear()
+        self._graphs.clear()
+        self.params = [x.to(self.device) for x in new]
 
   def initial_state(self, batch_size):
     return [np.zeros([batch_size] + d["shape"][1:], d["dtype"])
@@ -573,9 +613,7 @@ class ExportedPolicy:
   @torch.no_grad()
   def action(self, observation_leaves, state=None, step_type=None,
              key_data=None):
-    call, prep, upload, program, fetch = self._spans
-    to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)
-                     for x in xs]
+    call, prep = self._spans[:2]
     with call:
       with prep:
         batch = np.shape(observation_leaves[0])[0]
@@ -585,11 +623,101 @@ class ExportedPolicy:
         if key_data is None:
           key_data = np.zeros((2,), np.uint32)
         draws = self.draw_inputs(batch, key_data)
-      with upload:
-        draws, flat_ts, state = to(draws), to(flat_ts), to(state)
-      with program:
-        acts, next_state = self._program(self.params, draws, flat_ts, state)
-      with fetch:
-        return ([a.cpu().numpy() for a in acts],
-                [s.cpu().numpy() for s in next_state])
+      if self._stream is None:
+        return self._op_by_op(draws, flat_ts, state)
+      with self._lock, torch.cuda.stream(self._stream):
+        return self._on_card(draws, flat_ts, state)
+
+  def _op_by_op(self, draws, flat_ts, state):
+    """The program called op by op, its inputs copied to the device and
+    its outputs back."""
+    _, _, upload, program, _, fetch = self._spans
+    to = lambda xs: [torch.as_tensor(np.asarray(x)).to(self.device)
+                     for x in xs]
+    with upload:
+      draws, flat_ts, state = to(draws), to(flat_ts), to(state)
+    with program:
+      acts, next_state = self._program(self.params, draws, flat_ts, state)
+    with fetch:
+      return ([a.cpu().numpy() for a in acts],
+              [s.cpu().numpy() for s in next_state])
+
+  def _on_card(self, draws, flat_ts, state):
+    """A call on the policy's stream: op by op for a signature's first
+    call, else through the signature's graph, captured first if it is
+    not yet."""
+    leaves = [np.asarray(x) for x in draws + flat_ts + list(state)]
+    signature = (len(draws), len(flat_ts),
+                 tuple((x.shape, x.dtype) for x in leaves))
+    graph = self._graphs.get(signature)
+    if graph is None:
+      if signature not in self._seen:
+        acts, next_state = self._op_by_op(draws, flat_ts, state)
+        self._seen[signature] = (
+            [(y.shape, y.dtype) for y in acts + next_state], len(acts))
+        return acts, next_state
+      graph = self._graphs[signature] = _Graph(
+          signature[2], *self._seen.pop(signature), self.device)
+    _, _, upload, program, replay, fetch = self._spans
+    with upload:
+      graph.stage(leaves)
+    with program:
+      if graph.graph is None:
+        n, m = len(draws), len(draws) + len(flat_ts)
+        graph.capture(self._stream, lambda xs: self._program(
+            self.params, xs[:n], xs[n:m], xs[m:]))
+      with replay:
+        graph.graph.replay()
+    with fetch:
+      self._stream.synchronize()
+      return graph.results()
+
+
+class _Graph:
+  """One input signature's CUDA graph and the buffers it reads and
+  writes: pinned host buffers for the program's inputs and outputs, and
+  device buffers for its inputs. A replay copies the inputs in, runs the
+  program and copies the outputs out."""
+
+  def __init__(self, inputs, outputs, num_acts, device):
+    """`inputs` and `outputs` are (shape, numpy dtype) of each leaf;
+    the first `num_acts` outputs are the action's."""
+    pin = device.type == "cuda"
+    host = lambda shape, dtype: torch.empty(
+        shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+        pin_memory=pin)
+    self.host_in = [host(*leaf) for leaf in inputs]
+    self.device_in = [torch.empty_like(h, device=device)
+                      for h in self.host_in]
+    self.host_out = [host(*leaf) for leaf in outputs]
+    self.views_in = [h.numpy() for h in self.host_in]
+    self.views_out = [h.numpy() for h in self.host_out]
+    self.num_acts = num_acts
+    self.graph = None
+
+  def stage(self, leaves):
+    for view, x in zip(self.views_in, leaves):
+      np.copyto(view, x)
+
+  def run(self, program):
+    """What a replay repeats: copy in, the program, copy out."""
+    for d, h in zip(self.device_in, self.host_in):
+      d.copy_(h, non_blocking=True)
+    acts, next_state = program(self.device_in)
+    for h, y in zip(self.host_out, list(acts) + list(next_state)):
+      h.copy_(y, non_blocking=True)
+
+  def capture(self, stream, program):
+    """Capture `run(program)` on `stream`; the capture runs none of its
+    work. Other threads may use the card meanwhile."""
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(self.graph, stream=stream,
+                          capture_error_mode="thread_local"):
+      self.run(program)
+
+  def results(self):
+    """Copies of the outputs (the next replay overwrites the buffers):
+    (action leaves, next state leaves)."""
+    out = [view.copy() for view in self.views_out]
+    return out[:self.num_acts], out[self.num_acts:]
 '''

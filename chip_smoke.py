@@ -54,7 +54,9 @@ for bit.
                   `loader.py` in a child that imports numpy and torch only
                   acting on the 4,096 rows' observations on "cuda" and
                   "cpu" as the live greedy policy does (rows whose top two
-                  Q values lie within 1e-5 excepted), and on one row on
+                  Q values lie within 1e-5 excepted), twice more on
+                  "cuda", where both calls replay the program's CUDA graph
+                  and act as the first call did, and on one row on
                   "cuda"; `load_policy(dir)` alone scores at least the
                   `eval` bar over exactly 30 episodes.
   5b. eval_job    `examples/eval_job_torch.py`'s loop in a child
@@ -987,23 +989,46 @@ spec = importlib.util.spec_from_file_location(
 loader = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(loader)
 obs = np.load(obs_path)
+opened = []
+
+
+class Span:
+  def __init__(self, name, request=False):
+    self.name = name
+
+  def __enter__(self):
+    opened.append(self.name)
+
+  def __exit__(self, *exc):
+    return None
+
+
 out = {}
 for platform in ("cuda", "cpu"):
   policy = loader.ExportedPolicy(directory, platform=platform)
   (out[platform],), _ = policy.action([obs])
   if platform == "cuda":
+    policy.span_hook = Span
+    replayed = [policy.action([obs])[0][0] for _ in range(2)]
+    policy.span_hook = None
     policy.action([obs[:1]])
 np.savez(out_path, **out)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     "agents_tpu", "agents_tpu_torch", "jax", "jaxlib", "flax"))
-print(json.dumps({"leaked": leaked, "torch": torch.__version__}))
+print(json.dumps({"leaked": leaked, "torch": torch.__version__,
+                  "replays": opened.count("act.replay"),
+                  "replays_equal": all(np.array_equal(a, out["cuda"])
+                                       for a in replayed)}))
 """
 
 
 def artifact_actions(phase, directory, obs, root):
   """The artifact in `directory` acting on the numpy `obs` in a child that
   imports numpy and torch only (`ARTIFACT_CHILD`), on "cuda" and "cpu":
-  ({platform: actions}, the child's report)."""
+  ({platform: actions}, the child's report). On "cuda" the child calls
+  the policy three times on `obs`: the first call runs the program op by
+  op, the next two replay its CUDA graph, and `phase` fails unless both
+  replays ran and acted as the first call did."""
   import numpy as np
 
   obs_path = os.path.join(root, "observations.npy")
@@ -1017,7 +1042,11 @@ def artifact_actions(phase, directory, obs, root):
     fail(phase, "the artifact's child failed: " + child.stderr[-2000:])
   with np.load(out_path) as data:
     actions = {p: data[p] for p in data.files}
-  return actions, json.loads(child.stdout.strip().splitlines()[-1])
+  report = json.loads(child.stdout.strip().splitlines()[-1])
+  if report["replays"] != 2 or not report["replays_equal"]:
+    fail(phase, f"the artifact's CUDA graph: {report['replays']} replays "
+         f"of 2, actions as the first call's: {report['replays_equal']}")
+  return actions, report
 
 
 def _crc32c(data: bytes) -> int:
