@@ -25,6 +25,18 @@ The train step's CEM draws come from the agent state's draw source
 package derives its key as ``fold_in(key(53), train_step)`` (:166-167).
 The train step is a host int, so the periodic updates need no device
 `where` and no sync.
+
+Beyond the JAX package: `cem_sampler` picks CEM's sampler (QT-Opt's
+grasping action is a continuous and a one-hot part,
+`GaussianOneHotSampler` under a `ConcatenatedSampler`); with `q_logits`
+the critic's output is the logit of a Q in [0, 1] (QT-Opt's sigmoid
+critic): Q is its sigmoid wherever a value is read (the TD target's
+delayed critics, CEM's returned Q, the TD errors), and
+`td_errors_loss_fn` gets (TD targets, logits), so a cross-entropy is
+taken stably from the logit (`common.element_wise_sigmoid_cross_entropy`).
+CEM ranks candidates by the logit, which orders them as Q does. The train
+step opens the ``agent.loss``, ``agent.grad`` and ``agent.apply`` spans
+and counts ``agent.train_steps`` (`utils/profiling.py`).
 """
 from __future__ import annotations
 
@@ -35,13 +47,14 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from agents_tpu_torch.agents.agent import (Agent, apply_gradients,
+from agents_tpu_torch.agents.agent import (APPLY_SPAN, GRAD_SPAN, LOSS_SPAN,
+                                           Agent, apply_gradients,
                                            check_network_devices)
 from agents_tpu_torch.policies.cem_policy import CEMPolicy
 from agents_tpu_torch.policies.wrappers import (EpsilonGreedyPolicy,
                                                 GaussianPolicy)
 from agents_tpu_torch.trajectories import trajectory as tj
-from agents_tpu_torch.utils import common, nest_utils
+from agents_tpu_torch.utils import common, nest_utils, profiling
 from agents_tpu_torch.utils.common import LossInfo
 from agents_tpu_torch.utils.device import resolve_device
 from agents_tpu_torch.utils.draws import Draws
@@ -75,6 +88,10 @@ class QtOptAgent(Agent):
       `init` copies it for the target and the delayed targets.
     optimizer_fn: builds the optimizer from the critic's parameters, e.g.
       ``lambda p: torch.optim.Adam(p, lr=3e-4)``.
+    cem_sampler: CEM's actions sampler (`policies/cem_samplers.py`);
+      `GaussianContinuousSampler` over the action spec by default.
+    q_logits: the critic outputs the logit of Q (see the module
+      docstring).
     device: where the networks live; "cuda" unless the caller asks for
       "cpu".
   """
@@ -90,7 +107,8 @@ class QtOptAgent(Agent):
                gamma: float = 1.0, reward_scale_factor: float = 1.0,
                target_update_tau: float = 1.0,
                target_update_period: int = 1,
-               gradient_clipping: Optional[float] = None, device="cuda"):
+               gradient_clipping: Optional[float] = None,
+               cem_sampler=None, q_logits: bool = False, device="cuda"):
     self.device = resolve_device(device)
     check_network_devices(self.device, q_network=q_network)
     self.time_step_spec = time_step_spec
@@ -107,11 +125,13 @@ class QtOptAgent(Agent):
     self.target_update_tau = target_update_tau
     self.target_update_period = target_update_period
     self.gradient_clipping = gradient_clipping
+    self.q_logits = q_logits
     self.train_sequence_length = n_step_update + 1
     self.policy = CEMPolicy(time_step_spec, action_spec, q_network,
                             num_samples=cem_num_samples,
                             num_elites=cem_num_elites,
-                            num_iterations=cem_num_iterations)
+                            num_iterations=cem_num_iterations,
+                            sampler=cem_sampler)
     if exploration_noise_std is not None:
       self.collect_policy = GaussianPolicy(self.policy,
                                            scale=exploration_noise_std)
@@ -140,6 +160,10 @@ class QtOptAgent(Agent):
     q, _ = critic((time_steps.observation, actions), time_steps.step_type, ())
     return q
 
+  def _value(self, output):
+    """Q from the critic's output (its sigmoid under `q_logits`)."""
+    return torch.sigmoid(output) if self.q_logits else output
+
   @torch.no_grad()
   def compute_next_q_values(self, agent_state: QtOptAgentState,
                             next_time_steps, policy_info):
@@ -152,11 +176,11 @@ class QtOptAgent(Agent):
     next_action, next_q = self.policy.optimize(s.target_q_network,
                                                next_time_steps, s.draws)
     if self.enable_td3:
-      return torch.minimum(
+      return self._value(torch.minimum(
           self._q(s.target_q_network_delayed, next_time_steps, next_action),
           self._q(s.target_q_network_delayed_2, next_time_steps,
-                  next_action))
-    return next_q
+                  next_action)))
+    return self._value(next_q)
 
   def _loss(self, q_network, agent_state, experience, weights=None):
     """experience: Trajectory [B, T=n_step+1]."""
@@ -167,9 +191,10 @@ class QtOptAgent(Agent):
                                         transition.action_step.info)
     td_targets = (self.reward_scale_factor * next_time_steps.reward
                   + self.gamma * next_time_steps.discount * next_q)
-    q = self._q(q_network, time_steps, transition.action_step.action)
+    output = self._q(q_network, time_steps, transition.action_step.action)
+    q = self._value(output)
     valid_mask = (~time_steps.is_last()).to(torch.float32)
-    td_loss = self.td_errors_loss_fn(td_targets, q) * valid_mask
+    td_loss = self.td_errors_loss_fn(td_targets, output) * valid_mask
     loss = common.aggregate_losses(per_example_loss=td_loss,
                                    sample_weight=weights)
     return loss, QtOptLossExtra(td_loss=td_loss,
@@ -178,24 +203,28 @@ class QtOptAgent(Agent):
   def train(self, agent_state: QtOptAgentState, experience,
             weights=None) -> Tuple[QtOptAgentState, LossInfo]:
     s = agent_state
-    loss, extra = self._loss(s.q_network, s, experience, weights)
+    with LOSS_SPAN:
+      loss, extra = self._loss(s.q_network, s, experience, weights)
     params = list(s.q_network.parameters())
-    apply_gradients([(torch.autograd.grad(loss, params, allow_unused=True),
-                      params, s.optimizer)],
-                    self.gradient_clipping, self.mesh)
+    with GRAD_SPAN:
+      grads = torch.autograd.grad(loss, params, allow_unused=True)
     train_step = s.train_step + 1
-    # delayed_2 takes the old delayed, delayed the old target, and only
-    # then the target follows the stepped critic.
-    if self.enable_td3:
-      for source, target in (
-          (s.target_q_network_delayed, s.target_q_network_delayed_2),
-          (s.target_q_network, s.target_q_network_delayed)):
-        common.periodic_soft_update(
-            train_step, self.delayed_target_update_period,
-            source.parameters(), target.parameters(), 1.0)
-    common.periodic_soft_update(
-        train_step, self.target_update_period, s.q_network.parameters(),
-        s.target_q_network.parameters(), self.target_update_tau)
+    with APPLY_SPAN:
+      apply_gradients([(grads, params, s.optimizer)],
+                      self.gradient_clipping, self.mesh)
+      # delayed_2 takes the old delayed, delayed the old target, and only
+      # then the target follows the stepped critic.
+      if self.enable_td3:
+        for source, target in (
+            (s.target_q_network_delayed, s.target_q_network_delayed_2),
+            (s.target_q_network, s.target_q_network_delayed)):
+          common.periodic_soft_update(
+              train_step, self.delayed_target_update_period,
+              source.parameters(), target.parameters(), 1.0)
+      common.periodic_soft_update(
+          train_step, self.target_update_period, s.q_network.parameters(),
+          s.target_q_network.parameters(), self.target_update_tau)
+    profiling.count("agent.train_steps")
     extra = nest_utils.tree_map(torch.Tensor.detach, extra)
     return (dataclasses.replace(s, train_step=train_step),
             LossInfo(loss=loss.detach(), extra=extra))

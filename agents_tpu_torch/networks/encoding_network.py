@@ -13,7 +13,10 @@ Layouts follow flax, so converted weights apply unchanged:
   - each conv pads as XLA's SAME does (`same_padding`): torch's
     ``padding="same"`` refuses stride > 1; with ``padding="VALID"`` it
     does not pad (``(size - kernel) // stride + 1`` outputs, the
-    published Atari torsos' 84 -> 20 -> 9 -> 7);
+    published Atari torsos' 84 -> 20 -> 9 -> 7); `padding` may also give
+    one of the two per conv layer;
+  - `max_pools` puts an unpadded max-pool after a conv layer's
+    activation (QT-Opt's torso: 472 -> 234 -> 78 -> 26);
   - the conv output is flattened in NHWC order, the order flax's first
     Dense kernel expects.
 
@@ -26,7 +29,7 @@ float32 parameters through the casts.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +62,17 @@ def conv_output_size(size: int, kernel: int, stride: int,
   return (size - kernel) // stride + 1
 
 
+def _paddings(padding, layers: int) -> Tuple[str, ...]:
+  """One padding per conv layer from `padding` (one for all, or one
+  each)."""
+  paddings = (padding,) * layers if isinstance(padding, str) \
+      else tuple(padding)
+  if len(paddings) != layers or any(p not in PADDINGS for p in paddings):
+    raise ValueError(f"padding is one of {PADDINGS} or one of them per "
+                     f"conv layer, got {padding!r}")
+  return paddings
+
+
 def _check_conv_params(conv_layer_params):
   for layer in conv_layer_params:
     if (not isinstance(layer, (tuple, list)) or len(layer) != 3
@@ -86,7 +100,10 @@ class EncoderModule(nn.Module):
     kernel_init: fills each conv and Dense weight in place, called as
       ``kernel_init(weight, generator=generator)``; flax's
       ``variance_scaling(2.0, "fan_in", "truncated_normal")`` by default.
-    padding: "SAME" (XLA's, the default) or "VALID" (none).
+    padding: "SAME" (XLA's, the default) or "VALID" (none), or one of
+      them per conv layer.
+    max_pools: {conv layer index: (kernel_size, stride)}: an unpadded
+      max-pool after that layer's activation.
   """
 
   def __init__(self, input_spec, conv_layer_params=(),
@@ -97,11 +114,15 @@ class EncoderModule(nn.Module):
                preprocessing: Optional[Callable] = None, device="cuda",
                generator: Optional[torch.Generator] = None,
                kernel_init: Callable = variance_scaling_,
-               padding: str = "SAME"):
+               padding="SAME",
+               max_pools: Optional[Dict[int, Tuple[int, int]]] = None):
     super().__init__()
     _check_conv_params(conv_layer_params)
-    if padding not in PADDINGS:
-      raise ValueError(f"padding is one of {PADDINGS}, got {padding!r}")
+    paddings = _paddings(padding, len(conv_layer_params))
+    max_pools = dict(max_pools or {})
+    if not set(max_pools) <= set(range(len(conv_layer_params))):
+      raise ValueError(f"max_pools names conv layers {sorted(max_pools)} of "
+                       f"{len(conv_layer_params)}")
     device = resolve_device(device)
     self.activation = activation
     self.dropout_rate = dropout_rate
@@ -111,6 +132,8 @@ class EncoderModule(nn.Module):
     # Per leaf: [(conv index, stride, F.pad widths or None, conv padding)]
     # for image leaves, [] for leaves that are only flattened.
     self._conv_plans: List[list] = []
+    # {index into `convs`: (kernel, stride)} of the max-pools.
+    self._pools: Dict[int, Tuple[int, int]] = {}
     width = 0
     for spec in nest_utils.flatten(input_spec, is_leaf=array_spec._is_spec):
       if not conv_layer_params or len(spec.shape) < 2:
@@ -122,7 +145,8 @@ class EncoderModule(nn.Module):
             f"the conv stack takes [H, W, C] observation leaves, got {spec}")
       h, w, channels = spec.shape
       plan = []
-      for filters, kernel, stride in conv_layer_params:
+      for layer, (filters, kernel, stride) in enumerate(conv_layer_params):
+        padding = paddings[layer]
         conv = nn.utils.skip_init(nn.Conv2d, channels, filters, kernel,
                                   stride=stride, device=device)
         kernel_init(conv.weight, generator=generator)
@@ -139,6 +163,11 @@ class EncoderModule(nn.Module):
         h, w = (conv_output_size(h, kernel, stride, padding),
                 conv_output_size(w, kernel, stride, padding))
         channels = filters
+        if layer in max_pools:
+          pool_kernel, pool_stride = max_pools[layer]
+          self._pools[len(self.convs) - 1] = (pool_kernel, pool_stride)
+          h, w = (conv_output_size(h, pool_kernel, pool_stride, "VALID"),
+                  conv_output_size(w, pool_kernel, pool_stride, "VALID"))
       self._conv_plans.append(plan)
       width += h * w * channels
     if conv_layer_params and not self.convs:
@@ -154,7 +183,12 @@ class EncoderModule(nn.Module):
       width = out
     self.output_size = width
 
-  def _conv_stack(self, x, plan):
+  def conv_map(self, x, plan=None):
+    """The conv stack (leaf `plan`'s; the first image leaf's by default)
+    over NHWC images `x`, already preprocessed and cast: its NCHW
+    output map."""
+    if plan is None:
+      plan = next(p for p in self._conv_plans if p)
     x = x.permute(0, 3, 1, 2)                    # NHWC -> NCHW view
     for index, stride, pad, padding in plan:
       conv = self.convs[index]
@@ -163,7 +197,13 @@ class EncoderModule(nn.Module):
       x = F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                    stride=stride, padding=padding)
       x = self.activation(x)
-    return x.permute(0, 2, 3, 1)                 # back to NHWC order
+      pool = self._pools.get(index)
+      if pool is not None:
+        x = F.max_pool2d(x, pool[0], pool[1])
+    return x
+
+  def _conv_stack(self, x, plan):
+    return self.conv_map(x, plan).permute(0, 2, 3, 1)  # back to NHWC order
 
   def forward(self, observation, step_type=None, network_state=(),
               training: bool = False):

@@ -2,6 +2,7 @@ from agents_tpu_torch.policies.actor_policy import (ActorPolicy,
                                                    DeterministicActorPolicy)
 from agents_tpu_torch.policies.cem_policy import CEMPolicy
 from agents_tpu_torch.policies.cem_samplers import (ActionsSampler,
+                                                    ConcatenatedSampler,
                                                     GaussianContinuousSampler,
                                                     GaussianHybridSampler,
                                                     GaussianOneHotSampler)
@@ -16,7 +17,8 @@ from agents_tpu_torch.policies.wrappers import (BoltzmannPolicy,
                                                 OUNoisePolicy)
 
 __all__ = ["ActionsSampler", "ActorPolicy", "BoltzmannPolicy", "CEMPolicy",
-           "CategoricalQPolicy", "DeterministicActorPolicy",
+           "CategoricalQPolicy", "ConcatenatedSampler",
+           "DeterministicActorPolicy",
            "EpsilonGreedyPolicy", "FixedPolicy", "GaussianContinuousSampler",
            "GaussianHybridSampler", "GaussianOneHotSampler", "GaussianPolicy",
            "GreedyPolicy", "OUNoisePolicy", "Policy", "QPolicy",

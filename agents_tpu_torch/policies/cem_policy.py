@@ -13,6 +13,21 @@ reads the card from the host: the shapes depend on N, B and E alone.
 step_type, state)``. The policy acts by optimization, so `_distribution`
 raises `NotImplementedError`; `EpsilonGreedyPolicy` then takes its action
 as the greedy arm.
+
+A critic whose action enters after an observation-only torso offers
+``features(observation)`` and ``head(features, action, observation)``
+(QT-Opt's, ``networks/qtopt_networks.py``). `optimize` then runs each
+row's observation through the torso once and scores the ``[N, B]``
+candidates, and the final mode, with `head` on those features; a critic
+without `features` is scored by the tiled path above, unchanged. Both
+paths take the same draws and pick the same elites, up to float
+rounding.
+
+Each `optimize` is a span, ``cem.optimize`` (`utils/profiling.py`), and
+counts the candidate actions it scored, the final mode's included
+(``cem.candidates``), and the observations it ran through a critic's
+torso (``cem.torso_images``: one a row on the split path, one a
+candidate on the tiled path).
 """
 from __future__ import annotations
 
@@ -24,7 +39,9 @@ from agents_tpu_torch.policies.cem_samplers import (ActionsSampler,
                                                     GaussianContinuousSampler)
 from agents_tpu_torch.policies.policy import Policy
 from agents_tpu_torch.trajectories import policy_step as ps
-from agents_tpu_torch.utils import nest_utils
+from agents_tpu_torch.utils import nest_utils, profiling
+
+_OPTIMIZE = profiling.annotate("cem.optimize")
 
 
 class CEMPolicy(Policy):
@@ -43,8 +60,17 @@ class CEMPolicy(Policy):
     self.initial_std = initial_std
     self.sampler = sampler or GaussianContinuousSampler(action_spec)
 
-  def _eval_q(self, params, time_step, sample_leaves):
+  @staticmethod
+  def _features(params, observation):
+    """The critic's per-row features, or None where it has no split."""
+    features = getattr(params, "features", None)
+    return None if features is None else features(observation)
+
+  def _eval_q(self, params, time_step, sample_leaves, features=None):
     """sample_leaves: tuple of [N, B, ...] -> q [N, B]."""
+    if features is not None:
+      return params.head(features, self.sampler.unflatten(
+          list(sample_leaves)), time_step.observation)
     n, b = sample_leaves[0].shape[:2]
     action = self.sampler.unflatten(
         [a.reshape((n * b,) + tuple(a.shape[2:])) for a in sample_leaves])
@@ -57,20 +83,29 @@ class CEMPolicy(Policy):
     q, _ = params((obs, action), tile(time_step.step_type), ())
     return q.reshape(n, b)
 
+  @_OPTIMIZE
   def optimize(self, params, time_step, draws):
     """Returns (best action nest [B, ...], its Q [B])."""
     batch_size = time_step.step_type.shape[0]
+    features = self._features(params, time_step.observation)
     dist_params = self.sampler.init(batch_size, self.initial_std,
                                     device=time_step.step_type.device)
     for _ in range(self.num_iterations):
       samples = self.sampler.sample_batch_and_clip(draws, self.num_samples,
                                                    dist_params)
-      q = self._eval_q(params, time_step, samples)               # [N, B]
+      q = self._eval_q(params, time_step, samples, features)     # [N, B]
       elite_idx = torch.topk(q.T, self.num_elites, dim=-1).indices  # [B, E]
       dist_params = self.sampler.refit_distribution_to(elite_idx, samples)
     action = self.sampler.unflatten(list(self.sampler.mode(dist_params)))
-    q_final, _ = params((time_step.observation, action), time_step.step_type,
-                        ())
+    if features is None:
+      q_final, _ = params((time_step.observation, action),
+                          time_step.step_type, ())
+    else:
+      q_final = params.head(features, action, time_step.observation)
+    candidates = (self.num_iterations * self.num_samples + 1) * batch_size
+    profiling.count("cem.candidates", candidates)
+    profiling.count("cem.torso_images",
+                    candidates if features is None else batch_size)
     return action, q_final
 
   def _action(self, params, time_step, state, draws):

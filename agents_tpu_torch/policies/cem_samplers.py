@@ -176,16 +176,20 @@ class GaussianHybridSampler(GaussianContinuousSampler):
                  for s, leaf in zip(self.specs, samples))
 
 
-class GaussianOneHotSampler(ActionsSampler):
-  """Gaussian continuous leaves, and one-hot leaves (rank 1, discrete,
-  maximum 1) whose 'mean' is a probability vector: a sample draws a
-  category and one-hot encodes it, the refit averages the elites' one-hots
-  (plus 1e-6, renormalized), the mode is the most probable category."""
+def is_one_hot(spec) -> bool:
+  """A one-hot leaf: bounded, discrete, rank 1, maximum 1."""
+  return (isinstance(spec, array_spec.BoundedArraySpec)
+          and array_spec.is_discrete(spec) and len(spec.shape) == 1
+          and int(np.max(spec.maximum)) == 1)
 
-  @staticmethod
-  def _is_one_hot(spec) -> bool:
-    return (array_spec.is_discrete(spec) and len(spec.shape) == 1
-            and int(np.max(spec.maximum)) == 1)
+
+class GaussianOneHotSampler(ActionsSampler):
+  """Gaussian continuous leaves, and one-hot leaves (`is_one_hot`) whose
+  'mean' is a probability vector: a sample draws a category and one-hot
+  encodes it, the refit averages the elites' one-hots (plus 1e-6,
+  renormalized), the mode is the most probable category."""
+
+  _is_one_hot = staticmethod(is_one_hot)
 
   def __init__(self, action_spec, sample_clippers=()):
     super().__init__(action_spec, sample_clippers)
@@ -251,3 +255,34 @@ class GaussianOneHotSampler(ActionsSampler):
       else:
         out.append(torch.clamp(m, lo, hi))
     return tuple(out)
+
+
+class ConcatenatedSampler:
+  """`sampler` over its own action nest, whose actions are one flat float
+  vector: its leaves, in its (sorted) order, cast to float32 and
+  concatenated on the last axis (QT-Opt's 8-float action, sampled as a
+  continuous leaf and a one-hot leaf by `GaussianOneHotSampler`). The
+  policy's action spec is then one float leaf of the leaves' summed
+  widths; exploration draws over `action_spec`, the inner nest
+  (`policies/wrappers.py`)."""
+
+  def __init__(self, sampler: ActionsSampler):
+    self.sampler = sampler
+    self.action_spec = sampler.action_spec
+    self.specs = sampler.specs
+
+  def init(self, batch_size: int, initial_std: float = 0.33, *, device):
+    return self.sampler.init(batch_size, initial_std, device=device)
+
+  def sample_batch_and_clip(self, draws, num_samples, dist_params):
+    return self.sampler.sample_batch_and_clip(draws, num_samples,
+                                              dist_params)
+
+  def refit_distribution_to(self, elite_idx, samples):
+    return self.sampler.refit_distribution_to(elite_idx, samples)
+
+  def mode(self, dist_params):
+    return self.sampler.mode(dist_params)
+
+  def unflatten(self, leaves):
+    return torch.cat([leaf.to(torch.float32) for leaf in leaves], dim=-1)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from agents_tpu_torch import distributions as dist_lib
+from agents_tpu_torch.policies.cem_samplers import is_one_hot
 from agents_tpu_torch.policies.policy import Policy
 from agents_tpu_torch.specs import array_spec
 from agents_tpu_torch.trajectories import policy_step as ps
@@ -29,6 +30,19 @@ from agents_tpu_torch.utils import nest_utils
 
 
 MASKED_RANDOM_ACTION_SITE = "masked_random_action"
+RANDOM_ACTION_SITE = "random_action"
+
+
+def _random_leaf(spec, draws, outer_dims):
+  """A uniform random value of one leaf: a uniform one-hot vector for a
+  one-hot leaf, else `array_spec.sample_spec`'s."""
+  if is_one_hot(spec):
+    depth = spec.shape[0]
+    index = draws.randint(RANDOM_ACTION_SITE, tuple(outer_dims), 0, depth)
+    return torch.nn.functional.one_hot(index.long(), depth).to(
+        array_spec.torch_dtype(spec.dtype))
+  return array_spec.sample_spec(spec, draws, outer_dims,
+                                site=RANDOM_ACTION_SITE)
 
 
 def _is_dist(d) -> bool:
@@ -80,7 +94,12 @@ class EpsilonGreedyPolicy(Policy):
   `epsilon` is a float or a callable of the policy params (the DQN collect
   policy reads the train step from them). The random action and the coin
   are drawn for every row ("random_action", "explore") and then selected
-  with `where`, as in the JAX package.
+  with `where`, as in the JAX package. The random action is uniform over
+  the spec (`array_spec.sample_spec`), except that a one-hot leaf
+  (`cem_samplers.is_one_hot`) is a uniform one-hot vector, one category
+  drawn per row at "random_action". A wrapped policy that acts through a
+  CEM sampler explores over the sampler's own nest, its draw packed into
+  an action as the sampler packs its samples (`ConcatenatedSampler`).
   """
 
   def __init__(self, wrapped: Policy, epsilon=0.1):
@@ -109,12 +128,19 @@ class EpsilonGreedyPolicy(Policy):
     batch_shape = tuple(time_step.step_type.shape)
     random_action = self._valid_random_action(dstep, draws)
     if random_action is None:
-      random_action = array_spec.sample_spec_nest(
-          self.action_spec, draws, outer_dims=batch_shape,
-          site="random_action")
+      random_action = self._random_action(draws, batch_shape)
     explore = draws.uniform("explore", batch_shape) < self._epsilon(params)
     return greedy.replace(
         action=nest_utils.where(explore, random_action, greedy.action))
+
+  def _random_action(self, draws, batch_shape):
+    sampler = getattr(self.wrapped, "sampler", None)
+    spec = self.action_spec if sampler is None else sampler.action_spec
+    action = array_spec.map_spec_nest(
+        lambda s: _random_leaf(s, draws, batch_shape), spec)
+    if sampler is None:
+      return action
+    return sampler.unflatten(nest_utils.flatten_sorted(action))
 
   @staticmethod
   def _valid_random_action(dstep, draws):

@@ -88,6 +88,13 @@ def element_wise_squared_loss(x, y):
   return torch.square(x - y)
 
 
+def element_wise_sigmoid_cross_entropy(targets, logits):
+  """Per-element cross-entropy of probability `targets` in [0, 1] under
+  sigmoid(`logits`), taken stably from the logits."""
+  return torch.nn.functional.binary_cross_entropy_with_logits(
+      logits, targets, reduction="none")
+
+
 def element_wise_huber_loss(x, y, delta: float = 1.0):
   """Per-element Huber loss."""
   abs_err = torch.abs(x - y)
